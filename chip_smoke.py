@@ -1,0 +1,519 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a),
+holds every kernel against its plain PyTorch version on the card, runs
+``engine.count`` and ``engine.evaluate`` of the 4-cycle on Zipf graphs at
+the published scale of SNAP wiki-Vote and ca-GrQc, checks both against
+scipy.sparse oracles, and checks that the main path launched every
+kernel.  Phases print one line each; then come the card's name and
+power limit (as nvidia-smi prints them), a JSON object with each
+kernel's launches, error, times and bound, and as the last line
+
+    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
+
+Any failed check raises, so the script exits non-zero and prints no
+result; so does a machine without CUDA.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+import torch  # noqa: E402
+
+from repro_torch.core import engine  # noqa: E402
+from repro_torch.core.cached_frontier import CachedTrieJoin  # noqa: E402
+from repro_torch.core.cq import cycle_query  # noqa: E402
+from repro_torch.core.db import graph_db  # noqa: E402
+from repro_torch.core.frontier import Frontier  # noqa: E402
+from repro_torch.core.schedule import FOLD_CHILD  # noqa: E402
+from repro_torch.data.graphs import zipf_graph  # noqa: E402
+from repro_torch.kernels import cudalib  # noqa: E402
+from repro_torch.kernels.emit import cuda as emit_cuda  # noqa: E402
+from repro_torch.kernels.emit import plain as emit_plain  # noqa: E402
+from repro_torch.kernels.expand import cuda as expand_cuda  # noqa: E402
+from repro_torch.kernels.expand import plain as expand_plain  # noqa: E402
+from repro_torch.kernels.fold import cuda as fold_cuda  # noqa: E402
+from repro_torch.kernels.fold import plain as fold_plain  # noqa: E402
+
+C = 1 << 16                 # the main path's chunk capacity
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
+# H100 SXM peak outside the tensor cores (the data sheet's float32 rate;
+# it lists no int32 rate, and int32 issues no faster)
+OPS_PER_S = 67e12
+ZIPF_A = 0.8                # endpoint-popularity skew of both graphs
+SEED = 0
+# SNAP wiki-Vote: 7,115 vertices, 103,689 directed edges
+WIKI = dict(nv=7115, ne=103689)
+# SNAP ca-GrQc: 5,242 vertices, 14,496 undirected edges
+GRQC = dict(nv=5242, ne=14496)
+WRAPPERS = {"expand": expand_cuda, "fold_replay": fold_cuda,
+            "emit": emit_cuda}
+SOURCES = {"expand": ("src/repro_torch/csrc/expand.cu",
+                      "src/repro/kernels/expand/fused.py:193"),
+           "fold_replay": ("src/repro_torch/csrc/fold.cu",
+                           "src/repro/kernels/fold/fused.py:228"),
+           "emit": ("src/repro_torch/csrc/emit.cu",
+                    "src/repro/kernels/emit/fused.py:70")}
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
+    """Median device time of one call, by CUDA events around each call."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def row_bytes(n: int, m: int) -> int:
+    """Bytes of one chunk row's assign, factor, orig, lo and hi."""
+    return 4 * n + 8 + 4 + 8 * m
+
+
+def host(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy()
+
+
+def trips(n: int) -> int:
+    """Steps of the kernels' fixed-trip bounded search over n values."""
+    return n.bit_length() + 1 if n else 0
+
+
+def bound(n_bytes: int, n_ops: int) -> dict:
+    """The least time the card could take: the larger of the bytes moved
+    over the memory rate and the integer operations (search steps and
+    scanned values) over the peak rate outside the tensor cores."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / OPS_PER_S * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations")
+
+
+def expand_work(F, g_col, g_rs, others, kw) -> tuple:
+    """(bytes, operations) one EXPAND must spend on this input.  Bytes:
+    the valid flags and the guard window of every valid row; the other
+    atoms' windows of every row that fills a slot; the start and the
+    candidate value of every guard run a filled slot takes; one column
+    value per survivor and atom (capped at the column's length); the
+    rest of every survivor's parent row; the survivors' rows, the valid
+    flags and `needed` out.  Operations: two searches over the run starts
+    per valid row, two scans of C values, and per filled slot the offset
+    inversion and two searches per other atom."""
+    C, n = F.assign.shape
+    m = F.lo.shape[1]
+    g_ai, n_oth = kw["g_ai"], len(others)
+    valid, rs = host(F.valid), host(g_rs)
+    r0 = np.searchsorted(rs, host(F.lo[:, g_ai]))
+    r1 = np.searchsorted(rs, host(F.hi[:, g_ai]))
+    cnt = np.where(valid, r1 - r0, 0)
+    off = np.cumsum(cnt) - cnt
+    filled = min(int(cnt.sum()), C)
+    slot = np.arange(filled)
+    src = np.searchsorted(off, slot, side="right") - 1
+    runs = np.unique(r0[src] + slot - off[src]).size
+    feeding = int(((cnt > 0) & (off < C)).sum())
+    # survivors and their parents: the plain version on rows that carry
+    # their own index in `orig`
+    idx = F._replace(orig=torch.arange(C, dtype=torch.int32,
+                                       device=F.orig.device))
+    Fo, _ = expand_plain.expand_step(idx, g_col, g_rs, others, **kw)
+    surv = int(Fo.valid.sum())
+    parents = int(torch.unique(Fo.orig[:surv]).numel())
+    read = (C + 8 * int(valid.sum()) + 8 * n_oth * feeding + 8 * runs
+            + sum(4 * min(c.numel(), surv) for c in others)
+            + parents * (4 * (n - 1) + 12 + 8 * (m - 1 - n_oth)))
+    written = surv * row_bytes(n, m) + C + 4
+    ops = (int(valid.sum()) * 2 * trips(rs.size) + 2 * C
+           + filled * (trips(C) + sum(2 * trips(c.numel()) for c in others)))
+    return read + written, ops
+
+
+def fold_work(P, active, ror, E, d0: int, d1: int) -> tuple:
+    """(bytes, operations) one replay-only FOLD must spend on this input.
+    Bytes: the active flags and the representative of every active row;
+    the exits' valid flags and the orig of every valid exit; the parent
+    row (less the replayed columns) of every parent that fills an output
+    row; columns [d0, d1] and the factor of every exit replayed; the
+    output rows, the valid flags and the stats.  Operations: two searches
+    over the exits per active row, one scan of C values, and per output
+    row the offset inversion and the factor product."""
+    C, n = P.assign.shape
+    m, w = P.lo.shape[1], d1 - d0 + 1
+    act = host(active)
+    rep = np.clip(host(ror), 0, C - 1)
+    ev = host(E.valid)
+    ekey = np.where(ev, np.clip(host(E.orig), 0, C - 1), C)
+    lb = np.searchsorted(ekey, rep, side="left")
+    ub = np.searchsorted(ekey, rep, side="right")
+    pcnt = np.where(act, ub - lb, 0)
+    roff = np.cumsum(pcnt) - pcnt
+    take = np.clip(np.minimum(pcnt, C - roff), 0, None)
+    feed = take > 0
+    cover = np.zeros(C + 1, np.int64)
+    np.add.at(cover, lb[feed], 1)
+    np.add.at(cover, lb[feed] + take[feed], -1)
+    exits = int((np.cumsum(cover)[:C] > 0).sum())
+    out = min(int(pcnt.sum()), C)
+    n_act = int(act.sum())
+    read = (C + 4 * n_act + C + 4 * int(ev.sum())
+            + int(feed.sum()) * (4 * (n - w) + 12 + 8 * m)
+            + exits * (4 * w + 8))
+    written = out * row_bytes(n, m) + C + 24
+    ops = n_act * 2 * trips(C) + C + out * (trips(C) + 1)
+    return read + written, ops
+
+
+def frontier_max_err(a, b, k: int) -> int:
+    """Max |a - b| over the first k rows of every chunk field."""
+    err = 0
+    for f in ("assign", "factor", "orig", "lo", "hi"):
+        x, y = getattr(a, f)[:k], getattr(b, f)[:k]
+        if x.numel():
+            err = max(err, int((x.long() - y.long()).abs().max()))
+    return err
+
+
+def cycle_oracle(db, k: int) -> int:
+    """Number of k-cycle matches (cq.cycle_query): the sum over edges
+    (x1, xk) of (A^(k-1))[x1, xk], computed as sum(A^(k-2) ∘ (A Aᵀ))."""
+    import scipy.sparse as sp
+    e = db.relations["E"]
+    nv = int(e.max()) + 1
+    A = sp.csr_matrix((np.ones(len(e), np.int64), (e[:, 0], e[:, 1])),
+                      shape=(nv, nv))
+    P = A
+    for _ in range(k - 3):
+        P = P @ A
+    return int(P.multiply(A @ A.T).sum())
+
+
+# ---------------------------------------------------------------------------
+# Phase 3 inputs: seeded, at the main path's shapes
+# ---------------------------------------------------------------------------
+
+
+def expand_inputs(eng, d: int, rng, dev):
+    """A chunk for EXPAND(d) of ``eng``: 3/4 of the rows valid, each
+    guard window 0-2 runs of the guard level, each other atom's window
+    one sibling run of its level (sorted, as the trie gives it)."""
+    args = eng.expand_kernel_args(d)
+    m, n = eng.m, eng.n
+    lo = np.zeros((C, m), np.int32)
+    hi = np.tile(np.asarray(eng.sizes, np.int32), (C, 1))
+    parts = dict(eng.at_depth[d])
+    for ai, lvl in parts.items():
+        size = eng.sizes[ai]
+        if ai == args["g_ai"]:
+            rs = eng.levels[ai][lvl].runstarts_np
+            ends = np.append(rs, size)
+            r = rng.integers(0, len(rs), C)
+            w = rng.integers(0, 3, C)
+            lo[:, ai] = rs[r]
+            hi[:, ai] = ends[np.minimum(r + w, len(rs))]
+        elif lvl > 0:
+            rs = eng.levels[ai][lvl - 1].runstarts_np
+            ends = np.append(rs, size)
+            r = rng.integers(0, len(rs), C)
+            lo[:, ai] = rs[r]
+            hi[:, ai] = ends[r + 1]
+    F = Frontier(
+        assign=torch.from_numpy(rng.integers(0, 1 << 12, (C, n))
+                                .astype(np.int32)),
+        factor=torch.from_numpy(rng.integers(1, 6, C).astype(np.int64)),
+        valid=torch.from_numpy(rng.random(C) < 0.75),
+        orig=torch.from_numpy(np.sort(rng.integers(0, C, C))
+                              .astype(np.int32)),
+        lo=torch.from_numpy(lo), hi=torch.from_numpy(hi))
+    F = Frontier(*(t.to(dev) for t in F))
+    kw = dict(d=d, g_ai=args["g_ai"], other_ais=args["other_ais"],
+              n_rows_g=args["n_rows_g"])
+    return F, args["g_col"], args["g_rs"], args["other_cols"], kw
+
+
+def fold_inputs(eng, rng, dev):
+    """Parent and sorted exit chunks for the plan's first FOLD bracket."""
+    op = next(o for o in eng.schedule.ops if o.kind == FOLD_CHILD)
+    n, m = eng.n, eng.m
+    reps, n_exits = C // 4, C // 4
+
+    def chunk(valid, orig):
+        return Frontier(
+            assign=torch.from_numpy(rng.integers(0, 1 << 12, (C, n))
+                                    .astype(np.int32)),
+            factor=torch.from_numpy(rng.integers(1, 6, C).astype(np.int64)),
+            valid=torch.from_numpy(valid),
+            orig=torch.from_numpy(orig.astype(np.int32)),
+            lo=torch.from_numpy(rng.integers(0, 1 << 16, (C, m))
+                                .astype(np.int32)),
+            hi=torch.from_numpy(rng.integers(0, 1 << 16, (C, m))
+                                .astype(np.int32)))
+
+    ar = np.arange(C)
+    P = chunk(ar < int(0.6 * C), ar)
+    eorig = np.full(C, reps - 1)
+    eorig[:n_exits] = np.sort(rng.integers(0, reps, n_exits))
+    E = chunk(ar < n_exits, eorig)
+    active = torch.from_numpy((ar < int(0.6 * C)) & (rng.random(C) < 0.8))
+    ror = torch.from_numpy(rng.integers(0, reps, C).astype(np.int32))
+    P = Frontier(*(t.to(dev) for t in P))
+    E = Frontier(*(t.to(dev) for t in E))
+    return P, active.to(dev), ror.to(dev), E, op.sub_first, op.sub_last
+
+
+def kernels_vs_plain(db, dev):
+    """Phase 3: each kernel against its plain version at C = 2^16."""
+    rng = np.random.default_rng(SEED)
+    td, order = engine.plan_query(cycle_query(4), db)
+    eng = CachedTrieJoin(cycle_query(4), td, order, db, capacity=C,
+                         device=dev)
+    rows = {}
+
+    # EXPAND at the depth with the most membership atoms
+    d = max(reversed(range(eng.n)), key=lambda x: len(eng.at_depth[x]))
+    F, g_col, g_rs, others, kw = expand_inputs(eng, d, rng, dev)
+    (Fc, nc) = expand_cuda.expand(F, g_col, g_rs, others, **kw)
+    (Fp, np_) = expand_plain.expand_step(F, g_col, g_rs, others, **kw)
+    torch.cuda.synchronize()
+    check(int(nc) == int(np_), f"expand needed {int(nc)} != {int(np_)}")
+    check(torch.equal(Fc.valid, Fp.valid), "expand valid masks differ")
+    k = int(Fp.valid.sum())
+    err = frontier_max_err(Fc, Fp, k)
+    check(err == 0, f"expand differs on the valid prefix (err {err})")
+    moved, ops = expand_work(F, g_col, g_rs, others, kw)
+    rows["expand"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: expand_cuda.expand(F, g_col, g_rs, others, **kw)),
+        plain_ms=time_ms(lambda: expand_plain.expand_step(
+            F, g_col, g_rs, others, **kw)),
+        **bound(moved, ops), library_ms=None,
+        note=f"d={d} needed={int(np_)} survivors={k}")
+
+    # FOLD, replay-only
+    P, active, ror, E, d0, d1 = fold_inputs(eng, rng, dev)
+    (Oc, sc) = fold_cuda.replay(P, active, ror, E, d0=d0, d1=d1)
+    (Op, sp_) = fold_plain.replay(P, active, ror, E, d0=d0, d1=d1)
+    torch.cuda.synchronize()
+    check(torch.equal(sc, sp_), f"fold stats {sc.tolist()} != {sp_.tolist()}")
+    check(torch.equal(Oc.valid, Op.valid), "fold valid masks differ")
+    k = int(Op.valid.sum())
+    err = frontier_max_err(Oc, Op, k)
+    check(err == 0, f"fold differs on the valid prefix (err {err})")
+    moved, ops = fold_work(P, active, ror, E, d0, d1)
+    rows["fold_replay"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: fold_cuda.replay(P, active, ror, E, d0=d0,
+                                            d1=d1)),
+        plain_ms=time_ms(lambda: fold_plain.replay(P, active, ror, E,
+                                                   d0=d0, d1=d1)),
+        **bound(moved, ops), library_ms=None,
+        note=f"span=[{d0},{d1}] needed={int(sp_[0])}")
+
+    # EMIT
+    assign = torch.from_numpy(rng.integers(0, 1 << 12, (C, eng.n))
+                              .astype(np.int32)).to(dev)
+    valid = torch.from_numpy(rng.random(C) < 0.5).to(dev)
+    (pc, kc) = emit_cuda.pack(assign, valid)
+    (pp, kp) = emit_plain.pack(assign, valid)
+    torch.cuda.synchronize()
+    check(int(kc) == int(kp), f"emit k {int(kc)} != {int(kp)}")
+    k = int(kp)
+    err = int((pc[:k].long() - pp[:k].long()).abs().max()) if k else 0
+    check(err == 0, f"emit differs on the packed prefix (err {err})")
+    rows["emit"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: emit_cuda.pack(assign, valid)),
+        plain_ms=time_ms(lambda: emit_plain.pack(assign, valid)),
+        # the valid flags and the k valid rows in, the k rows and k out;
+        # one scan of the valid flags
+        **bound(C + 2 * 4 * eng.n * k + 4, C),
+        # one PyTorch call computing the same rows: a boolean-mask gather
+        library_ms=time_ms(lambda: assign[valid]),
+        note=f"k={k}")
+    return rows, dict(n=eng.n, m=eng.m, order=order)
+
+
+def profile_line(fn, q, db) -> str:
+    """Run ``fn(q, db)`` once under torch.profiler: wall time, device busy
+    time and share, and the device ops (kernels, copies) that took the
+    most time.  Only device activity is traced: each device op is then
+    counted once, and the trace stays small enough to summarise fast."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn(q, db, capacity=C)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ops = [(e.key, e.self_device_time_total / 1e6, e.count)
+           for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy = sum(s for _, s, _ in ops)
+    if not ops:
+        return f"wall {wall:.3f} s (traced); device time not measured"
+    ops.sort(key=lambda x: -x[1])
+    top = ", ".join(f"{k[:48]} {s:.3f} s x{n}" for k, s, n in ops[:8])
+    return (f"wall {wall:.3f} s (traced), device busy {busy:.3f} s = "
+            f"{100 * busy / wall:.1f}% (idle {100 - 100 * busy / wall:.1f}%)"
+            f"; top device ops: {top}")
+
+
+def reset_launches() -> None:
+    for w in WRAPPERS.values():
+        w.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: w.launches for name, w in WRAPPERS.items()}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("CUDA is not available: chip_smoke needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+
+    # 1. the card
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"[1 card] {smi} | torch {torch.__version__} cuda "
+          f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}",
+          flush=True)
+
+    # 2. the build
+    cudalib.load()
+    ptxas = [ln.strip() for ln in cudalib.build_log().splitlines()
+             if "registers" in ln or "spill" in ln]
+    print(f"[2 build] nvcc sm_90a: {cudalib.build_seconds():.2f} s "
+          f"({len(ptxas)} ptxas lines)", flush=True)
+    for ln in ptxas:
+        print(f"    {ln}")
+
+    # the two graphs (data is made anew in every run)
+    db = graph_db(zipf_graph(WIKI["nv"], WIKI["ne"], ZIPF_A, seed=SEED))
+    db2 = graph_db(zipf_graph(GRQC["nv"], GRQC["ne"], ZIPF_A, seed=SEED + 1),
+                   symmetrize=True)
+
+    # 3. kernels against their plain versions on the card
+    rows, shape = kernels_vs_plain(db, dev)
+    print(f"[3 kernels] C={C} n={shape['n']} m={shape['m']} "
+          f"order={shape['order']}: " + "; ".join(
+              f"{k}: {v['ms']:.4f} ms (plain {v['plain_ms']:.4f} ms, bound "
+              f"{v['bound_ms']:.4f} ms by {v['bound_by']}, {v['note']})"
+              for k, v in rows.items()), flush=True)
+
+    # 4. count on the wiki-Vote-scale graph (main path)
+    q = cycle_query(4)
+    reset_launches()
+    torch.cuda.synchronize()
+    res = engine.count(q, db, capacity=C)
+    after_count = read_launches()
+    want = cycle_oracle(db, 4)
+    check(res.count == want, f"count {res.count} != scipy oracle {want}")
+    cnt = res.counters
+    check(cnt["expand_calls_cuda"] > 0 and cnt["expand_calls_torch"] == 0,
+          "count did not run EXPAND on the CUDA kernel")
+    check(after_count["expand"] == cnt["expand_calls_cuda"],
+          "expand wrapper launches != executor count")
+    print(f"[4 count] 4-cycle on Zipf(a={ZIPF_A}) graph, {WIKI['nv']} "
+          f"vertices, {WIKI['ne']} edges drawn, "
+          f"{db.relations['E'].shape[0]} distinct: count={res.count} "
+          f"(oracle {want}) exec_s={res.exec_s:.3f} plan_s={res.plan_s:.3f} "
+          f"compile_s={res.compile_s:.3f} counters="
+          + json.dumps({k: v for k, v in cnt.items() if v}), flush=True)
+
+    # 5. evaluate on the ca-GrQc-scale graph (main path)
+    res2 = engine.evaluate(q, db2, capacity=C)
+    launches = read_launches()
+    after_eval = {k: launches[k] - after_count[k] for k in launches}
+    rows2 = res2.tuples
+    want2 = cycle_oracle(db2, 4)
+    check(rows2.shape == (want2, 4), f"evaluate rows {rows2.shape} != "
+          f"({want2}, 4) from the scipy oracle")
+    nv2 = int(db2.relations["E"].max()) + 1
+    keys = np.ravel_multi_index(rows2.T.astype(np.int64), (nv2,) * 4)
+    check(np.unique(keys).size == keys.size, "evaluate rows not unique")
+    edges = db2.relations["E"]
+    ekeys = np.sort(edges[:, 0] * nv2 + edges[:, 1])
+    pos = {x: i for i, x in enumerate(res2.order)}
+    for atom in q.atoms:
+        u, v = (rows2[:, pos[x]].astype(np.int64) for x in atom.vars)
+        k = u * nv2 + v
+        hit = np.searchsorted(ekeys, k)
+        ok = (hit < ekeys.size) & (ekeys[np.minimum(hit, ekeys.size - 1)]
+                                   == k)
+        check(bool(ok.all()), f"evaluate rows violate atom {atom}")
+    cnt2 = res2.counters
+    for op in ("expand", "fold", "emit"):
+        check(cnt2[f"{op}_calls_cuda"] > 0 and cnt2[f"{op}_calls_torch"] == 0,
+              f"evaluate did not run {op} on the CUDA kernel")
+    check(after_eval["fold_replay"] == cnt2["fold_calls_cuda"]
+          and after_eval["emit"] == cnt2["emit_calls_cuda"]
+          and after_eval["expand"] == cnt2["expand_calls_cuda"],
+          "wrapper launches != executor counts in evaluate")
+    print(f"[5 evaluate] 4-cycle on symmetric Zipf(a={ZIPF_A}) graph, "
+          f"{GRQC['nv']} vertices, {GRQC['ne']} undirected edges drawn, "
+          f"{edges.shape[0]} distinct directed: rows={rows2.shape[0]} "
+          f"(oracle {want2}), unique, every atom holds; "
+          f"exec_s={res2.exec_s:.3f} counters="
+          + json.dumps({k: v for k, v in cnt2.items() if v}), flush=True)
+
+    # 6. the main path went through every kernel
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched on the main path")
+    print(f"[6 launches] main path (count + evaluate): "
+          + json.dumps(launches)
+          + f" | total {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # 7. where the main path's time goes (a second, traced pass)
+    for label, fn, graph in (("count", engine.count, db),
+                             ("evaluate", engine.evaluate, db2)):
+        print(f"[7 profile {label}] " + profile_line(fn, q, graph), flush=True)
+
+    kernels = []
+    for name, r in rows.items():
+        src, replaces = SOURCES[name]
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"]})
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,21 @@
+"""The cached trie join's core.
+
+Layers:
+  * planning  — cq / gaifman / td / separators / decompose (paper §2, §4)
+  * data      — db
+  * engine    — frontier / cached_frontier / schedule / cache / hostsync
+  * facade    — engine.count / engine.evaluate / engine.plan_query
+"""
+from .cq import (CQ, Atom, bowtie_query, cq, path_query, cycle_query,
+                 clique_query, lollipop_query, random_graph_query,
+                 star_query, two_relation_cycle_query)
+from .db import Database, graph_db
+from .td import TreeDecomposition, singleton_td
+from .decompose import choose_plan, enumerate_tds, DBStats
+from .clftj_ref import Plan
+from .cache import CacheConfig, CacheManager, DeviceCache
+from .hostsync import SyncCounter, device_get
+from .schedule import Op, Schedule, ScheduleExecutor, lower
+from .frontier import Frontier, TrieJoin
+from .cached_frontier import CachedTrieJoin
+from . import engine

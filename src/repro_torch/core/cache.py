@@ -1,0 +1,393 @@
+"""Pluggable tier-2 device cache for the vectorized CLFTJ, count region.
+
+The paper's central knob is *flexibility*: "our solution balances memory
+usage and repeated computation" by choosing how much cache to keep and what
+to admit/evict (§3.4, Fig 10).  The frontier engine realizes the cache as
+device tensors updated by gather/scatter, so a "policy" here is a pair of
+ops (probe, insert) over a fixed table layout:
+
+* ``direct``    — 1-way direct-mapped table: ``slot = hash(key) % S``;
+  collisions overwrite unconditionally (hardware-style, zero metadata).
+* ``setassoc``  — N-way set-associative with LRU within each set: a key may
+  live in any of ``assoc`` ways of its set; the victim is the invalid way
+  if one exists, else the least-recently-touched way.
+* ``costaware`` — set-associative layout, but the victim is the *cheapest*
+  resident entry and admission is refused when the incumbent is more
+  valuable than the candidate.  Cost is the cached subtree count.
+
+All policies are *caches of exact results*: correctness never depends on
+what is resident, only speed does (the paper's optionality property).  The
+ops are bit-for-bit twins of the reference's (``repro/core/cache.py``):
+same hash, same victim choice, same one-writer-per-set election, so the
+tables and their statistics match the reference's exactly.
+
+``CacheManager`` owns one ``DeviceCache`` per TD node and the **dynamic
+sizing controller**: between subtree launches it grows a table whose misses
+look like conflict pressure (low hit rate at high occupancy) while total
+slots stay within ``budget``, and shrinks tables whose occupancy stays low.
+Resizing rehashes resident entries into the new table with one batched
+insert.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from .hostsync import device_get
+
+_MIX = -7046029254386353131  # 0x9E3779B97F4A7C15 as signed int64
+
+POLICIES = ("direct", "setassoc", "costaware")
+
+
+def _hash_sets(keys: torch.Tensor, n_sets: int) -> torch.Tensor:
+    """Set index of each int64 key: a wraparound multiply, an arithmetic
+    shift and a floor modulo (``remainder``, not ``fmod``), as the
+    reference computes it."""
+    h = keys * _MIX
+    h = h ^ (h >> 29)
+    return torch.remainder(torch.abs(h), n_sets)
+
+
+@dataclass(frozen=True)
+class CacheConfig:
+    """Tier-2 cache knobs.
+
+    * ``policy``: "direct" | "setassoc" | "costaware".
+    * ``slots``: initial entries per node table (0 disables tier 2).
+    * ``assoc``: ways per set (ignored for "direct", which is 1-way).
+    * ``dynamic``: enable the sizing controller.
+    * ``budget``: max total slots summed over all node tables (None = only
+      bounded by ``max_slots`` per table); also the dynamic controller's
+      growth headroom.  Floor: every cached node keeps at least one set.
+    * ``min_slots``/``max_slots``: per-table resize clamps.
+    * ``resize_interval``: subtree launches between controller decisions.
+    * ``grow_below_hit_rate``: grow when window hit-rate is below this and
+      the table looks conflict-bound (occupancy > 1/2).
+    * ``shrink_below_occupancy``: shrink when occupancy stays under this.
+    * ``enabled_nodes``: restrict caching to these TD nodes (None = all).
+    """
+
+    policy: str = "direct"
+    slots: int = 1 << 16
+    assoc: int = 4
+    dynamic: bool = False
+    budget: Optional[int] = None
+    min_slots: int = 1 << 8
+    max_slots: int = 1 << 22
+    resize_interval: int = 8
+    grow_below_hit_rate: float = 0.5
+    shrink_below_occupancy: float = 0.125
+    enabled_nodes: Optional[frozenset] = None
+
+    def __post_init__(self):
+        if self.policy not in POLICIES:
+            raise ValueError(f"unknown cache policy {self.policy!r}; "
+                             f"expected one of {POLICIES}")
+        if self.assoc < 1:
+            raise ValueError("assoc must be >= 1")
+
+    @property
+    def ways(self) -> int:
+        return 1 if self.policy == "direct" else int(self.assoc)
+
+    def initial_slots(self) -> int:
+        s = int(self.slots)
+        if self.budget is not None:
+            s = min(s, int(self.budget))
+        if s <= 0:
+            return 0
+        # whole sets only; a positive request below one set rounds UP to a
+        # single set rather than silently disabling the cache
+        w = self.ways
+        return max(w, (s // w) * w)
+
+
+# ---------------------------------------------------------------------------
+# Table ops.  Tables are (S, W) tensors: S sets, W ways.
+# ---------------------------------------------------------------------------
+
+
+def _probe(tkeys, tvals, tused, tstamp, keys, active, tick: int):
+    """Batched lookup; returns (hit, vals, stamp') — stamp' records the LRU
+    touch of every hit way (scatter-max, so duplicate rows are harmless)."""
+    n_sets, W = tkeys.shape
+    sets = _hash_sets(keys, n_sets)
+    match = tused[sets] & (tkeys[sets] == keys[:, None]) & active[:, None]
+    hit = match.any(dim=1)
+    way = match.to(torch.int8).argmax(dim=1)  # first matching way
+    vals = torch.where(hit, tvals[sets, way], 0)
+    stamp = tstamp.reshape(-1).scatter_reduce(
+        0, sets * W + way, torch.where(hit, tick, -1).to(tstamp.dtype),
+        "amax").reshape(n_sets, W)
+    return hit, vals, stamp
+
+
+def _insert(tkeys, tvals, tused, tstamp, tcost, keys, vals, costs, active,
+            tick: int, *, policy: str, rounds: int = 1):
+    """Batched fill.  Victim selection per policy.
+
+    Each round elects exactly one writer per set (scatter-max of the row
+    index — duplicate-index scatters must not carry the write mask, or a
+    masked row's "keep old value" no-op could land after a real admit
+    and clobber it) and writes through per-set *unique* indices: on CUDA
+    an index_put_ with duplicate indices has no defined winner.
+    ``rounds`` (≈ the way count) re-reads the updated table so batch
+    collisions retry into the remaining ways instead of being dropped.
+    Returns the new tables (the inputs are not modified) and the admit
+    and evict counts (0-d int32).
+    """
+    n_sets = tkeys.shape[0]
+    C = keys.shape[0]
+    dev = keys.device
+    tkeys, tvals, tused = tkeys.clone(), tvals.clone(), tused.clone()
+    tstamp, tcost = tstamp.clone(), tcost.clone()
+    rows = torch.arange(C, dtype=torch.int32, device=dev)
+    set_ids = torch.arange(n_sets, device=dev)
+    sets = torch.where(active, _hash_sets(keys, n_sets), 0)
+    remaining = active
+    n_admit = torch.zeros((), dtype=torch.int32, device=dev)
+    n_evict = torch.zeros((), dtype=torch.int32, device=dev)
+    for _ in range(max(1, rounds)):
+        way_used = tused[sets]                       # (C, W)
+        resident = way_used & (tkeys[sets] == keys[:, None])
+        rem = remaining & ~resident.any(dim=1)       # dup already admitted
+        any_free = ~way_used.all(dim=1)
+        free_way = way_used.to(torch.int8).argmin(dim=1)  # first invalid way
+        if policy == "costaware":
+            contested = torch.where(way_used, tcost[sets],
+                                    2 ** 62).argmin(dim=1)
+        else:  # direct (W=1 → way 0) and setassoc both take the LRU way
+            contested = torch.where(way_used, tstamp[sets],
+                                    2 ** 31 - 1).argmin(dim=1)
+        victim = torch.where(any_free, free_way, contested)
+        admit = rem
+        if policy == "costaware":
+            incumbent = tcost[sets, victim]
+            admit = admit & (any_free | (costs >= incumbent))
+        # elect one admitted writer per set (highest row index)
+        winner = torch.full((n_sets,), -1, dtype=torch.int32,
+                            device=dev).scatter_reduce_(
+            0, sets, torch.where(admit, rows, -1), "amax")
+        src = winner.clamp(0, C - 1)                 # (S,) winning row
+        do_w = winner >= 0
+        sel = (set_ids, victim[src])                 # unique per set
+        tkeys[sel] = torch.where(do_w, keys[src], tkeys[sel])
+        tvals[sel] = torch.where(do_w, vals[src], tvals[sel])
+        tcost[sel] = torch.where(do_w, costs[src], tcost[sel])
+        tstamp[sel] = torch.where(do_w, tick, tstamp[sel]).to(tstamp.dtype)
+        tused[sel] = tused[sel] | do_w
+        won = admit & (winner[sets] == rows)
+        n_admit = n_admit + won.sum(dtype=torch.int32)
+        n_evict = n_evict + (won & ~any_free).sum(dtype=torch.int32)
+        remaining = rem & ~won
+    return tkeys, tvals, tused, tstamp, tcost, n_admit, n_evict
+
+
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class DeviceCache:
+    """One node's table: device tensors + deferred stats/controller.
+
+    Stats are accumulated *on device* (the ``_acc_*`` fields hold lazy
+    scalars) so probing/inserting never forces a host sync on the hot
+    path; :meth:`stats` fetches them once, through the :mod:`hostsync`
+    funnel, when actually read."""
+
+    config: CacheConfig
+    keys: torch.Tensor    # (S, W) int64
+    vals: torch.Tensor    # (S, W) int64
+    used: torch.Tensor    # (S, W) bool
+    stamp: torch.Tensor   # (S, W) int32  — LRU clock (ticks)
+    cost: torch.Tensor    # (S, W) int64  — recomputation-cost proxy
+    tick: int = 0
+    resizes: int = 0
+    window_launches: int = 0
+    # device-side accumulators (int until the first op touches them)
+    _acc_hits: object = 0
+    _acc_misses: object = 0
+    _acc_probes: object = 0
+    _acc_inserts: object = 0
+    _acc_evictions: object = 0
+    # sliding window consumed by the sizing controller
+    _acc_window_hits: object = 0
+    _acc_window_probes: object = 0
+
+    @staticmethod
+    def create(config: CacheConfig, slots: Optional[int] = None,
+               device="cpu") -> "DeviceCache":
+        n = config.initial_slots() if slots is None else int(slots)
+        w = config.ways
+        s = max(1, n // w)
+
+        def z(dtype):
+            return torch.zeros((s, w), dtype=dtype, device=device)
+
+        return DeviceCache(config=config, keys=z(torch.int64),
+                           vals=z(torch.int64), used=z(torch.bool),
+                           stamp=z(torch.int32), cost=z(torch.int64))
+
+    # -- capacity ------------------------------------------------------
+    @property
+    def n_slots(self) -> int:
+        return int(self.keys.shape[0] * self.keys.shape[1])
+
+    def occupancy(self) -> int:
+        return int(device_get(self.used.sum(), "cache-occupancy"))
+
+    # -- ops -----------------------------------------------------------
+    def probe(self, qkeys: torch.Tensor,
+              active: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        self.tick += 1
+        hit, vals, self.stamp = _probe(self.keys, self.vals, self.used,
+                                       self.stamp, qkeys, active, self.tick)
+        # device-side accounting: no host sync on the probe path
+        n_active = active.sum(dtype=torch.int64)
+        n_hit = hit.sum(dtype=torch.int64)
+        self._acc_probes = self._acc_probes + n_active
+        self._acc_hits = self._acc_hits + n_hit
+        self._acc_misses = self._acc_misses + (n_active - n_hit)
+        self._acc_window_probes = self._acc_window_probes + n_active
+        self._acc_window_hits = self._acc_window_hits + n_hit
+        return hit, vals
+
+    def insert(self, qkeys: torch.Tensor, vals: torch.Tensor,
+               active: torch.Tensor,
+               costs: Optional[torch.Tensor] = None) -> None:
+        self.tick += 1
+        if costs is None:  # default proxy: the count itself (clipped >= 1)
+            costs = vals.clamp(min=1)
+        (self.keys, self.vals, self.used, self.stamp, self.cost, n_ins,
+         n_evict) = _insert(self.keys, self.vals, self.used, self.stamp,
+                            self.cost, qkeys, vals, costs.to(torch.int64),
+                            active, self.tick, policy=self.config.policy,
+                            rounds=min(self.config.ways, 8))
+        self._acc_inserts = self._acc_inserts + n_ins
+        self._acc_evictions = self._acc_evictions + n_evict
+        self.window_launches += 1
+
+    # -- dynamic sizing (the paper's flexible-cache knob) --------------
+    def maybe_resize(self, headroom: Optional[int] = None) -> int:
+        """Controller step; returns the slot delta (0 = no change).
+
+        Grow ×2 when the window hit-rate is low *and* the table is mostly
+        full (conflict pressure — more slots can actually help); shrink ÷2
+        when occupancy stays below the configured floor (memory handed
+        back).  ``headroom`` caps growth (global budget minus slots already
+        spent elsewhere)."""
+        cfg = self.config
+        if not cfg.dynamic or self.window_launches < cfg.resize_interval:
+            return 0
+        probes, hits = (int(x) for x in device_get(
+            (self._acc_window_probes, self._acc_window_hits),
+            "cache-resize-window"))
+        self._acc_window_hits = self._acc_window_probes = 0
+        self.window_launches = 0
+        if probes == 0:
+            return 0
+        hit_rate = hits / probes
+        occ = self.occupancy() / max(1, self.n_slots)
+        old = self.n_slots
+        new = old
+        if (hit_rate < cfg.grow_below_hit_rate and occ > 0.5
+                and old * 2 <= cfg.max_slots):
+            new = old * 2
+            if headroom is not None:
+                new = min(new, old + max(0, headroom))
+        elif occ < cfg.shrink_below_occupancy and old // 2 >= cfg.min_slots:
+            new = old // 2
+        new = (new // cfg.ways) * cfg.ways
+        if new <= 0 or new == old:
+            return 0
+        self._rehash(new)
+        self.resizes += 1
+        return self.n_slots - old
+
+    def _rehash(self, new_slots: int) -> None:
+        old_keys = self.keys.reshape(-1)
+        old_vals = self.vals.reshape(-1)
+        old_cost = self.cost.reshape(-1)
+        old_used = self.used.reshape(-1)
+        fresh = DeviceCache.create(self.config, new_slots,
+                                   device=self.keys.device)
+        self.keys, self.vals, self.used, self.stamp, self.cost = (
+            fresh.keys, fresh.vals, fresh.used, fresh.stamp, fresh.cost)
+        if not bool(device_get(old_used.any(), "cache-rehash")):
+            return
+        # re-insert resident entries in one batched op; rehash collisions
+        # drop entries, which only costs future recomputation (optionality)
+        self.tick += 1
+        out = _insert(self.keys, self.vals, self.used, self.stamp,
+                      self.cost, old_keys, old_vals, old_cost, old_used,
+                      self.tick, policy=self.config.policy,
+                      rounds=min(self.config.ways, 8))
+        self.keys, self.vals, self.used, self.stamp, self.cost = out[:5]
+
+    def stats(self) -> Dict[str, int]:
+        acc = device_get(
+            {"hits": self._acc_hits, "misses": self._acc_misses,
+             "probes": self._acc_probes, "inserts": self._acc_inserts,
+             "evictions": self._acc_evictions,
+             "occupancy": self.used.sum()}, "cache-stats")
+        out = {k: int(v) for k, v in acc.items()}
+        out["resizes"] = self.resizes
+        out["slots"] = self.n_slots
+        return out
+
+
+class CacheManager:
+    """Per-TD-node DeviceCaches under one global slot budget."""
+
+    def __init__(self, config: CacheConfig, device="cpu"):
+        self.config = config
+        self.device = torch.device(device)
+        self.tables: Dict[int, DeviceCache] = {}
+        # engine hint: how many node tables will eventually exist, so the
+        # controller reserves their initial allocations out of the budget
+        # instead of letting the first-created table grow into all of it
+        self.expected_tables: Optional[int] = None
+
+    @property
+    def enabled(self) -> bool:
+        return self.config.initial_slots() > 0
+
+    def get(self, v: int) -> DeviceCache:
+        t = self.tables.get(v)
+        if t is None:
+            slots = self.config.initial_slots()
+            if self.config.budget is not None:
+                # node tables are created lazily: cap a newcomer by the
+                # remaining headroom so earlier growth cannot spend the
+                # whole budget (floor: one set, so the node still caches)
+                headroom = self.config.budget - self.total_slots()
+                slots = min(slots, max(self.config.ways, headroom))
+            t = DeviceCache.create(self.config, slots, device=self.device)
+            self.tables[v] = t
+        return t
+
+    def total_slots(self) -> int:
+        return sum(t.n_slots for t in self.tables.values())
+
+    def maybe_resize(self, v: int) -> int:
+        t = self.tables.get(v)
+        if t is None:
+            return 0
+        headroom = None
+        if self.config.budget is not None:
+            headroom = self.config.budget - self.total_slots()
+            if self.expected_tables is not None:
+                missing = max(0, self.expected_tables - len(self.tables))
+                headroom -= missing * self.config.initial_slots()
+        return t.maybe_resize(headroom)
+
+    def stats(self) -> Dict[str, int]:
+        agg = {"hits": 0, "misses": 0, "probes": 0, "inserts": 0,
+               "evictions": 0, "resizes": 0, "slots": 0, "occupancy": 0}
+        for t in self.tables.values():
+            for k, val in t.stats().items():
+                agg[k] = agg.get(k, 0) + val
+        return agg

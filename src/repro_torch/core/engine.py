@@ -1,0 +1,132 @@
+"""Public join-engine API: plan + execute CLFTJ/LFTJ on the card.
+
+    from repro_torch.core import engine
+    res = engine.count(q, db)                     # plans a TD, runs CLFTJ
+    res = engine.count(q, db, algorithm="lftj")   # vanilla trie join
+    res = engine.evaluate(q, db)                  # materialized tuples
+    res = engine.count(q, db, device="cpu")       # plain kernels, on the CPU
+
+Engines run on ``device="cuda"`` unless the caller asks for the CPU; the
+default raises when CUDA is missing.  ``Result`` separates ``plan_s``
+(TD/order planning), ``compile_s`` (the one-time CUDA kernel build; 0
+when the library was already built) and ``exec_s`` (the remainder).
+``Result.counters`` carries the tier-1/tier-2 statistics and the kernel
+launches per path (``expand_calls_cuda`` / ``expand_calls_torch``, and
+likewise ``fold_`` and ``emit_``), so a run shows which path did the work.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..kernels import cudalib
+from .cache import CacheConfig
+from .cached_frontier import CachedTrieJoin
+from .cq import CQ
+from .db import Database
+from .decompose import choose_plan
+from .frontier import TrieJoin, resolve_device
+from .td import TreeDecomposition
+
+__all__ = ["Result", "count", "evaluate", "plan_query"]
+
+ALGORITHMS = ("clftj", "lftj")
+
+
+@dataclass
+class Result:
+    count: int
+    tuples: Optional[np.ndarray]
+    algorithm: str
+    device: str
+    order: Tuple[str, ...]
+    td: Optional[TreeDecomposition]
+    counters: Dict[str, int] = field(default_factory=dict)
+    wall_s: float = 0.0     # end-to-end (= plan_s + compile_s + exec_s)
+    plan_s: float = 0.0     # TD enumeration + order selection
+    compile_s: float = 0.0  # one-time CUDA kernel build
+    exec_s: float = 0.0     # engine execution
+
+
+def plan_query(q: CQ, db: Optional[Database] = None,
+               max_adhesion: int = 2,
+               ) -> Tuple[TreeDecomposition, Tuple[str, ...]]:
+    stats = db.stats() if db is not None else None
+    return choose_plan(q, stats, max_adhesion=max_adhesion)
+
+
+def _plan(q: CQ, db: Database, td, order):
+    if td is None or order is None:
+        td_, order_ = plan_query(q, db)
+        td = td if td is not None else td_
+        order = order if order is not None else order_
+    return td, tuple(order)
+
+
+def _build_kernels(dev: torch.device) -> float:
+    """Load (building if needed) the CUDA kernels; the build's seconds."""
+    if dev.type != "cuda":
+        return 0.0
+    before = cudalib.build_seconds()
+    cudalib.load()
+    return cudalib.build_seconds() - before
+
+
+def _run(q: CQ, db: Database, algorithm: str, td, order, capacity: int,
+         dedup: bool, cache: Optional[CacheConfig], device,
+         evaluate: bool) -> Result:
+    if algorithm not in ALGORITHMS:
+        raise ValueError(f"algorithm must be one of {ALGORITHMS}, "
+                         f"got {algorithm!r}")
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    td, order = _plan(q, db, td, order)
+    t1 = time.perf_counter()
+    compile_s = _build_kernels(dev)
+    if algorithm == "clftj":
+        eng = CachedTrieJoin(q, td, order, db, capacity=capacity,
+                             dedup=dedup, cache=cache, device=dev)
+    else:
+        eng = TrieJoin(q, order, db, capacity=capacity, device=dev)
+    rows = None
+    if evaluate:
+        blocks = list(eng.evaluate())
+        rows = (np.concatenate(blocks, axis=0) if blocks
+                else np.zeros((0, len(order)), np.int32))
+        c = rows.shape[0]
+    else:
+        c = eng.count()
+    counters = (dict(eng.stats) if algorithm == "clftj"
+                else eng.call_counts())
+    t2 = time.perf_counter()
+    return Result(count=c, tuples=rows, algorithm=algorithm, device=str(dev),
+                  order=order, td=td, counters=counters, wall_s=t2 - t0,
+                  plan_s=t1 - t0, compile_s=compile_s,
+                  exec_s=(t2 - t1) - compile_s)
+
+
+def count(q: CQ, db: Database, algorithm: str = "clftj",
+          td: Optional[TreeDecomposition] = None,
+          order: Optional[Sequence[str]] = None, capacity: int = 1 << 16,
+          dedup: bool = True, cache: Optional[CacheConfig] = None,
+          device="cuda") -> Result:
+    """Count ``q`` over ``db``.  ``cache`` configures the tier-2 cache of
+    the CLFTJ engine (policy / associativity / slots / dynamic budget)."""
+    return _run(q, db, algorithm, td, order, capacity, dedup, cache, device,
+                evaluate=False)
+
+
+def evaluate(q: CQ, db: Database, algorithm: str = "clftj",
+             td: Optional[TreeDecomposition] = None,
+             order: Optional[Sequence[str]] = None, capacity: int = 1 << 16,
+             dedup: bool = True, cache: Optional[CacheConfig] = None,
+             device="cuda") -> Result:
+    """Materialize ``q``'s full result: ``Result.tuples`` is an (N, n)
+    int32 array over ``Result.order`` columns, in the engine's block
+    order (tier-1 representatives replayed as row blocks)."""
+    return _run(q, db, algorithm, td, order, capacity, dedup, cache, device,
+                evaluate=True)

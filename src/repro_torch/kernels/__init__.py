@@ -1,0 +1,9 @@
+"""Device-kernel layer.  Every kernel is reached through ``registry``;
+each kernel package keeps ``plain.py`` (the PyTorch version, run on CPU
+tensors) and ``cuda.py`` (the wrapper around the CUDA kernel in
+``repro_torch/csrc``, run on CUDA tensors).
+
+  * ``expand/`` — frontier expansion
+  * ``fold/``   — evaluation-mode FOLD, replay-only arity
+  * ``emit/``   — stable valid-row EMIT pack
+"""

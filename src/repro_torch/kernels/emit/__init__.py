@@ -1,0 +1,1 @@
+"""EMIT: ``plain`` (PyTorch) and ``cuda`` (CUDA kernel wrapper)."""

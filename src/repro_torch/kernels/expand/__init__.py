@@ -1,0 +1,1 @@
+"""EXPAND: ``plain`` (PyTorch) and ``cuda`` (CUDA kernel wrapper)."""

@@ -1,0 +1,57 @@
+"""CUDA FOLD, replay-only arity: the wrapper around
+``csrc/fold.cu::ctj_fold_replay``.
+
+Replaces the replay-only arity of the reference's fused Pallas kernel
+(``repro/kernels/fold/fused.py::build``).  It requires the exit chunk
+valid-prefix compacted with nondecreasing ``orig`` (the executor's
+sorted-exits invariant).  A span ``[d0, d1]`` outside the chunk's
+columns makes the launch return CUDA error 1 (invalid value), and the
+wrapper raises.  The wrapper checks its inputs, allocates
+outputs and scratch with ``torch.empty``, and launches on PyTorch's
+current stream; ``stats`` stays on the device.  It has no plain
+fallback: a failed launch raises.  ``launches`` counts the calls that
+launched the kernel.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import cudalib
+
+__all__ = ["replay", "launches"]
+
+launches = 0
+
+
+def replay(P, active: torch.Tensor, rep_of_row: torch.Tensor, E, *,
+           d0: int, d1: int):
+    """One replay-only FOLD on the card: ``(cont, stats)`` as the plain
+    version."""
+    global launches
+    dev = P.assign.device
+    C, n = P.assign.shape
+    m = P.lo.shape[1]
+    pp = cudalib.chunk_ptrs(P, "P", dev, C, n, m)
+    ep = cudalib.chunk_ptrs(E, "E", dev, C, n, m)
+    args_in = [pp["assign"], pp["factor"], pp["orig"], pp["lo"], pp["hi"],
+               cudalib.ptr(active, "active", dev, torch.bool, (C,)),
+               cudalib.ptr(rep_of_row, "rep_of_row", dev, torch.int32, (C,)),
+               ep["assign"], ep["factor"], ep["valid"], ep["orig"]]
+    o = dict(assign=torch.empty_like(P.assign),
+             factor=torch.empty_like(P.factor),
+             valid=torch.empty_like(P.valid),
+             orig=torch.empty_like(P.orig),
+             lo=torch.empty_like(P.lo), hi=torch.empty_like(P.hi))
+    stats = torch.empty(3, dtype=torch.int64, device=dev)
+    scratch = torch.empty(3 * C + 1, dtype=torch.int32, device=dev)
+    lib = cudalib.load()
+    with torch.cuda.device(dev):
+        err = lib.ctj_fold_replay(
+            *args_in, C, n, m, d0, d1,
+            *(o[f].data_ptr() for f in
+              ("assign", "factor", "valid", "orig", "lo", "hi")),
+            stats.data_ptr(), scratch.data_ptr(),
+            cudalib.stream_ptr(P.assign))
+    cudalib.check(err, "ctj_fold_replay")
+    launches += 1
+    return P._replace(**o), stats

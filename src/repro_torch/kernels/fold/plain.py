@@ -1,0 +1,60 @@
+"""Plain PyTorch FOLD, replay-only arity.
+
+The counterpart of the reference's XLA chain
+(``repro/kernels/fold/xla.py::replay_step`` and ``_stats``) and the
+contract the CUDA kernel (``cuda.py``) is held to.  For every active
+parent row *i* (representative ``rep_of_row[i]``) and every valid exit
+row *e* with ``E.orig == rep_of_row[i]``, one output row: the parent's
+assignment with the subtree columns ``[d0, d1]`` replaced by the exit
+row's, and ``factor`` = parent × exit.  Parents in row order, each
+parent's exits in exit-row order; rows past the valid prefix are
+unconstrained.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..expand.plain import compact
+
+__all__ = ["replay", "stats"]
+
+
+def stats(C: int, needed: torch.Tensor) -> torch.Tensor:
+    """The int64 ``[needed, n_spliced, min(needed, C)]`` triple of the
+    replay-only arity (nothing is spliced)."""
+    needed = needed.to(torch.int64).reshape(())
+    return torch.stack([needed, torch.zeros_like(needed),
+                        needed.clamp(max=C)])
+
+
+def replay(P, active: torch.Tensor, rep_of_row: torch.Tensor, E, *,
+           d0: int, d1: int):
+    """Replay one exit chunk through ``orig``: returns ``(cont, stats)``.
+    The caller guarantees the pair total fits the chunk capacity."""
+    C = P.assign.shape[0]
+    dev = P.assign.device
+    i32 = torch.int32
+    eorig = E.orig.clamp(0, C - 1)
+    # exits per representative, and exit rows sorted by representative id
+    ecnt = torch.zeros(C, dtype=i32, device=dev).scatter_add_(
+        0, eorig.long(), E.valid.to(i32))
+    ekey = torch.where(E.valid, eorig, C)
+    eorder = torch.argsort(ekey, stable=True)
+    estart = torch.cumsum(ecnt, 0, dtype=i32) - ecnt
+    # enumerate (parent, exit) pairs: cumsum offsets + searchsorted
+    rep = rep_of_row.clamp(0, C - 1)
+    pcnt = torch.where(active, ecnt[rep], 0).to(i32)
+    offsets = torch.cumsum(pcnt, 0, dtype=i32) - pcnt
+    needed = offsets[-1] + pcnt[-1]
+    slot = torch.arange(C, dtype=i32, device=dev)
+    src = (torch.searchsorted(offsets, slot, right=True, out_int32=True)
+           - 1).clamp(0, C - 1)
+    delta = slot - offsets[src]
+    ok = (slot < needed) & (delta < pcnt[src])
+    eidx = eorder[(estart[rep[src]] + delta).clamp(0, C - 1)]
+    cols = torch.arange(P.assign.shape[1], device=dev)
+    insub = (cols >= d0) & (cols <= d1)
+    assign = torch.where(insub[None, :], E.assign[eidx], P.assign[src])
+    out = P._replace(assign=assign, factor=P.factor[src] * E.factor[eidx],
+                     valid=ok, orig=P.orig[src], lo=P.lo[src], hi=P.hi[src])
+    return compact(out), stats(C, needed)

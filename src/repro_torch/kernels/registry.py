@@ -1,0 +1,185 @@
+"""Kernel registry: the single entry point for the join's device kernels.
+
+Every kernel is reached through this module:
+
+  * **bounded search** (``lower_bound``/``upper_bound``) — the batched
+    leapfrog-seek primitive, the branchless fixed-trip binary search of
+    :func:`_bsearch`;
+  * **EXPAND** (``expand_fn``) — one frontier-expansion step;
+  * **FOLD, replay-only arity** (``fold_fn``) — one bracket close in
+    evaluation mode: representative row blocks replayed through ``orig``;
+  * **EMIT** (``emit_fn``) — the stable valid-row pack of a result chunk.
+
+Dispatch goes by the device of the chunk a built function is called with:
+a CUDA tensor launches the hand-written CUDA kernel (``<op>/cuda.py``,
+sources in ``repro_torch/csrc``), a CPU tensor runs the plain PyTorch
+version (``<op>/plain.py``).  There is nothing to choose between on one
+device, so there is no mode knob, no autotune and no fallback: a CUDA
+launch that fails raises.  Each path checks its inputs once: the CUDA
+wrappers check device, dtype, shape and contiguity of every pointer they
+pass, and the built functions here check the plain path's chunks against
+the spec.  :func:`path_of` names the path a tensor takes
+(``"cuda"`` | ``"torch"``); executors count launches per path with it.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Callable, Sequence, Tuple
+
+import torch
+
+__all__ = ["ExpandSpec", "FoldSpec", "EmitSpec", "lower_bound",
+           "upper_bound", "path_of", "expand_fn", "fold_fn", "emit_fn"]
+
+
+# ---------------------------------------------------------------------------
+# Bounded search
+# ---------------------------------------------------------------------------
+
+
+def _bsearch(col: torch.Tensor, values: torch.Tensor, lo: torch.Tensor,
+             hi: torch.Tensor, strict: bool = True) -> torch.Tensor:
+    """Vectorized bounded binary search over ``col[lo:hi)``; log2(N)+1
+    fixed iterations, so the result is the insertion point (left for
+    ``strict``, right otherwise) whenever the window is sorted."""
+    n = col.shape[0]
+    if n == 0:
+        return lo
+    trips = max(1, int(math.ceil(math.log2(n + 1))) + 1)
+    lo_, hi_ = lo.to(torch.int32), hi.to(torch.int32)
+    for _ in range(trips):
+        go = lo_ < hi_
+        mid = (lo_ + hi_) >> 1
+        x = col[mid.clamp(0, n - 1)]
+        pred = (x < values) if strict else (x <= values)
+        lo2 = torch.where(go & pred, mid + 1, lo_)
+        hi_ = torch.where(go & ~pred, mid, hi_)
+        lo_ = lo2
+    return lo_
+
+
+def lower_bound(col, values, lo, hi):
+    return _bsearch(col, values, lo, hi, strict=True)
+
+
+def upper_bound(col, values, lo, hi):
+    return _bsearch(col, values, lo, hi, strict=False)
+
+
+# ---------------------------------------------------------------------------
+# Specs and dispatch
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ExpandSpec:
+    """The shape of one EXPAND(d) op's chunks; a built step checks every
+    chunk it is given against it."""
+
+    capacity: int     # chunk capacity C
+    n_vars: int       # assignment columns (order length)
+    n_atoms: int      # lo/hi columns (atom count m)
+    n_others: int     # participating membership atoms at this depth
+
+
+@dataclass(frozen=True)
+class FoldSpec:
+    """The shape of one FOLD_CHILD bracket close (replay-only arity)."""
+
+    capacity: int
+    n_vars: int
+    n_atoms: int
+
+
+@dataclass(frozen=True)
+class EmitSpec:
+    """The shape of one EMIT pack ``fn(assign, valid) -> (packed, k)``."""
+
+    capacity: int
+    n_vars: int
+
+
+def path_of(t: torch.Tensor) -> str:
+    """The kernel path a tensor on this device takes."""
+    if t.is_cuda:
+        return "cuda"
+    if t.device.type == "cpu":
+        return "torch"
+    raise ValueError(f"no kernel path for device {t.device}")
+
+
+def _check(what: str, t: torch.Tensor, shape: Tuple[int, ...],
+           dtype: torch.dtype) -> None:
+    if tuple(t.shape) != shape or t.dtype != dtype:
+        raise ValueError(f"{what}: expected {tuple(shape)} {dtype}, got "
+                         f"{tuple(t.shape)} {t.dtype}")
+
+
+def _check_chunk(spec, F) -> None:
+    C, n, m = spec.capacity, spec.n_vars, spec.n_atoms
+    _check("assign", F.assign, (C, n), torch.int32)
+    _check("factor", F.factor, (C,), torch.int64)
+    _check("valid", F.valid, (C,), torch.bool)
+    _check("orig", F.orig, (C,), torch.int32)
+    _check("lo", F.lo, (C, m), torch.int32)
+    _check("hi", F.hi, (C, m), torch.int32)
+
+
+def expand_fn(spec: ExpandSpec, *, d: int, g_ai: int,
+              other_ais: Tuple[int, ...], g_col: torch.Tensor,
+              g_rs: torch.Tensor, other_cols: Sequence[torch.Tensor],
+              n_rows_g: int) -> Callable:
+    """Build the EXPAND(d) step: ``fn(F) -> (F', needed)``."""
+    from .expand import cuda, plain  # lazy: the kernels import this module
+    other_ais = tuple(other_ais)
+    other_cols = tuple(other_cols)
+    if len(other_ais) != spec.n_others or len(other_cols) != spec.n_others:
+        raise ValueError("other_ais/other_cols do not match spec.n_others")
+
+    def fn(F):
+        kw = dict(d=d, g_ai=g_ai, other_ais=other_ais, n_rows_g=n_rows_g)
+        if path_of(F.assign) == "cuda":
+            return cuda.expand(F, g_col, g_rs, other_cols, **kw)
+        _check_chunk(spec, F)
+        return plain.expand_step(F, g_col, g_rs, other_cols, **kw)
+
+    return fn
+
+
+def fold_fn(spec: FoldSpec, *, d0: int, d1: int) -> Callable:
+    """Build the replay-only FOLD step:
+    ``fn(P, active, rep_of_row, E) -> (cont, stats)`` with ``stats`` the
+    int64 ``[needed, 0, min(needed, C)]``.  The CUDA kernel requires the
+    exit chunk valid-prefix compacted with nondecreasing ``orig`` (every
+    exit chunk the executor folds is)."""
+    from .fold import cuda, plain
+    C = spec.capacity
+
+    def fn(P, active, rep_of_row, E):
+        if path_of(P.assign) == "cuda":
+            return cuda.replay(P, active, rep_of_row, E, d0=d0, d1=d1)
+        _check_chunk(spec, P)
+        _check_chunk(spec, E)
+        _check("active", active, (C,), torch.bool)
+        _check("rep_of_row", rep_of_row, (C,), torch.int32)
+        return plain.replay(P, active, rep_of_row, E, d0=d0, d1=d1)
+
+    return fn
+
+
+def emit_fn(spec: EmitSpec) -> Callable:
+    """Build the EMIT pack ``fn(assign, valid) -> (packed, k)``: the
+    valid rows stably moved to the front, ``k`` their count (a 0-d int32
+    tensor on the chunk's device); rows past ``k`` are unconstrained."""
+    from .emit import cuda, plain
+    C = spec.capacity
+
+    def fn(assign, valid):
+        if path_of(assign) == "cuda":
+            return cuda.pack(assign, valid)
+        _check("assign", assign, (C, spec.n_vars), torch.int32)
+        _check("valid", valid, (C,), torch.bool)
+        return plain.pack(assign, valid)
+
+    return fn

@@ -1,0 +1,114 @@
+"""The port stands alone: it imports with neither ``jax`` nor the JAX
+reference package ``repro`` importable, no file of it names either, and
+its entry points run on the card unless the caller asks for the CPU —
+without CUDA, the default raises instead of carrying on quietly."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+    .replace(".__init__", "")
+    for p in PKG.rglob("*.py"))
+
+
+def test_imports_without_jax_and_reference():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import importlib\n"
+        f"for name in {MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
+        "               for m, v in sys.modules.items() if v is not None)\n"
+        "print('ok', len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+    assert len(MODULES) >= 20
+
+
+IMPORT_RE = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
+
+
+def test_no_file_imports_jax_or_reference():
+    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    offenders = [str(p) for p in files if IMPORT_RE.search(p.read_text())]
+    assert not offenders
+
+
+def _small_db():
+    from repro_torch.core.db import graph_db
+    rng = np.random.default_rng(0)
+    return graph_db(rng.integers(0, 8, size=(30, 2)))
+
+
+@pytest.mark.parametrize("entry", ["count", "evaluate"])
+def test_entry_points_default_to_cuda(entry):
+    from repro_torch.core import engine
+    from repro_torch.core.cq import cycle_query
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is available here: the default runs on the card")
+    db = _small_db()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        getattr(engine, entry)(cycle_query(4), db)
+    res = getattr(engine, entry)(cycle_query(4), db, capacity=1 << 8,
+                                 device="cpu")
+    assert res.count > 0 and res.device == "cpu"
+
+
+def test_engines_default_to_cuda():
+    from repro_torch.core.cached_frontier import CachedTrieJoin
+    from repro_torch.core.cq import cycle_query
+    from repro_torch.core.decompose import choose_plan
+    from repro_torch.core.frontier import TrieJoin
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is available here: the default runs on the card")
+    db = _small_db()
+    q = cycle_query(4)
+    td, order = choose_plan(q, db.stats())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        CachedTrieJoin(q, td, order, db)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TrieJoin(q, order, db)
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    """A wrapper never falls back to its plain version: given tensors that
+    do not lie on a CUDA device it raises before building or launching
+    anything, and counts no launch."""
+    from repro_torch.core.frontier import Frontier
+    from repro_torch.kernels.emit import cuda as emit_cuda
+    from repro_torch.kernels.expand import cuda as expand_cuda
+    from repro_torch.kernels.fold import cuda as fold_cuda
+    C, n, m = 8, 3, 2
+    i32 = torch.int32
+    F = Frontier(torch.zeros((C, n), dtype=i32),
+                 torch.ones(C, dtype=torch.int64),
+                 torch.ones(C, dtype=torch.bool), torch.arange(C, dtype=i32),
+                 torch.zeros((C, m), dtype=i32),
+                 torch.ones((C, m), dtype=i32))
+    col = torch.arange(4, dtype=i32)
+    before = (expand_cuda.launches, fold_cuda.launches, emit_cuda.launches)
+    calls = [
+        lambda: expand_cuda.expand(F, col, col, [col], d=0, g_ai=0,
+                                   other_ais=(1,), n_rows_g=4),
+        lambda: fold_cuda.replay(F, F.valid, F.orig, F, d0=1, d1=2),
+        lambda: emit_cuda.pack(F.assign, F.valid)]
+    for call in calls:
+        with pytest.raises(ValueError, match="kernel runs on"):
+            call()
+    assert (expand_cuda.launches, fold_cuda.launches,
+            emit_cuda.launches) == before

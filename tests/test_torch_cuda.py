@@ -1,0 +1,141 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card (``cuda`` marker: these skip where CUDA is missing; run them on a
+GPU machine with ``python -m pytest -m cuda tests/test_torch_cuda.py``).
+
+Everything compared is an integer, so the tolerance is none: the valid
+prefix and the scalar outputs must be equal bit for bit."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import engine
+from repro_torch.core.cq import (bowtie_query, cycle_query, lollipop_query,
+                                 path_query, star_query)
+from repro_torch.core.db import graph_db
+from repro_torch.core.frontier import Frontier
+from repro_torch.kernels.emit import cuda as emit_cuda, plain as emit_plain
+from repro_torch.kernels.expand import cuda as expand_cuda
+from repro_torch.kernels.expand import plain as expand_plain
+from repro_torch.kernels.fold import cuda as fold_cuda, plain as fold_plain
+
+pytestmark = pytest.mark.cuda
+
+FIELDS = ("assign", "factor", "orig", "lo", "hi")
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    return torch.device("cuda")
+
+
+def _same_prefix(a, b):
+    assert torch.equal(a.valid, b.valid)
+    k = int(b.valid.sum())
+    for f in FIELDS:
+        assert torch.equal(getattr(a, f)[:k], getattr(b, f)[:k]), f
+
+
+def _db(seed=3, nv=30, ne=400):
+    rng = np.random.default_rng(seed)
+    return graph_db(rng.integers(0, nv, size=(ne, 2)))
+
+
+@pytest.mark.parametrize("C", [1 << 8, 1 << 12])
+@pytest.mark.parametrize("q", [cycle_query(5), star_query(3), bowtie_query()])
+def test_expand_kernel_matches_plain_level_by_level(dev, q, C):
+    from repro_torch.core.cached_frontier import CachedTrieJoin
+    db = _db()
+    td, order = engine.plan_query(q, db)
+    eng = CachedTrieJoin(q, td, order, db, capacity=C, device=dev)
+    F = eng.initial_frontier()
+    for d in range(eng.n):
+        a = eng.expand_kernel_args(d)
+        kw = dict(d=d, g_ai=a["g_ai"], other_ais=a["other_ais"],
+                  n_rows_g=a["n_rows_g"])
+        Fc, nc = expand_cuda.expand(F, a["g_col"], a["g_rs"],
+                                    a["other_cols"], **kw)
+        Fp, np_ = expand_plain.expand_step(F, a["g_col"], a["g_rs"],
+                                           a["other_cols"], **kw)
+        assert int(nc) == int(np_)
+        _same_prefix(Fc, Fp)
+        F = Fp
+
+
+@pytest.mark.parametrize("C,seed", [(1 << 8, 0), (1 << 12, 1), (1 << 16, 2)])
+def test_fold_and_emit_kernels_match_plain(dev, C, seed):
+    rng = np.random.default_rng(seed)
+    n, m, reps = 5, 3, max(2, C // 8)
+
+    def chunk(valid, orig):
+        return Frontier(
+            torch.from_numpy(rng.integers(0, 99, (C, n)).astype(np.int32)),
+            torch.from_numpy(rng.integers(1, 9, C).astype(np.int64)),
+            torch.from_numpy(valid), torch.from_numpy(orig.astype(np.int32)),
+            torch.from_numpy(rng.integers(0, 99, (C, m)).astype(np.int32)),
+            torch.from_numpy(rng.integers(0, 99, (C, m)).astype(np.int32)))
+
+    ar = np.arange(C)
+    P = chunk(ar < C // 2, ar)
+    eorig = np.full(C, reps - 1)
+    eorig[:C // 4] = np.sort(rng.integers(0, reps, C // 4))
+    E = chunk(ar < C // 4, eorig)
+    active = torch.from_numpy((ar < C // 2) & (rng.random(C) < 0.7))
+    ror = torch.from_numpy(rng.integers(0, reps, C).astype(np.int32))
+    P = Frontier(*(t.to(dev) for t in P))
+    E = Frontier(*(t.to(dev) for t in E))
+    active, ror = active.to(dev), ror.to(dev)
+    Oc, sc = fold_cuda.replay(P, active, ror, E, d0=1, d1=3)
+    Op, sp = fold_plain.replay(P, active, ror, E, d0=1, d1=3)
+    assert torch.equal(sc, sp)
+    _same_prefix(Oc, Op)
+    pc, kc = emit_cuda.pack(P.assign, active)
+    pp, kp = emit_plain.pack(P.assign, active)
+    assert int(kc) == int(kp)
+    assert torch.equal(pc[:int(kp)], pp[:int(kp)])
+
+
+def _hub_db():
+    """A hub whose candidate run alone exceeds a 2^8 chunk, so the
+    executor splits oversized rows before EXPAND (as in
+    ``test_torch_engine.py::test_oversized_rows_split_like_reference``)."""
+    rng = np.random.default_rng(5)
+    hub = np.stack([np.zeros(700, np.int64), np.arange(1, 701)], axis=1)
+    return graph_db(np.concatenate([hub, rng.integers(0, 700, (300, 2))]))
+
+
+ENGINE_CASES = [("path-4", path_query(4), "small"),
+                ("cycle-4", cycle_query(4), "small"),
+                ("bowtie", bowtie_query(), "small"),
+                ("lollipop-3-2", lollipop_query(3, 2), "small"),
+                ("star-3", star_query(3), "small"),
+                ("hub-star-2", star_query(2), "hub")]
+STATS = ["tier1_rows_collapsed"] + [
+    f"tier2_{k}" for k in ("hits", "misses", "probes", "inserts",
+                           "evictions", "resizes")]
+
+
+@pytest.mark.parametrize("qname,q,which", ENGINE_CASES,
+                         ids=[c[0] for c in ENGINE_CASES])
+def test_engine_on_the_card_matches_cpu(dev, qname, q, which):
+    """count and evaluate on the card equal the CPU run: counts, tuples in
+    block order, tier counters.  The FOLD kernel relies on the executor's
+    sorted-exits invariant, which the plain version (it sorts the exits
+    itself) cannot see; this is where a broken invariant shows."""
+    db = _db(nv=20, ne=300) if which == "small" else _hub_db()
+    for fn in (engine.count, engine.evaluate):
+        g = fn(q, db, capacity=1 << 8)
+        c = fn(q, db, capacity=1 << 8, device="cpu")
+        assert g.count == c.count
+        if g.tuples is not None:
+            np.testing.assert_array_equal(g.tuples, c.tuples)
+            for op in ("fold", "emit"):
+                assert (g.counters[f"{op}_calls_cuda"]
+                        == c.counters[f"{op}_calls_torch"])
+                assert g.counters[f"{op}_calls_torch"] == 0
+        for k in STATS:
+            assert g.counters.get(k, 0) == c.counters.get(k, 0), k
+        assert g.counters["expand_calls_cuda"] > 0
+        assert g.counters["expand_calls_torch"] == 0
+        assert c.counters["expand_calls_cuda"] == 0

@@ -1,0 +1,270 @@
+"""Each plain kernel of the port (``repro_torch.kernels.*.plain``) against
+the JAX reference on the same numpy inputs: the XLA chain, the Pallas
+kernel in interpret mode, and the numpy oracle.  Everything compared is
+an integer, so the tolerance is none: the valid prefix and the scalar
+outputs (``needed``, ``stats``, ``k``) must be equal bit for bit; rows
+past the valid prefix are unconstrained except that they are invalid."""
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+from jax.experimental import enable_x64
+
+from repro.core.cached_frontier import JaxCachedTrieJoin
+from repro.core.cq import bowtie_query, cycle_query, star_query
+from repro.core.db import graph_db
+from repro.core.decompose import choose_plan
+from repro.core.frontier import Frontier as RFrontier
+from repro.kernels.emit import emit_ref
+from repro.kernels.emit import fused as r_emit_fused, xla as r_emit_xla
+from repro.kernels.expand import FusedExpandConfig, expand_ref
+from repro.kernels.expand import fused as r_expand_fused
+from repro.kernels.expand import xla as r_expand_xla
+from repro.kernels.fold import FusedFoldConfig, fold_ref
+from repro.kernels.fold import fused as r_fold_fused, xla as r_fold_xla
+from repro.kernels.emit.fused import FusedEmitConfig
+from repro_torch.convert import from_reference
+from repro_torch.core.cached_frontier import CachedTrieJoin
+from repro_torch.core.frontier import Frontier as TFrontier
+from repro_torch.kernels import registry
+from repro_torch.kernels.emit import plain as t_emit
+from repro_torch.kernels.expand import plain as t_expand
+from repro_torch.kernels.fold import plain as t_fold
+
+FIELDS = ("assign", "factor", "orig", "lo", "hi")
+
+
+def _to_torch(F):
+    return TFrontier(*(torch.from_numpy(np.array(x)) for x in F))
+
+
+def _to_jax(F):
+    return RFrontier(*(jnp.asarray(np.asarray(x)) for x in F))
+
+
+def _host(F):
+    return RFrontier(*(np.asarray(x) for x in F))
+
+
+def _assert_chunks_equal(a, b, msg):
+    """Same valid mask shape (a prefix), same valid prefix."""
+    va, vb = np.asarray(a.valid), np.asarray(b.valid)
+    ka, kb = int(va.sum()), int(vb.sum())
+    assert ka == kb, f"{msg}: {ka} != {kb} valid rows"
+    assert va[:ka].all() and vb[:kb].all(), f"{msg}: not a valid prefix"
+    for f in FIELDS:
+        np.testing.assert_array_equal(np.asarray(getattr(a, f))[:ka],
+                                      np.asarray(getattr(b, f))[:kb],
+                                      err_msg=f"{msg}: {f}")
+    return ka
+
+
+# ---------------------------------------------------------------------------
+# EXPAND, level by level on real engines
+# ---------------------------------------------------------------------------
+
+def _engines(q, capacity, seed=11, nv=8, ne=90):
+    rng = np.random.default_rng(seed)
+    db = graph_db(rng.integers(0, nv, size=(ne, 2)))
+    td, order = choose_plan(q, db.stats())
+    ref = JaxCachedTrieJoin(q, td, order, db, capacity=capacity)
+    tdb, tq, ttd, tord = from_reference(
+        db.relations, [(a.relation, a.vars) for a in q.atoms], td.bags,
+        td.parent, order, td.children)
+    port = CachedTrieJoin(tq, ttd, tord, tdb, capacity=capacity,
+                          device="cpu")
+    return ref, port
+
+
+def _expand_all_ways(ref, port, F, d):
+    ra = ref.expand_kernel_args(d)
+    ta = port.expand_kernel_args(d)
+    assert (ta["g_ai"], ta["other_ais"]) == (ra["g_ai"], ra["other_ais"])
+    Fx, nx = r_expand_xla.build(impl="bsearch", **ra)(F)
+    Fp, npl = r_expand_fused.build(
+        config=FusedExpandConfig(interpret=True), **ra)(F)
+    kw = dict(d=d, g_ai=ta["g_ai"], other_ais=ta["other_ais"],
+              n_rows_g=ta["n_rows_g"])
+    Ft, nt = t_expand.expand_step(_to_torch(F), ta["g_col"], ta["g_rs"],
+                                  ta["other_cols"], **kw)
+    assert int(nt) == int(nx) == int(npl)
+    k = _assert_chunks_equal(Ft, Fx, f"d={d} plain vs xla")
+    _assert_chunks_equal(Ft, Fp, f"d={d} plain vs pallas")
+    if int(nt) <= F.assign.shape[0]:  # the oracle does not truncate
+        host = {f: np.asarray(x) for f, x in F._asdict().items()}
+        rows, needed = expand_ref(
+            host, np.asarray(ra["g_col"]), np.asarray(ra["g_rs"]),
+            [np.asarray(c) for c in ra["other_cols"]], d=d, g_ai=ra["g_ai"],
+            other_ais=ra["other_ais"], n_rows_g=ra["n_rows_g"])
+        assert needed == int(nt) and rows["assign"].shape[0] == k
+        for f in FIELDS:
+            np.testing.assert_array_equal(getattr(Ft, f)[:k].numpy(),
+                                          rows[f], err_msg=f"d={d} {f}")
+    return Fx
+
+
+@pytest.mark.parametrize("qname,q,capacity",
+                         [("cycle-5", cycle_query(5), 1 << 8),
+                          ("star-3", star_query(3), 1 << 10),
+                          ("bowtie", bowtie_query(), 1 << 8)])
+def test_expand_plain_matches_reference_level_by_level(qname, q, capacity):
+    """Walk every depth from the initial frontier, continuing from the XLA
+    result, so each level sees a realistic chunk."""
+    ref, port = _engines(q, capacity)
+    with enable_x64():
+        F = ref.initial_frontier()
+        for d in range(ref.n):
+            F = _expand_all_ways(ref, port, F, d)
+
+
+def test_expand_tiny_capacity_truncates_like_reference():
+    """A chunk whose candidates exceed the capacity (the executor splits
+    such chunks first): every path truncates the slot enumeration the
+    same way and reports the same uncapped ``needed``."""
+    ref, port = _engines(star_query(3), 1 << 8, nv=40, ne=1500)
+    with enable_x64():
+        F = ref.initial_frontier()
+        F, _ = r_expand_xla.build(impl="bsearch",
+                                  **ref.expand_kernel_args(0))(F)
+        grown = 0
+        for d in range(1, ref.n):
+            _expand_all_ways(ref, port, F, d)
+            _, needed = r_expand_xla.build(
+                impl="bsearch", **ref.expand_kernel_args(d))(F)
+            grown = max(grown, int(needed))
+        assert grown > F.assign.shape[0], "case must overflow capacity"
+
+
+def test_expand_registry_dispatches_cpu_to_plain():
+    ref, port = _engines(cycle_query(4), 1 << 8)
+    fn = port._expand_fn(0)
+    with enable_x64():
+        F = ref.initial_frontier()
+        Fx, nx = r_expand_xla.build(impl="bsearch",
+                                    **ref.expand_kernel_args(0))(F)
+    Ft, nt = fn(port.initial_frontier())
+    assert registry.path_of(Ft.assign) == "torch"
+    assert int(nt) == int(nx)
+    _assert_chunks_equal(Ft, Fx, "registry")
+
+
+# ---------------------------------------------------------------------------
+# FOLD, replay-only arity
+# ---------------------------------------------------------------------------
+
+def _fold_inputs(C, seed, n=5, m=3, n_parents=None, n_exits=None,
+                 n_reps=None):
+    """(P, active, rep_of_row, E) with the exits valid-prefix compacted
+    and their orig nondecreasing (the sorted-exits invariant)."""
+    rng = np.random.default_rng(seed)
+    n_parents = n_parents or C // 5
+    n_exits = n_exits or C // 3
+    n_reps = n_reps or max(2, C // 16)
+
+    def chunk(k, orig):
+        lo = rng.integers(0, 9, size=(C, m)).astype(np.int32)
+        return RFrontier(
+            rng.integers(0, 40, size=(C, n)).astype(np.int32),
+            rng.integers(1, 5, size=(C,)).astype(np.int64),
+            np.arange(C) < k, np.asarray(orig, np.int32), lo,
+            lo + rng.integers(0, 4, size=(C, m)).astype(np.int32))
+
+    P = chunk(n_parents, np.sort(rng.integers(0, C, size=(C,))))
+    active = (np.arange(C) < n_parents) & (rng.random(C) < 0.8)
+    rep_of_row = rng.integers(0, n_reps, size=(C,)).astype(np.int32)
+    eorig = np.full((C,), n_reps - 1, np.int32)
+    eorig[:n_exits] = np.sort(rng.integers(0, n_reps, size=(n_exits,)))
+    E = chunk(n_exits, eorig)
+    return P, active, rep_of_row, E
+
+
+FOLD_CASES = [(1 << 8, 0, {}), (1 << 8, 1, {}), (1 << 10, 2, {}),
+              (1 << 12, 3, {}),
+              # more pairs than the capacity: truncated, needed uncapped
+              (1 << 8, 4, dict(n_parents=200, n_exits=250, n_reps=4))]
+
+
+@pytest.mark.parametrize("C,seed,kw", FOLD_CASES)
+def test_fold_replay_plain_matches_reference(C, seed, kw):
+    d0, d1 = 1, 3
+    P, active, ror, E = _fold_inputs(C, seed, **kw)
+    ref = fold_ref(P, active, ror, E, d0=d0, d1=d1)
+    with enable_x64():
+        args = (_to_jax(P), jnp.asarray(active), jnp.asarray(ror),
+                _to_jax(E))
+        Fx, sx = r_fold_xla.build(d0=d0, d1=d1, with_replay=True,
+                                  with_splice=False)(*args)
+        Fp, sp = r_fold_fused.build(
+            d0=d0, d1=d1, with_replay=True, with_splice=False,
+            config=FusedFoldConfig(interpret=True))(*args)
+    Ft, st = t_fold.replay(_to_torch(P), torch.from_numpy(active),
+                           torch.from_numpy(ror), _to_torch(E), d0=d0, d1=d1)
+    assert st.dtype == torch.int64
+    for s in (np.asarray(sx), np.asarray(sp), ref[5]):
+        np.testing.assert_array_equal(st.numpy(), s)
+    k = _assert_chunks_equal(Ft, Fx, "plain vs xla")
+    _assert_chunks_equal(Ft, Fp, "plain vs pallas")
+    assert k == ref[0].shape[0]
+    for f, r in zip(FIELDS, ref[:5]):
+        np.testing.assert_array_equal(getattr(Ft, f)[:k].numpy(), r,
+                                      err_msg=f)
+    if kw:
+        assert int(st[0]) > C, "case must overflow capacity"
+
+
+def test_fold_registry_checks_shapes():
+    C = 1 << 8
+    P, active, ror, E = _fold_inputs(C, 0)
+    fn = registry.fold_fn(registry.FoldSpec(capacity=C, n_vars=5,
+                                            n_atoms=3), d0=1, d1=3)
+    Ft, _ = fn(_to_torch(P), torch.from_numpy(active),
+               torch.from_numpy(ror), _to_torch(E))
+    assert Ft.assign.shape == (C, 5)
+    with pytest.raises(ValueError):
+        fn(_to_torch(P), torch.from_numpy(active),
+           torch.from_numpy(ror).long(), _to_torch(E))
+
+
+# ---------------------------------------------------------------------------
+# EMIT
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("C,density,seed", [(1 << 8, 0.0, 0),
+                                            (1 << 8, 0.3, 1),
+                                            (1 << 10, 1.0, 2),
+                                            (1 << 12, 0.5, 3)])
+def test_emit_plain_matches_reference(C, density, seed):
+    rng = np.random.default_rng(seed)
+    assign = rng.integers(0, 1 << 20, size=(C, 4)).astype(np.int32)
+    valid = rng.random(C) < density
+    want = emit_ref(assign, valid)
+    px, kx = r_emit_xla.build()(jnp.asarray(assign), jnp.asarray(valid))
+    pp, kp = r_emit_fused.build(config=FusedEmitConfig(interpret=True))(
+        jnp.asarray(assign), jnp.asarray(valid))
+    pt, kt = t_emit.pack(torch.from_numpy(assign), torch.from_numpy(valid))
+    k = int(kt)
+    assert kt.dtype == torch.int32 and kt.dim() == 0
+    assert k == int(kx) == int(kp) == want.shape[0]
+    np.testing.assert_array_equal(pt[:k].numpy(), want)
+    np.testing.assert_array_equal(pt[:k].numpy(), np.asarray(px)[:k])
+    np.testing.assert_array_equal(pt[:k].numpy(), np.asarray(pp)[:k])
+
+
+# ---------------------------------------------------------------------------
+# The bounded search
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("strict", [True, False])
+def test_bsearch_matches_reference(strict):
+    from repro.kernels.registry import _bsearch as r_bsearch
+    rng = np.random.default_rng(7)
+    col = np.sort(rng.integers(0, 50, size=301)).astype(np.int32)
+    lo = rng.integers(0, 301, size=500).astype(np.int32)
+    hi = np.minimum(lo + rng.integers(0, 80, size=500), 301).astype(np.int32)
+    vals = rng.integers(-5, 55, size=500).astype(np.int32)
+    want = np.asarray(r_bsearch(jnp.asarray(col), jnp.asarray(vals),
+                                jnp.asarray(lo), jnp.asarray(hi),
+                                strict=strict))
+    got = registry._bsearch(*(torch.from_numpy(a) for a in
+                              (col, vals, lo, hi)), strict=strict)
+    np.testing.assert_array_equal(got.numpy(), want)
