@@ -6,9 +6,12 @@
 Builds the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a),
 holds every kernel against its plain PyTorch version on the card, runs
 ``engine.count`` and ``engine.evaluate`` of the 4-cycle on Zipf graphs at
-the published scale of SNAP wiki-Vote and ca-GrQc, checks both against
-scipy.sparse oracles, and checks that the main path launched every
-kernel.  Phases print one line each; then come the card's name and
+the published scale of SNAP wiki-Vote and ca-GrQc, then payload-replay
+evaluation (tier 2 on, cold and warm passes on one engine) and streamed
+evaluation (``engine.evaluate_stream``) of the ca-GrQc-scale graph,
+checks every result against scipy.sparse oracles, and checks that each
+path launched its kernels.  Phases print one line each; then come the
+card's name and
 power limit (as nvidia-smi prints them), a JSON object with each
 kernel's launches, error, times and bound, and as the last line
 
@@ -34,10 +37,12 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch  # noqa: E402
 
 from repro_torch.core import engine  # noqa: E402
+from repro_torch.core.cache import CacheConfig  # noqa: E402
 from repro_torch.core.cached_frontier import CachedTrieJoin  # noqa: E402
 from repro_torch.core.cq import cycle_query  # noqa: E402
 from repro_torch.core.db import graph_db  # noqa: E402
 from repro_torch.core.frontier import Frontier  # noqa: E402
+from repro_torch.core.hostsync import SyncCounter  # noqa: E402
 from repro_torch.core.schedule import FOLD_CHILD  # noqa: E402
 from repro_torch.data.graphs import zipf_graph  # noqa: E402
 from repro_torch.kernels import cudalib  # noqa: E402
@@ -59,11 +64,22 @@ SEED = 0
 WIKI = dict(nv=7115, ne=103689)
 # SNAP ca-GrQc: 5,242 vertices, 14,496 undirected edges
 GRQC = dict(nv=5242, ne=14496)
-WRAPPERS = {"expand": expand_cuda, "fold_replay": fold_cuda,
-            "emit": emit_cuda}
+# the tier-2 cache of the reference's evaluation preset (TPU_EVAL_REPLAY
+# in src/repro/configs/paper_clftj.py): 8-way set-associative tables of
+# 2^14 slots, payload replay on, 2^17-row slab arenas
+PAYLOAD_CACHE = CacheConfig(policy="setassoc", assoc=8, slots=1 << 14,
+                            cache_payloads=True, payload_rows=1 << 17)
+STREAM_IN_FLIGHT = 16       # the streaming preset's async-emit window
+# kernel name -> (wrapper module, its launch counter)
+WRAPPERS = {"expand": (expand_cuda, "launches"),
+            "fold_replay": (fold_cuda, "launches"),
+            "fold_splice": (fold_cuda, "splice_launches"),
+            "emit": (emit_cuda, "launches")}
 SOURCES = {"expand": ("src/repro_torch/csrc/expand.cu",
                       "src/repro/kernels/expand/fused.py:193"),
            "fold_replay": ("src/repro_torch/csrc/fold.cu",
+                           "src/repro/kernels/fold/fused.py:228"),
+           "fold_splice": ("src/repro_torch/csrc/fold.cu",
                            "src/repro/kernels/fold/fused.py:228"),
            "emit": ("src/repro_torch/csrc/emit.cu",
                     "src/repro/kernels/emit/fused.py:70")}
@@ -186,6 +202,28 @@ def fold_work(P, active, ror, E, d0: int, d1: int) -> tuple:
             + exits * (4 * w + 8))
     written = out * row_bytes(n, m) + C + 24
     ops = n_act * 2 * trips(C) + C + out * (trips(C) + 1)
+    return read + written, ops
+
+
+def splice_work(P, hit, plen, d0: int, d1: int) -> tuple:
+    """(bytes, operations) one splice-only FOLD must spend on this input.
+    Bytes: the hit flags, and the block length of every parent that hits;
+    the block offset and the parent row (less the spliced columns) of
+    every parent that fills an output row; one slab row of the spliced
+    columns per output row; the output rows, the valid flags and the
+    stats.  Operations: one scan of C values, and per output row the
+    offset inversion."""
+    C, n = P.assign.shape
+    m, w = P.lo.shape[1], d1 - d0 + 1
+    h = host(hit)
+    scnt = np.where(h, host(plen), 0).astype(np.int64)
+    soff = np.cumsum(scnt) - scnt
+    feeding = int(((scnt > 0) & (soff < C)).sum())
+    out = min(int(scnt.sum()), C)
+    read = (C + 4 * int(h.sum())
+            + feeding * (4 + 4 * (n - w) + 12 + 8 * m) + out * 4 * w)
+    written = out * row_bytes(n, m) + C + 24
+    ops = C + out * trips(C)
     return read + written, ops
 
 
@@ -358,8 +396,83 @@ def kernels_vs_plain(db, dev):
     return rows, dict(n=eng.n, m=eng.m, order=order)
 
 
-def profile_line(fn, q, db) -> str:
-    """Run ``fn(q, db)`` once under torch.profiler: wall time, device busy
+class SpliceCapture:
+    """Record the splice kernel's largest call (most spliced rows) while
+    a pass runs: its parent chunk, hit mask, block pointers and a copy of
+    the node's slab as they were at the call (later stores write the slab
+    in place).  Every call still launches the kernel."""
+
+    def __init__(self):
+        self.best = None
+        self.n_spl = -1
+        self._orig = fold_cuda.splice
+
+    def __enter__(self):
+        def spy(P, hit, poff, plen, slab, *, d0, d1):
+            n_spl = int(torch.where(hit, plen, 0).sum())
+            if n_spl > self.n_spl:
+                self.n_spl = n_spl
+                self.best = (P, hit, poff, plen, slab.clone(), d0, d1)
+            return self._orig(P, hit, poff, plen, slab, d0=d0, d1=d1)
+
+        fold_cuda.splice = spy
+        return self
+
+    def __exit__(self, *exc):
+        fold_cuda.splice = self._orig
+        return False
+
+
+def splice_vs_plain(capture: SpliceCapture) -> dict:
+    """Phase 3, fold_splice: the kernel against its plain version on the
+    captured warm-pass inputs (C = 2^16)."""
+    P, hit, poff, plen, slab, d0, d1 = capture.best
+    (Oc, sc) = fold_cuda.splice(P, hit, poff, plen, slab, d0=d0, d1=d1)
+    (Op, sp_) = fold_plain.splice(P, hit, poff, plen, slab, d0=d0, d1=d1)
+    torch.cuda.synchronize()
+    check(torch.equal(sc, sp_),
+          f"splice stats {sc.tolist()} != {sp_.tolist()}")
+    check(torch.equal(Oc.valid, Op.valid), "splice valid masks differ")
+    k = int(Op.valid.sum())
+    err = frontier_max_err(Oc, Op, k)
+    check(err == 0, f"splice differs on the valid prefix (err {err})")
+    moved, ops = splice_work(P, hit, plen, d0, d1)
+    plens = host(plen)[host(hit)]
+    return dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: fold_cuda.splice(P, hit, poff, plen, slab,
+                                            d0=d0, d1=d1)),
+        plain_ms=time_ms(lambda: fold_plain.splice(P, hit, poff, plen, slab,
+                                                   d0=d0, d1=d1)),
+        **bound(moved, ops), library_ms=None,
+        note=(f"span=[{d0},{d1}] hits={plens.size} n_spliced="
+              f"{int(sp_[1])} plen mean {plens.mean():.2f} max "
+              f"{plens.max()}"))
+
+
+def check_rows(rows, order, q, db, want: int, what: str) -> None:
+    """Evaluated rows: the oracle's number of rows, unique, and every
+    atom holds on every row."""
+    n = len(order)
+    check(rows.shape == (want, n), f"{what} rows {rows.shape} != "
+          f"({want}, {n}) from the scipy oracle")
+    edges = db.relations["E"]
+    nv = int(edges.max()) + 1
+    keys = np.ravel_multi_index(rows.T.astype(np.int64), (nv,) * n)
+    check(np.unique(keys).size == keys.size, f"{what} rows not unique")
+    ekeys = np.sort(edges[:, 0] * nv + edges[:, 1])
+    pos = {x: i for i, x in enumerate(order)}
+    for atom in q.atoms:
+        u, v = (rows[:, pos[x]].astype(np.int64) for x in atom.vars)
+        k = u * nv + v
+        hit = np.searchsorted(ekeys, k)
+        ok = (hit < ekeys.size) & (ekeys[np.minimum(hit, ekeys.size - 1)]
+                                   == k)
+        check(bool(ok.all()), f"{what} rows violate atom {atom}")
+
+
+def profile_line(run) -> str:
+    """Run ``run()`` once under torch.profiler: wall time, device busy
     time and share, and the device ops (kernels, copies) that took the
     most time.  Only device activity is traced: each device op is then
     counted once, and the trace stays small enough to summarise fast."""
@@ -367,7 +480,7 @@ def profile_line(fn, q, db) -> str:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn(q, db, capacity=C)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     ops = [(e.key, e.self_device_time_total / 1e6, e.count)
@@ -383,12 +496,28 @@ def profile_line(fn, q, db) -> str:
 
 
 def reset_launches() -> None:
-    for w in WRAPPERS.values():
-        w.launches = 0
+    for mod, attr in WRAPPERS.values():
+        setattr(mod, attr, 0)
 
 
 def read_launches() -> dict:
-    return {name: w.launches for name, w in WRAPPERS.items()}
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in WRAPPERS.items()}
+
+
+def timed_pass(eng):
+    """One evaluate pass of ``eng``: (rows, seconds), the clock stopped
+    after the rows reached the host."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blocks = list(eng.evaluate())
+    secs = time.perf_counter() - t0
+    return np.concatenate(blocks), secs
+
+
+PAY_KEYS = ("tier2_replay_hits", "tier2_payload_flushes",
+            "tier2_payload_throttled", "tier2_payload_skips",
+            "tier2_slab_rows", "tier2_probes", "tier2_inserts")
 
 
 def main() -> int:
@@ -456,21 +585,8 @@ def main() -> int:
     after_eval = {k: launches[k] - after_count[k] for k in launches}
     rows2 = res2.tuples
     want2 = cycle_oracle(db2, 4)
-    check(rows2.shape == (want2, 4), f"evaluate rows {rows2.shape} != "
-          f"({want2}, 4) from the scipy oracle")
-    nv2 = int(db2.relations["E"].max()) + 1
-    keys = np.ravel_multi_index(rows2.T.astype(np.int64), (nv2,) * 4)
-    check(np.unique(keys).size == keys.size, "evaluate rows not unique")
+    check_rows(rows2, res2.order, q, db2, want2, "evaluate")
     edges = db2.relations["E"]
-    ekeys = np.sort(edges[:, 0] * nv2 + edges[:, 1])
-    pos = {x: i for i, x in enumerate(res2.order)}
-    for atom in q.atoms:
-        u, v = (rows2[:, pos[x]].astype(np.int64) for x in atom.vars)
-        k = u * nv2 + v
-        hit = np.searchsorted(ekeys, k)
-        ok = (hit < ekeys.size) & (ekeys[np.minimum(hit, ekeys.size - 1)]
-                                   == k)
-        check(bool(ok.all()), f"evaluate rows violate atom {atom}")
     cnt2 = res2.counters
     for op in ("expand", "fold", "emit"):
         check(cnt2[f"{op}_calls_cuda"] > 0 and cnt2[f"{op}_calls_torch"] == 0,
@@ -487,22 +603,109 @@ def main() -> int:
           + json.dumps({k: v for k, v in cnt2.items() if v}), flush=True)
 
     # 6. the main path went through every kernel
-    for name, n in launches.items():
+    main_path = {k: v for k, v in launches.items() if k != "fold_splice"}
+    for name, n in main_path.items():
         check(n > 0, f"kernel {name} was not launched on the main path")
     print(f"[6 launches] main path (count + evaluate): "
           + json.dumps(launches)
           + f" | total {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # 7. where the main path's time goes (a second, traced pass)
-    for label, fn, graph in (("count", engine.count, db),
-                             ("evaluate", engine.evaluate, db2)):
-        print(f"[7 profile {label}] " + profile_line(fn, q, graph), flush=True)
+    # 8. payload-replay evaluation: cold then warm on ONE engine (tier-2
+    #    tables live per engine object)
+    td2, order2 = engine.plan_query(q, db2)
+    pay = CachedTrieJoin(q, td2, order2, db2, capacity=C,
+                         cache=PAYLOAD_CACHE, device=dev)
+    reset_launches()
+    passes = []
+    for label in ("cold", "warm"):
+        before = dict(pay.stats)
+        prows, secs = timed_pass(pay)
+        check_rows(prows, order2, q, db2, want2, f"payload {label}")
+        passes.append((label, secs, {k: pay.stats[k] - before[k]
+                                     for k in PAY_KEYS}))
+    pay_launches = read_launches()
+    pst = pay.stats
+    warm = passes[1][2]
+    check(warm["tier2_replay_hits"] > 0, "warm pass served no replay hits")
+    check(pay_launches["fold_splice"] == pst["fold_splice_calls_cuda"] > 0,
+          f"splice launches {pay_launches['fold_splice']} != executor "
+          f"count {pst['fold_splice_calls_cuda']}")
+    check(pst["fold_calls_torch"] == 0 and pst["expand_calls_torch"] == 0
+          and pst["emit_calls_torch"] == 0,
+          "payload evaluation left the CUDA kernels")
+    check(pay_launches["fold_replay"]
+          == pst["fold_calls_cuda"] - pst["fold_splice_calls_cuda"]
+          and pay_launches["expand"] == pst["expand_calls_cuda"]
+          and pay_launches["emit"] == pst["emit_calls_cuda"],
+          "wrapper launches != executor counts in payload evaluation")
+    for name, n in pay_launches.items():
+        check(n > 0, f"kernel {name} was not launched by payload evaluation")
+    print(f"[8 payload] 4-cycle on the ca-GrQc-scale graph, C={C}, cache "
+          f"setassoc 8-way 2^14 slots, payload_rows 2^17: rows={want2} "
+          f"(oracle) both passes, unique, every atom holds; "
+          + "; ".join(f"{lb} exec_s={secs:.3f} " + json.dumps(d)
+                      for lb, secs, d in passes)
+          + " | launches " + json.dumps(pay_launches), flush=True)
+
+    # 3, fold_splice: the kernel on a real warm-pass probe (a third pass,
+    #    untimed, records the call with the most spliced rows)
+    with SpliceCapture() as cap:
+        list(pay.evaluate())
+    check(cap.best is not None, "the capture pass spliced nothing")
+    rows["fold_splice"] = splice_vs_plain(cap)
+    r = rows["fold_splice"]
+    print(f"[3 kernels] fold_splice: {r['ms']:.4f} ms (plain "
+          f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms by "
+          f"{r['bound_by']}, {r['note']})", flush=True)
+
+    # 9. streamed evaluation on fresh engines, against one-shot evaluation
+    one = engine.evaluate(q, db2, capacity=C, cache=PAYLOAD_CACHE)
+    check_rows(one.tuples, one.order, q, db2, want2, "one-shot (payload)")
+    reset_launches()
+    with SyncCounter() as sc:
+        stream = engine.evaluate_stream(q, db2, capacity=C,
+                                        cache=PAYLOAD_CACHE,
+                                        emit_in_flight=STREAM_IN_FLIGHT)
+        blocks = list(stream)
+    stream_launches = read_launches()
+    streamed = np.concatenate(blocks)
+    check(np.array_equal(streamed, one.tuples),
+          "the stream's blocks differ from one-shot evaluation")
+    check(stream.result.counters["tier2_replay_hits"]
+          == one.counters["tier2_replay_hits"],
+          "stream and one-shot replay hits differ")
+    check(sc.label_counts["emit-stream"] == len(blocks) > 0,
+          "not every block went through the async emit queue")
+    for name, n in stream_launches.items():
+        if name != "fold_splice" or one.counters["fold_splice_calls_cuda"]:
+            check(n > 0, f"kernel {name} was not launched by the stream")
+    for name in pay_launches:
+        pay_launches[name] += stream_launches[name]
+    print(f"[9 stream] engine.evaluate_stream, emit_in_flight="
+          f"{STREAM_IN_FLIGHT}, fresh engine: {len(blocks)} blocks, "
+          f"{streamed.shape[0]} rows = one-shot in the same order; "
+          f"exec_s={stream.result.exec_s:.3f} (one-shot "
+          f"{one.exec_s:.3f}); async issues {sc.async_count} "
+          f"({dict(sc.label_counts)['emit-stream']} emit-stream, "
+          f"{sc.label_counts['replay-plan-async']} replay-plan-async), "
+          f"blocking syncs {sc.count} | launches "
+          + json.dumps(stream_launches)
+          + f" | total {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # 7. where the time goes (one more, traced pass of each path)
+    for label, run in (
+            ("count", lambda: engine.count(q, db, capacity=C)),
+            ("evaluate", lambda: engine.evaluate(q, db2, capacity=C)),
+            ("payload-warm", lambda: list(pay.evaluate()))):
+        print(f"[7 profile {label}] " + profile_line(run), flush=True)
 
     kernels = []
     for name, r in rows.items():
         src, replaces = SOURCES[name]
+        n = (launches[name] if name != "fold_splice" else 0) + \
+            pay_launches[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces, "launches": n,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],

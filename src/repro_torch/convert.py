@@ -5,19 +5,24 @@ plan.  :func:`from_reference` rebuilds the port's objects from plain
 Python and numpy values that the reference's objects expose (relations,
 atoms, TD bags and parents, variable order), so both engines can run the
 same plan and a difference in planning cannot hide a difference in
-execution.
+execution.  :func:`table_from_reference` carries a warm tier-2 table
+across: the state a reference table exports as numpy arrays becomes a
+port :class:`~.core.cache.DeviceCache`, so a warm pass can be compared
+with the reference's warm pass from the same tables.
 """
 from __future__ import annotations
 
 from typing import Dict, FrozenSet, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
+from .core.cache import CacheConfig, DeviceCache
 from .core.cq import CQ, Atom
 from .core.db import Database
 from .core.td import TreeDecomposition
 
-__all__ = ["from_reference"]
+__all__ = ["from_reference", "table_from_reference"]
 
 
 def from_reference(relations: Dict[str, np.ndarray],
@@ -42,3 +47,48 @@ def from_reference(relations: Dict[str, np.ndarray],
     td = TreeDecomposition([frozenset(b) for b in bags],
                            [int(p) for p in parent], kids)
     return db, q, td, tuple(order)
+
+
+def table_from_reference(state: Dict[str, object], config: CacheConfig,
+                         device="cpu") -> DeviceCache:
+    """A port tier-2 table holding a reference table's exported state.
+
+    ``state`` is what the reference's ``DeviceCache.export_state()``
+    returns: the ``keys``/``vals``/``used``/``stamp``/``cost`` planes, and
+    with payloads the ``pay_off``/``pay_len`` planes, the ``slab`` (when
+    the arena was allocated), ``slab_bump``, ``payload_flushes`` and the
+    LRU ``tick``.  The planes keep the reference's dtypes (int64 keys,
+    counts and costs, int32 stamps and payload pointers); the table's
+    geometry comes from their shape.  Raises ``ValueError`` on planes
+    that do not fit ``config``."""
+    dev = torch.device(device)
+    dtypes = {"keys": np.int64, "vals": np.int64, "used": bool,
+              "stamp": np.int32, "cost": np.int64}
+    planes = {k: np.asarray(state[k], dt) for k, dt in dtypes.items()}
+    shape = planes["keys"].shape
+    if len(shape) != 2 or shape[1] != config.ways or any(
+            a.shape != shape for a in planes.values()):
+        raise ValueError(f"table planes of shape {shape} do not fit "
+                         f"{config.ways} ways")
+
+    def t(a):
+        return torch.from_numpy(np.array(a)).to(dev)  # a writable copy
+
+    tbl = DeviceCache.create(config, shape[0] * shape[1], device=dev)
+    tbl.keys, tbl.vals, tbl.used, tbl.stamp, tbl.cost = (
+        t(planes[k]) for k in dtypes)
+    tbl.tick = int(state.get("tick", 0))
+    if config.cache_payloads:
+        tbl.pay_off = t(np.asarray(state["pay_off"], np.int32))
+        tbl.pay_len = t(np.asarray(state["pay_len"], np.int32))
+        if tbl.pay_off.shape != shape or tbl.pay_len.shape != shape:
+            raise ValueError("payload planes do not match the key planes")
+        if "slab" in state:
+            slab = np.asarray(state["slab"], np.int32)
+            if slab.shape[0] != config.payload_rows + 1:
+                raise ValueError(f"slab of {slab.shape[0]} rows, config "
+                                 f"needs {config.payload_rows + 1}")
+            tbl.slab = t(slab)
+        tbl.slab_bump = int(state["slab_bump"])
+        tbl.payload_flushes = int(state.get("payload_flushes", 0))
+    return tbl

@@ -27,12 +27,25 @@ look like conflict pressure (low hit rate at high occupancy) while total
 slots stay within ``budget``, and shrinks tables whose occupancy stays low.
 Resizing rehashes resident entries into the new table with one batched
 insert.
+
+**Payload region** (``cache_payloads=True``; evaluation-mode replay on
+hit).  Besides its subtree count, an entry may own a factorized row
+*block*: ``pay_off``/``pay_len`` metadata planes point into a per-node
+slab arena (``payload_rows`` rows of the subtree's width).  Blocks are
+bump-allocated on the host; blocks whose keys are evicted become dead
+space until the arena wraps, at which point every payload is invalidated
+in one epoch *flush* (keys and counts stay resident).  A payload-bearing
+hit requires ``pay_len >= 0``; the metadata planes ride :func:`_insert`'s
+election (its ``pay`` planes) on every insert, with count-mode inserts
+writing the ``-1`` sentinel, so an evicting write can never leave a stale
+block reachable under a new key.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .hostsync import device_get
@@ -68,6 +81,17 @@ class CacheConfig:
       the table looks conflict-bound (occupancy > 1/2).
     * ``shrink_below_occupancy``: shrink when occupancy stays under this.
     * ``enabled_nodes``: restrict caching to these TD nodes (None = all).
+    * ``cache_payloads``: additionally store factorized row *blocks* per
+      entry (evaluation-mode replay on hit).
+    * ``payload_rows``: per-node slab arena size in rows.
+    * ``payload_throttle_probes`` / ``payload_throttle_hit_rate``: the
+      store throttle: after that many evaluation probes a table whose
+      payload hit rate is still below the floor stops *storing* new
+      blocks (splicing stored blocks, and storing again once the rate
+      recovers, are unaffected).
+    * ``payload_probation``: while throttled, still store on every Nth
+      throttled fold (0 disables), so a workload shift can re-open
+      storage.
     """
 
     policy: str = "direct"
@@ -81,6 +105,11 @@ class CacheConfig:
     grow_below_hit_rate: float = 0.5
     shrink_below_occupancy: float = 0.125
     enabled_nodes: Optional[frozenset] = None
+    cache_payloads: bool = False
+    payload_rows: int = 1 << 15
+    payload_throttle_probes: int = 1 << 15
+    payload_throttle_hit_rate: float = 0.01
+    payload_probation: int = 16
 
     def __post_init__(self):
         if self.policy not in POLICIES:
@@ -88,6 +117,8 @@ class CacheConfig:
                              f"expected one of {POLICIES}")
         if self.assoc < 1:
             raise ValueError("assoc must be >= 1")
+        if self.cache_payloads and self.payload_rows < 1:
+            raise ValueError("cache_payloads needs payload_rows >= 1")
 
     @property
     def ways(self) -> int:
@@ -126,7 +157,7 @@ def _probe(tkeys, tvals, tused, tstamp, keys, active, tick: int):
 
 
 def _insert(tkeys, tvals, tused, tstamp, tcost, keys, vals, costs, active,
-            tick: int, *, policy: str, rounds: int = 1):
+            tick: int, *, policy: str, rounds: int = 1, pay=None):
     """Batched fill.  Victim selection per policy.
 
     Each round elects exactly one writer per set (scatter-max of the row
@@ -136,24 +167,45 @@ def _insert(tkeys, tvals, tused, tstamp, tcost, keys, vals, costs, active,
     an index_put_ with duplicate indices has no defined winner.
     ``rounds`` (≈ the way count) re-reads the updated table so batch
     collisions retry into the remaining ways instead of being dropped.
-    Returns the new tables (the inputs are not modified) and the admit
-    and evict counts (0-d int32).
+
+    ``pay`` (``None`` or ``(tpoff, tplen, poff, plen)``) carries the
+    payload metadata planes through the same election, with two rules:
+
+    * every admitted write also writes ``(poff, plen)`` — count-mode
+      inserts pass the ``plen = -1`` sentinel, so an eviction can never
+      leave the victim's block reachable under the new key;
+    * a resident key only blocks re-admission when it already carries a
+      payload (or the candidate has none): a payload-bearing candidate
+      refreshes its resident way in place.
+
+    Returns the new tables (the inputs are not modified), then — with
+    ``pay`` — the new ``(tpoff, tplen)``, then the admit and evict counts
+    (0-d int32).
     """
     n_sets = tkeys.shape[0]
     C = keys.shape[0]
     dev = keys.device
     tkeys, tvals, tused = tkeys.clone(), tvals.clone(), tused.clone()
     tstamp, tcost = tstamp.clone(), tcost.clone()
+    if pay is not None:
+        tpoff, tplen, poff, plen = pay
+        tpoff, tplen = tpoff.clone(), tplen.clone()
+        cand_pay = plen >= 0
     rows = torch.arange(C, dtype=torch.int32, device=dev)
     set_ids = torch.arange(n_sets, device=dev)
     sets = torch.where(active, _hash_sets(keys, n_sets), 0)
     remaining = active
+    no_res = torch.zeros(C, dtype=torch.bool, device=dev)
     n_admit = torch.zeros((), dtype=torch.int32, device=dev)
     n_evict = torch.zeros((), dtype=torch.int32, device=dev)
     for _ in range(max(1, rounds)):
         way_used = tused[sets]                       # (C, W)
         resident = way_used & (tkeys[sets] == keys[:, None])
-        rem = remaining & ~resident.any(dim=1)       # dup already admitted
+        if pay is not None:
+            blocking = resident & ((tplen[sets] >= 0) | ~cand_pay[:, None])
+        else:
+            blocking = resident                      # dup already admitted
+        rem = remaining & ~blocking.any(dim=1)
         any_free = ~way_used.all(dim=1)
         free_way = way_used.to(torch.int8).argmin(dim=1)  # first invalid way
         if policy == "costaware":
@@ -163,10 +215,17 @@ def _insert(tkeys, tvals, tused, tstamp, tcost, keys, vals, costs, active,
             contested = torch.where(way_used, tstamp[sets],
                                     2 ** 31 - 1).argmin(dim=1)
         victim = torch.where(any_free, free_way, contested)
+        has_res = no_res
+        if pay is not None:
+            # a payload-less resident is refreshed in its own way
+            has_res = resident.any(dim=1)
+            victim = torch.where(has_res,
+                                 resident.to(torch.int8).argmax(dim=1),
+                                 victim)
         admit = rem
         if policy == "costaware":
             incumbent = tcost[sets, victim]
-            admit = admit & (any_free | (costs >= incumbent))
+            admit = admit & (has_res | any_free | (costs >= incumbent))
         # elect one admitted writer per set (highest row index)
         winner = torch.full((n_sets,), -1, dtype=torch.int32,
                             device=dev).scatter_reduce_(
@@ -178,12 +237,38 @@ def _insert(tkeys, tvals, tused, tstamp, tcost, keys, vals, costs, active,
         tvals[sel] = torch.where(do_w, vals[src], tvals[sel])
         tcost[sel] = torch.where(do_w, costs[src], tcost[sel])
         tstamp[sel] = torch.where(do_w, tick, tstamp[sel]).to(tstamp.dtype)
+        if pay is not None:
+            tpoff[sel] = torch.where(do_w, poff[src], tpoff[sel])
+            tplen[sel] = torch.where(do_w, plen[src], tplen[sel])
         tused[sel] = tused[sel] | do_w
         won = admit & (winner[sets] == rows)
         n_admit = n_admit + won.sum(dtype=torch.int32)
-        n_evict = n_evict + (won & ~any_free).sum(dtype=torch.int32)
+        n_evict = n_evict + (won & ~any_free & ~has_res).sum(
+            dtype=torch.int32)
         remaining = rem & ~won
+    if pay is not None:
+        return (tkeys, tvals, tused, tstamp, tcost, tpoff, tplen, n_admit,
+                n_evict)
     return tkeys, tvals, tused, tstamp, tcost, n_admit, n_evict
+
+
+def _probe_payload(tkeys, tused, tstamp, tpoff, tplen, keys, active,
+                   tick: int):
+    """Evaluation-mode lookup: a hit additionally requires a resident row
+    block (``pay_len >= 0``) — entries inserted count-only are misses
+    here.  Returns (hit, poff, plen, stamp')."""
+    n_sets, W = tkeys.shape
+    sets = _hash_sets(keys, n_sets)
+    match = (tused[sets] & (tkeys[sets] == keys[:, None])
+             & (tplen[sets] >= 0) & active[:, None])
+    hit = match.any(dim=1)
+    way = match.to(torch.int8).argmax(dim=1)  # first matching way
+    poff = torch.where(hit, tpoff[sets, way], 0)
+    plen = torch.where(hit, tplen[sets, way], 0)
+    stamp = tstamp.reshape(-1).scatter_reduce(
+        0, sets * W + way, torch.where(hit, tick, -1).to(tstamp.dtype),
+        "amax").reshape(n_sets, W)
+    return hit, poff, plen, stamp
 
 
 # ---------------------------------------------------------------------------
@@ -204,6 +289,19 @@ class DeviceCache:
     used: torch.Tensor    # (S, W) bool
     stamp: torch.Tensor   # (S, W) int32  — LRU clock (ticks)
     cost: torch.Tensor    # (S, W) int64  — recomputation-cost proxy
+    # payload region (None unless config.cache_payloads)
+    pay_off: Optional[torch.Tensor] = None  # (S, W) int32 — slab offset
+    pay_len: Optional[torch.Tensor] = None  # (S, W) int32 — rows; -1 = none
+    slab: Optional[torch.Tensor] = None     # (payload_rows + 1, width)
+    #                                         int32; last row = scratch
+    slab_bump: int = 0                      # host-side arena bump pointer
+    payload_flushes: int = 0
+    payload_skips: int = 0                  # eligible blocks not stored
+    payload_throttled: int = 0              # folds skipped by the throttle
+    # host-side evaluation-probe counters feeding the store throttle (the
+    # executor feeds them from its per-fold planning fetch: no extra sync)
+    eval_probes_h: int = 0
+    eval_hits_h: int = 0
     tick: int = 0
     resizes: int = 0
     window_launches: int = 0
@@ -213,6 +311,7 @@ class DeviceCache:
     _acc_probes: object = 0
     _acc_inserts: object = 0
     _acc_evictions: object = 0
+    _acc_payload_hits: object = 0
     # sliding window consumed by the sizing controller
     _acc_window_hits: object = 0
     _acc_window_probes: object = 0
@@ -227,9 +326,15 @@ class DeviceCache:
         def z(dtype):
             return torch.zeros((s, w), dtype=dtype, device=device)
 
+        pay_off = pay_len = None
+        if config.cache_payloads:
+            pay_off = z(torch.int32)
+            pay_len = torch.full((s, w), -1, dtype=torch.int32,
+                                 device=device)
         return DeviceCache(config=config, keys=z(torch.int64),
                            vals=z(torch.int64), used=z(torch.bool),
-                           stamp=z(torch.int32), cost=z(torch.int64))
+                           stamp=z(torch.int32), cost=z(torch.int64),
+                           pay_off=pay_off, pay_len=pay_len)
 
     # -- capacity ------------------------------------------------------
     @property
@@ -240,12 +345,10 @@ class DeviceCache:
         return int(device_get(self.used.sum(), "cache-occupancy"))
 
     # -- ops -----------------------------------------------------------
-    def probe(self, qkeys: torch.Tensor,
-              active: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        self.tick += 1
-        hit, vals, self.stamp = _probe(self.keys, self.vals, self.used,
-                                       self.stamp, qkeys, active, self.tick)
-        # device-side accounting: no host sync on the probe path
+    def _account(self, active: torch.Tensor,
+                 hit: torch.Tensor) -> torch.Tensor:
+        """Device-side probe accounting (no host sync on the probe path);
+        returns the hit count."""
         n_active = active.sum(dtype=torch.int64)
         n_hit = hit.sum(dtype=torch.int64)
         self._acc_probes = self._acc_probes + n_active
@@ -253,22 +356,122 @@ class DeviceCache:
         self._acc_misses = self._acc_misses + (n_active - n_hit)
         self._acc_window_probes = self._acc_window_probes + n_active
         self._acc_window_hits = self._acc_window_hits + n_hit
+        return n_hit
+
+    def probe(self, qkeys: torch.Tensor,
+              active: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        self.tick += 1
+        hit, vals, self.stamp = _probe(self.keys, self.vals, self.used,
+                                       self.stamp, qkeys, active, self.tick)
+        self._account(active, hit)
         return hit, vals
+
+    def probe_payload(self, qkeys: torch.Tensor, active: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Evaluation-mode lookup: hit only on entries with a resident row
+        block; returns (hit, slab offset, block length)."""
+        if self.pay_off is None:
+            raise ValueError("probe_payload needs cache_payloads=True")
+        self.tick += 1
+        hit, poff, plen, self.stamp = _probe_payload(
+            self.keys, self.used, self.stamp, self.pay_off, self.pay_len,
+            qkeys, active, self.tick)
+        n_hit = self._account(active, hit)
+        self._acc_payload_hits = self._acc_payload_hits + n_hit
+        return hit, poff, plen
 
     def insert(self, qkeys: torch.Tensor, vals: torch.Tensor,
                active: torch.Tensor,
-               costs: Optional[torch.Tensor] = None) -> None:
+               costs: Optional[torch.Tensor] = None,
+               poff: Optional[torch.Tensor] = None,
+               plen: Optional[torch.Tensor] = None) -> None:
         self.tick += 1
         if costs is None:  # default proxy: the count itself (clipped >= 1)
             costs = vals.clamp(min=1)
-        (self.keys, self.vals, self.used, self.stamp, self.cost, n_ins,
-         n_evict) = _insert(self.keys, self.vals, self.used, self.stamp,
-                            self.cost, qkeys, vals, costs.to(torch.int64),
-                            active, self.tick, policy=self.config.policy,
-                            rounds=min(self.config.ways, 8))
+        kw = dict(policy=self.config.policy, rounds=min(self.config.ways, 8))
+        args = (self.keys, self.vals, self.used, self.stamp, self.cost,
+                qkeys, vals, costs.to(torch.int64), active, self.tick)
+        if self.pay_off is not None:
+            # payload tables carry the metadata planes through EVERY
+            # insert so evicting writes always overwrite them (count
+            # inserts carry the -1 sentinel — never a stale block)
+            if poff is None:
+                poff = torch.zeros_like(qkeys, dtype=torch.int32)
+                plen = torch.full_like(qkeys, -1, dtype=torch.int32)
+            (self.keys, self.vals, self.used, self.stamp, self.cost,
+             self.pay_off, self.pay_len, n_ins, n_evict) = _insert(
+                *args, pay=(self.pay_off, self.pay_len, poff, plen), **kw)
+        else:
+            (self.keys, self.vals, self.used, self.stamp, self.cost, n_ins,
+             n_evict) = _insert(*args, **kw)
         self._acc_inserts = self._acc_inserts + n_ins
         self._acc_evictions = self._acc_evictions + n_evict
         self.window_launches += 1
+
+    # -- payload slab arena --------------------------------------------
+    def ensure_slab(self, width: int) -> None:
+        """Lazily allocate the block arena: ``payload_rows`` rows of the
+        node's subtree width, plus one scratch row for masked writes."""
+        if self.slab is None:
+            self.slab = torch.zeros(
+                (int(self.config.payload_rows) + 1, width),
+                dtype=torch.int32, device=self.keys.device)
+        elif self.slab.shape[1] != width:
+            raise ValueError(
+                f"slab width {self.slab.shape[1]} != subtree width {width}")
+
+    def alloc_blocks(self, lens: np.ndarray, active: np.ndarray
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        """Host-side bump allocation of one batch of variable-length blocks.
+
+        ``lens[i]`` rows are requested for candidate row ``i`` (``active``
+        masks real candidates).  Blocks larger than the whole arena are
+        refused outright.  If the rest of the batch does not fit the
+        remaining arena, the arena is *flushed* first (every payload
+        invalidated — keys/counts stay resident); candidates still beyond
+        capacity are refused prefix-wise.  Returns ``(offsets, admitted)``
+        (numpy, host) — refusals only cost future recomputation.
+        """
+        cap = int(self.config.payload_rows)
+        lens = np.where(active, np.asarray(lens, np.int64), 0)
+        lens = np.where(lens <= cap, lens, 0)  # can never fit: refuse
+        total = int(lens.sum())
+        if total > cap - self.slab_bump and self.slab_bump > 0 and total:
+            self.flush_payloads()
+        cum = np.cumsum(lens)
+        admit = (lens > 0) & (cum <= cap - self.slab_bump)
+        offs = np.where(admit, self.slab_bump + cum - lens, 0).astype(
+            np.int32)
+        if admit.any():
+            self.slab_bump += int(lens[admit].sum())
+        return offs, admit
+
+    def note_eval_probes(self, probes: int, hits: int) -> None:
+        """Feed the store throttle (host counters, no device sync).  The
+        counters halve past 4x the probe floor — a sliding window, so a
+        miss-heavy prefix cannot latch the throttle."""
+        self.eval_probes_h += int(probes)
+        self.eval_hits_h += int(hits)
+        if self.eval_probes_h > 4 * self.config.payload_throttle_probes:
+            self.eval_probes_h //= 2
+            self.eval_hits_h //= 2
+
+    def store_throttled(self) -> bool:
+        """True once this table has seen many evaluation probes at a
+        negligible payload hit rate: storing more blocks is then pure
+        overhead."""
+        cfg = self.config
+        return (self.eval_probes_h >= cfg.payload_throttle_probes
+                and self.eval_hits_h
+                < cfg.payload_throttle_hit_rate * self.eval_probes_h)
+
+    def flush_payloads(self) -> None:
+        """Epoch reset of the arena: every payload pointer is invalidated
+        (keys and counts stay) and the bump pointer rewinds."""
+        if self.pay_len is not None:
+            self.pay_len = torch.full_like(self.pay_len, -1)
+        self.slab_bump = 0
+        self.payload_flushes += 1
 
     # -- dynamic sizing (the paper's flexible-cache knob) --------------
     def maybe_resize(self, headroom: Optional[int] = None) -> int:
@@ -308,23 +511,32 @@ class DeviceCache:
         return self.n_slots - old
 
     def _rehash(self, new_slots: int) -> None:
-        old_keys = self.keys.reshape(-1)
-        old_vals = self.vals.reshape(-1)
-        old_cost = self.cost.reshape(-1)
-        old_used = self.used.reshape(-1)
+        old = (self.keys.reshape(-1), self.vals.reshape(-1),
+               self.cost.reshape(-1), self.used.reshape(-1))
+        old_pay = (None if self.pay_off is None else
+                   (self.pay_off.reshape(-1), self.pay_len.reshape(-1)))
         fresh = DeviceCache.create(self.config, new_slots,
                                    device=self.keys.device)
         self.keys, self.vals, self.used, self.stamp, self.cost = (
             fresh.keys, fresh.vals, fresh.used, fresh.stamp, fresh.cost)
-        if not bool(device_get(old_used.any(), "cache-rehash")):
+        self.pay_off, self.pay_len = fresh.pay_off, fresh.pay_len
+        # the slab and its bump pointer survive a resize: offsets carried
+        # in the re-inserted metadata still point at live arena rows
+        if not bool(device_get(old[3].any(), "cache-rehash")):
             return
         # re-insert resident entries in one batched op; rehash collisions
         # drop entries, which only costs future recomputation (optionality)
         self.tick += 1
-        out = _insert(self.keys, self.vals, self.used, self.stamp,
-                      self.cost, old_keys, old_vals, old_cost, old_used,
-                      self.tick, policy=self.config.policy,
-                      rounds=min(self.config.ways, 8))
+        old_keys, old_vals, old_cost, old_used = old
+        kw = dict(policy=self.config.policy, rounds=min(self.config.ways, 8))
+        args = (self.keys, self.vals, self.used, self.stamp, self.cost,
+                old_keys, old_vals, old_cost, old_used, self.tick)
+        if old_pay is not None:
+            out = _insert(*args, pay=(self.pay_off, self.pay_len) + old_pay,
+                          **kw)
+            self.pay_off, self.pay_len = out[5:7]
+        else:
+            out = _insert(*args, **kw)
         self.keys, self.vals, self.used, self.stamp, self.cost = out[:5]
 
     def stats(self) -> Dict[str, int]:
@@ -332,10 +544,15 @@ class DeviceCache:
             {"hits": self._acc_hits, "misses": self._acc_misses,
              "probes": self._acc_probes, "inserts": self._acc_inserts,
              "evictions": self._acc_evictions,
+             "payload_hits": self._acc_payload_hits,
              "occupancy": self.used.sum()}, "cache-stats")
         out = {k: int(v) for k, v in acc.items()}
         out["resizes"] = self.resizes
         out["slots"] = self.n_slots
+        out["payload_flushes"] = self.payload_flushes
+        out["payload_skips"] = self.payload_skips
+        out["payload_throttled"] = self.payload_throttled
+        out["slab_rows"] = self.slab_bump
         return out
 
 
@@ -386,7 +603,9 @@ class CacheManager:
 
     def stats(self) -> Dict[str, int]:
         agg = {"hits": 0, "misses": 0, "probes": 0, "inserts": 0,
-               "evictions": 0, "resizes": 0, "slots": 0, "occupancy": 0}
+               "evictions": 0, "resizes": 0, "slots": 0, "occupancy": 0,
+               "payload_hits": 0, "payload_flushes": 0, "payload_skips": 0,
+               "payload_throttled": 0, "slab_rows": 0}
         for t in self.tables.values():
             for k, val in t.stats().items():
                 agg[k] = agg.get(k, 0) + val

@@ -18,7 +18,11 @@ Control flow lives in ``core/schedule.py``: the TD + order are lowered once
 into a linear op schedule and this class only supplies the data plane.
 ``evaluate()`` runs the same schedule in materialization mode: tier-1
 representatives are replayed as row blocks through ``orig`` (the paper
-§3.4's factorized intermediates).
+§3.4's factorized intermediates).  With
+``cache=CacheConfig(cache_payloads=True)`` tier 2 serves evaluation too:
+recurring adhesion keys splice their cached row blocks instead of
+re-expanding the bag.  ``evaluate_stream()`` yields the same blocks with
+their device→host copies issued asynchronously.
 """
 from __future__ import annotations
 
@@ -37,7 +41,8 @@ from .td import TreeDecomposition
 __all__ = ["CachedTrieJoin", "MAX_KEY_BITS"]
 
 _TIER2 = ("hits", "misses", "probes", "inserts", "evictions", "resizes",
-          "slots")
+          "slots", "payload_flushes", "payload_skips", "payload_throttled",
+          "slab_rows")
 
 
 class CachedTrieJoin(TrieJoin):
@@ -49,8 +54,11 @@ class CachedTrieJoin(TrieJoin):
 
     def __init__(self, q: CQ, td: TreeDecomposition, order: Sequence[str],
                  db: Database, capacity: int = 1 << 17, dedup: bool = True,
-                 cache: Optional[CacheConfig] = None, device="cuda"):
-        super().__init__(q, order, db, capacity=capacity, device=device)
+                 cache: Optional[CacheConfig] = None, device="cuda",
+                 emit_in_flight: int = 8, stream_interior: bool = True):
+        super().__init__(q, order, db, capacity=capacity, device=device,
+                         emit_in_flight=emit_in_flight,
+                         stream_interior=stream_interior)
         self.plan = Plan.build(td, order)
         self.td = td
         cache = cache if cache is not None else CacheConfig()
@@ -71,8 +79,9 @@ class CachedTrieJoin(TrieJoin):
                               dedup=self.dedup)
         self.stats = {"tier1_rows_collapsed": 0, "subtree_launches": 0,
                       **{f"tier2_{k}": 0 for k in _TIER2},
+                      "tier2_replay_hits": 0,
                       **{f"{op}_calls_{path}": 0
-                         for op in ("expand", "fold", "emit")
+                         for op in ("expand", "fold", "fold_splice", "emit")
                          for path in ("cuda", "torch")}}
 
     # -----------------------------------------------------------------
@@ -91,6 +100,7 @@ class CachedTrieJoin(TrieJoin):
         agg = self.cache.stats()
         for k in _TIER2:
             self.stats[f"tier2_{k}"] = agg[k]
+        self.stats["tier2_replay_hits"] = agg["payload_hits"]
         self.stats["tier1_rows_collapsed"] += ex.t1_rows_collapsed()
         self.stats["subtree_launches"] += ex.subtree_launches
         for key, runs in ex.call_counts().items():
@@ -108,9 +118,27 @@ class CachedTrieJoin(TrieJoin):
         """Yields (k, n) int32 blocks of result assignments (order cols).
 
         Materialization mode of the same schedule: tier-1 representatives
-        are replayed back through ``orig`` at every FOLD.  Count tables
-        cannot replay tuples and are bypassed (optionality)."""
+        are replayed back through ``orig`` at every FOLD.  With
+        ``cache_payloads`` on, recurring adhesion keys splice their cached
+        blocks (``stats["tier2_replay_hits"]`` counts the parent rows so
+        served); count-only tables cannot replay tuples and are bypassed
+        (optionality)."""
         ex = ScheduleExecutor(self, mode="evaluate")
         self.last_executor = ex
         yield from ex.evaluate()
         self._finalize(ex)
+
+    def evaluate_stream(self) -> Iterator[np.ndarray]:
+        """Streaming evaluation: the same blocks, in the same order, as
+        :meth:`evaluate`, each block's device→host copy issued
+        asynchronously as it is produced (at most ``emit_in_flight`` in
+        flight).  Tier-2 behaviour is unchanged."""
+        ex = ScheduleExecutor(self, mode="evaluate")
+        self.last_executor = ex
+        try:
+            yield from ex.evaluate_stream()
+        finally:
+            # a stream abandoned early (break / close) still folds what
+            # the executor did complete into stats — stale previous-pass
+            # counters would read as current
+            self._finalize(ex)

@@ -4,6 +4,9 @@
     res = engine.count(q, db)                     # plans a TD, runs CLFTJ
     res = engine.count(q, db, algorithm="lftj")   # vanilla trie join
     res = engine.evaluate(q, db)                  # materialized tuples
+    res = engine.evaluate(q, db, cache=CacheConfig(cache_payloads=True))
+    for block in engine.evaluate_stream(q, db):   # streamed row blocks
+        ...
     res = engine.count(q, db, device="cpu")       # plain kernels, on the CPU
 
 Engines run on ``device="cuda"`` unless the caller asks for the CPU; the
@@ -12,13 +15,14 @@ default raises when CUDA is missing.  ``Result`` separates ``plan_s``
 when the library was already built) and ``exec_s`` (the remainder).
 ``Result.counters`` carries the tier-1/tier-2 statistics and the kernel
 launches per path (``expand_calls_cuda`` / ``expand_calls_torch``, and
-likewise ``fold_`` and ``emit_``), so a run shows which path did the work.
+likewise ``fold_``, ``fold_splice_`` and ``emit_``), so a run shows which
+path did the work.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,7 +36,8 @@ from .decompose import choose_plan
 from .frontier import TrieJoin, resolve_device
 from .td import TreeDecomposition
 
-__all__ = ["Result", "count", "evaluate", "plan_query"]
+__all__ = ["Result", "ResultStream", "count", "evaluate", "evaluate_stream",
+           "plan_query"]
 
 ALGORITHMS = ("clftj", "lftj")
 
@@ -50,6 +55,14 @@ class Result:
     plan_s: float = 0.0     # TD enumeration + order selection
     compile_s: float = 0.0  # one-time CUDA kernel build
     exec_s: float = 0.0     # engine execution
+
+    @property
+    def tier2_replay_hits(self) -> int:
+        """Evaluation-mode tier-2 hits served by row-block replay: parent
+        rows whose bag subtree was spliced from the payload slab instead
+        of re-expanded; 0 unless the engine ran with
+        ``cache_payloads=True``."""
+        return int(self.counters.get("tier2_replay_hits", 0))
 
 
 def plan_query(q: CQ, db: Optional[Database] = None,
@@ -76,22 +89,36 @@ def _build_kernels(dev: torch.device) -> float:
     return cudalib.build_seconds() - before
 
 
-def _run(q: CQ, db: Database, algorithm: str, td, order, capacity: int,
-         dedup: bool, cache: Optional[CacheConfig], device,
-         evaluate: bool) -> Result:
+def _engine(q: CQ, db: Database, algorithm: str, td, order, capacity: int,
+            dedup: bool, cache: Optional[CacheConfig], dev: torch.device,
+            **knobs):
+    if algorithm == "clftj":
+        return CachedTrieJoin(q, td, order, db, capacity=capacity,
+                              dedup=dedup, cache=cache, device=dev, **knobs)
+    return TrieJoin(q, order, db, capacity=capacity, device=dev, **knobs)
+
+
+def _counters(eng, algorithm: str) -> Dict[str, int]:
+    return (dict(eng.stats) if algorithm == "clftj"
+            else eng.call_counts())
+
+
+def _check_algorithm(algorithm: str) -> None:
     if algorithm not in ALGORITHMS:
         raise ValueError(f"algorithm must be one of {ALGORITHMS}, "
                          f"got {algorithm!r}")
+
+
+def _run(q: CQ, db: Database, algorithm: str, td, order, capacity: int,
+         dedup: bool, cache: Optional[CacheConfig], device,
+         evaluate: bool) -> Result:
+    _check_algorithm(algorithm)
     dev = resolve_device(device)
     t0 = time.perf_counter()
     td, order = _plan(q, db, td, order)
     t1 = time.perf_counter()
     compile_s = _build_kernels(dev)
-    if algorithm == "clftj":
-        eng = CachedTrieJoin(q, td, order, db, capacity=capacity,
-                             dedup=dedup, cache=cache, device=dev)
-    else:
-        eng = TrieJoin(q, order, db, capacity=capacity, device=dev)
+    eng = _engine(q, db, algorithm, td, order, capacity, dedup, cache, dev)
     rows = None
     if evaluate:
         blocks = list(eng.evaluate())
@@ -100,8 +127,7 @@ def _run(q: CQ, db: Database, algorithm: str, td, order, capacity: int,
         c = rows.shape[0]
     else:
         c = eng.count()
-    counters = (dict(eng.stats) if algorithm == "clftj"
-                else eng.call_counts())
+    counters = _counters(eng, algorithm)
     t2 = time.perf_counter()
     return Result(count=c, tuples=rows, algorithm=algorithm, device=str(dev),
                   order=order, td=td, counters=counters, wall_s=t2 - t0,
@@ -127,6 +153,67 @@ def evaluate(q: CQ, db: Database, algorithm: str = "clftj",
              device="cuda") -> Result:
     """Materialize ``q``'s full result: ``Result.tuples`` is an (N, n)
     int32 array over ``Result.order`` columns, in the engine's block
-    order (tier-1 representatives replayed as row blocks)."""
+    order (tier-1 representatives replayed as row blocks).  With
+    ``cache=CacheConfig(cache_payloads=True)`` tier 2 serves evaluation
+    too: recurring subjoins splice their cached row blocks instead of
+    re-expanding (``Result.tier2_replay_hits``)."""
     return _run(q, db, algorithm, td, order, capacity, dedup, cache, device,
                 evaluate=True)
+
+
+@dataclass
+class ResultStream:
+    """The streaming-evaluation surface: iterate to receive (k, n) int32
+    result blocks in arrival order; once exhausted, ``result`` holds the
+    :class:`Result` with the exact one-shot count and counters and
+    ``tuples=None`` (the rows were already streamed).  The stream is
+    consumer-driven, so ``exec_s``/``wall_s`` span the whole drain,
+    including time the consumer spends between blocks."""
+
+    order: Tuple[str, ...]
+    _gen: Iterator[np.ndarray] = field(repr=False)
+    result: Optional[Result] = None
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        return self._gen
+
+
+def evaluate_stream(q: CQ, db: Database, algorithm: str = "clftj",
+                    td: Optional[TreeDecomposition] = None,
+                    order: Optional[Sequence[str]] = None,
+                    capacity: int = 1 << 16, dedup: bool = True,
+                    cache: Optional[CacheConfig] = None,
+                    emit_in_flight: int = 8, stream_interior: bool = True,
+                    device="cuda") -> ResultStream:
+    """Evaluate ``q`` as a *stream*: returns a :class:`ResultStream` whose
+    iterator yields materialized (k, n) int32 blocks in arrival order —
+    each block's device→host copy issued asynchronously as the executor
+    produces it, at most ``emit_in_flight`` copies in flight — instead of
+    buffering the whole result.  Only the trie-join engines stream
+    (``algorithm`` "clftj" or "lftj")."""
+    _check_algorithm(algorithm)
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    td_, order_ = _plan(q, db, td, order)
+    t1 = time.perf_counter()
+    stream = ResultStream(order=order_, _gen=iter(()))
+
+    def _gen() -> Iterator[np.ndarray]:
+        n_rows = 0
+        compile_s = _build_kernels(dev)
+        eng = _engine(q, db, algorithm, td_, order_, capacity, dedup, cache,
+                      dev, emit_in_flight=emit_in_flight,
+                      stream_interior=stream_interior)
+        for block in eng.evaluate_stream():
+            n_rows += block.shape[0]
+            yield block
+        t2 = time.perf_counter()
+        stream.result = Result(
+            count=n_rows, tuples=None, algorithm=algorithm,
+            device=str(dev), order=order_, td=td_,
+            counters=_counters(eng, algorithm), wall_s=t2 - t0,
+            plan_s=t1 - t0, compile_s=compile_s,
+            exec_s=(t2 - t1) - compile_s)
+
+    stream._gen = _gen()
+    return stream

@@ -91,8 +91,16 @@ class TrieJoin:
     """Vectorized LFTJ: count / evaluate a full CQ over a fixed order."""
 
     def __init__(self, q: CQ, order: Sequence[str], db: Database,
-                 capacity: int = 1 << 17, device="cuda"):
+                 capacity: int = 1 << 17, device="cuda",
+                 emit_in_flight: int = 8, stream_interior: bool = True):
         self.device = resolve_device(device)
+        # streaming-emit bound: max in-flight device→host result-block
+        # copies, consumed by ScheduleExecutor.  With ``stream_interior``
+        # (the default) evaluate_stream also forwards each top-level
+        # parent morsel's fold continuations through the remaining
+        # schedule suffix at once
+        self.emit_in_flight = int(emit_in_flight)
+        self.stream_interior = bool(stream_interior)
         self.q = q
         self.order = tuple(order)
         self.n = len(self.order)
@@ -140,7 +148,7 @@ class TrieJoin:
             scores = [lvl * (1 << 40) - self.sizes[ai] for ai, lvl in parts]
             self.guard.append(int(np.argmax(scores)))
         self._expand_fns: Dict[int, object] = {}
-        self._fold_fns: Dict[Tuple[int, int], object] = {}
+        self._fold_fns: Dict[Tuple[int, int, bool, bool], object] = {}
         self._emit: object = None
         # vanilla LFTJ lowers to the trivial schedule: EXPAND over every
         # depth, then EMIT (subclasses re-lower with their TD plan)
@@ -190,14 +198,18 @@ class TrieJoin:
                                      for ai, lvl in others),
                     n_rows_g=self.sizes[g_ai])
 
-    def _fold_fn(self, d0: int, d1: int):
-        """The registry-built replay-only FOLD step for bracket [d0, d1]."""
-        fn = self._fold_fns.get((d0, d1))
+    def _fold_fn(self, d0: int, d1: int, with_replay: bool,
+                 with_splice: bool):
+        """The registry-built FOLD step for bracket [d0, d1] in the arity
+        the flags select (replay-only or splice-only)."""
+        key = (d0, d1, with_replay, with_splice)
+        fn = self._fold_fns.get(key)
         if fn is None:
             spec = kernels.FoldSpec(capacity=self.capacity, n_vars=self.n,
                                     n_atoms=self.m)
-            fn = self._fold_fns[(d0, d1)] = kernels.fold_fn(spec, d0=d0,
-                                                            d1=d1)
+            fn = self._fold_fns[key] = kernels.fold_fn(
+                spec, d0=d0, d1=d1, with_replay=with_replay,
+                with_splice=with_splice)
         return fn
 
     def _emit_fn(self):
@@ -300,3 +312,12 @@ class TrieJoin:
         ex = ScheduleExecutor(self, mode="evaluate")
         self.last_executor = ex
         yield from ex.evaluate()
+
+    def evaluate_stream(self) -> Iterator[np.ndarray]:
+        """Streaming evaluation: the same blocks as :meth:`evaluate`, in
+        the same order, with each block's device→host copy issued
+        asynchronously as the block is produced (at most
+        ``emit_in_flight`` in flight)."""
+        ex = ScheduleExecutor(self, mode="evaluate")
+        self.last_executor = ex
+        yield from ex.evaluate_stream()

@@ -10,7 +10,9 @@ instruction schedule* over four ops:
                            factor multiplication (count mode) or replay of
                            representative row blocks through ``orig``
                            (evaluate mode — the paper §3.4's factorized
-                           intermediates, materialized)
+                           intermediates, materialized; with
+                           ``cache_payloads`` the blocks are also stored
+                           in / spliced from the tier-2 slab arena)
   * ``EMIT``             — accumulate counts / pack result tuples
 
 The TD recursion is flattened at lowering time: a subtree's ops are *data*
@@ -20,8 +22,9 @@ tier-2 cache (``core/cache.py``), batched chunk admission so host syncs
 happen at most once per op execution (not per chunk — every sync is routed
 through :mod:`hostsync`), while parent morsels still run an ENTER…FOLD
 span sequentially so later morsels hit earlier morsels' tier-2 inserts.
-EXPAND, the evaluation-mode FOLD replay and the EMIT pack are kernels
-behind ``kernels/registry.py``.
+EXPAND, the evaluation-mode FOLD replay and splice and the EMIT pack are
+kernels behind ``kernels/registry.py``; the slab store
+(:func:`_store_blocks`) is plain PyTorch ops.
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ import numpy as np
 import torch
 
 from ..kernels.registry import path_of
-from .hostsync import device_get
+from .hostsync import AsyncFetchQueue, device_get, device_get_async
 
 MAX_KEY_BITS = 21  # packed adhesion keys: values must fit in 21 bits
 
@@ -218,6 +221,37 @@ def _segment_counts(exit_F, n_slots: int) -> torch.Tensor:
         0, exit_F.orig.clamp(0, n_slots - 1).long(), contrib)
 
 
+def _store_blocks(slab: torch.Tensor, E, poff: torch.Tensor,
+                  admit: torch.Tensor, *, d0: int, d1: int) -> None:
+    """Write one exit chunk's per-representative row blocks into the slab
+    arena (tier-2 payload insert, evaluation mode), in place.
+
+    Exit rows are sorted by representative id exactly as in the replay
+    step; rep *r*'s rows land contiguously at ``poff[r]``.  Refused or
+    invalid rows are routed to the arena's scratch row (the last one), so
+    only the scratch row ever receives duplicate destinations (on CUDA the
+    order in which duplicates land is undefined) and no live row is
+    written twice.
+    """
+    C = E.assign.shape[0]
+    R = slab.shape[0] - 1  # last row = scratch
+    i32 = torch.int32
+    dev = E.assign.device
+    eorig = E.orig.clamp(0, C - 1)
+    ecnt = torch.zeros(C, dtype=i32, device=dev).scatter_add_(
+        0, eorig.long(), E.valid.to(i32))
+    ekey = torch.where(E.valid, eorig, C)
+    eorder = torch.argsort(ekey, stable=True)
+    estart = torch.cumsum(ecnt, 0, dtype=i32) - ecnt
+    j = torch.arange(C, dtype=i32, device=dev)
+    rep = eorig[eorder]
+    ok = E.valid[eorder] & admit[rep]
+    dest = torch.where(ok, (poff[rep] + (j - estart[rep])).clamp(0, R - 1),
+                       R).long()
+    rows = E.assign[eorder, d0:d1 + 1]
+    slab[dest] = torch.where(ok[:, None], rows, slab[dest])
+
+
 # ---------------------------------------------------------------------------
 # Host-driven executor
 # ---------------------------------------------------------------------------
@@ -236,6 +270,9 @@ class _Frame:
     n_reps: Optional[torch.Tensor]
     use_t1: bool
     use_t2: bool
+    # evaluation-mode tier 2: per-row payload pointers of the probe hits
+    poff: Optional[torch.Tensor] = None
+    plen: Optional[torch.Tensor] = None
 
 
 class ScheduleExecutor:
@@ -258,11 +295,17 @@ class ScheduleExecutor:
 
     ``mode="count"`` multiplies subtree counts into factors (tier 1 + 2);
     ``mode="evaluate"`` materializes tuples: FOLD replays representative
-    row blocks through ``orig`` and EMIT packs each result chunk; the
-    packed blocks stay on the device until the pass completes and are
-    fetched with one batched sync.  Evaluation does not use tier 2
-    (count tables cannot replay tuples — caching stays an optimization,
-    never a correctness requirement).
+    row blocks through ``orig`` and EMIT packs each result chunk — drained
+    one-shot by :meth:`evaluate` or streamed by :meth:`evaluate_stream`
+    (blocks leave through a bounded async fetch queue as they are
+    produced; with the engine's ``stream_interior`` knob on, every
+    top-level parent morsel's continuations run the remaining schedule
+    suffix at once).  With ``cache_payloads`` on, evaluation also uses
+    tier 2: ENTER probes the payload table, hit rows skip the bag, and
+    FOLD splices their cached blocks back (the splice kernel) while
+    storing the miss representatives' fresh blocks.  Count-only tables
+    are bypassed — caching stays an optimization, never a correctness
+    requirement.
     """
 
     def __init__(self, engine, mode: str = "count"):
@@ -284,13 +327,28 @@ class ScheduleExecutor:
         self._total = torch.zeros((), dtype=torch.int64, device=dev)
         self._t1_collapsed = torch.zeros((), dtype=torch.int64, device=dev)
         self.subtree_launches = 0
-        # kernel launches per path ("cuda" | "torch", registry.path_of)
+        # op-execution counters: span interiors re-run once per parent
+        # morsel, so the sync budget scales with these
+        self.op_runs = {"expand": 0, "span": 0, "fold": 0, "emit": 0}
+        # kernel launches per path ("cuda" | "torch", registry.path_of);
+        # "fold" counts both FOLD arities, "fold_splice" the splice alone
         self.path_runs = {op: {"cuda": 0, "torch": 0}
-                          for op in ("expand", "fold", "emit")}
+                          for op in ("expand", "fold", "fold_splice",
+                                     "emit")}
         self._emitted: List[Tuple[Any, Any]] = []  # (packed, k) pairs
+        # streaming emit: bound on in-flight device→host block copies
+        self.emit_in_flight = int(getattr(engine, "emit_in_flight", 8))
+        self.stream_interior = bool(getattr(engine, "stream_interior",
+                                            True))
+        self._stream_async = False  # set per pass by _iter_emitted
+        self.emitted_blocks = 0
+        self.emit_queue: Optional[AsyncFetchQueue] = None  # set by stream
 
     def _count_launch(self, op: str, t: torch.Tensor) -> None:
-        self.path_runs[op][path_of(t)] += 1
+        path = path_of(t)
+        self.path_runs[op][path] += 1
+        if op == "fold_splice":
+            self.path_runs["fold"][path] += 1
 
     def call_counts(self) -> Dict[str, int]:
         return {f"{op}_calls_{path}": n
@@ -299,8 +357,8 @@ class ScheduleExecutor:
 
     # -- public entry points -------------------------------------------
     def count(self) -> int:
-        self._exec([self.engine.initial_frontier()], 0,
-                   len(self.schedule.ops))
+        for _ in self._iter_emitted():
+            pass
         return int(device_get(self._total, "emit-total"))
 
     def evaluate(self) -> Iterator[np.ndarray]:
@@ -309,8 +367,8 @@ class ScheduleExecutor:
         One-shot drain: blocks are buffered on device until the pass
         completes, then fetched with a single batched sync
         (``emit-rows``)."""
-        self._exec([self.engine.initial_frontier()], 0,
-                   len(self.schedule.ops))
+        for pairs in self._iter_emitted():
+            self._emitted.extend(pairs)
         if not self._emitted:
             return
         blocks = device_get(self._emitted, "emit-rows")
@@ -319,14 +377,79 @@ class ScheduleExecutor:
             if k:
                 yield packed[:k]
 
+    def evaluate_stream(self) -> Iterator[np.ndarray]:
+        """Streaming evaluation: yields the same (k, n) int32 blocks as
+        :meth:`evaluate`, in the same order, but each block's device→host
+        copy is issued asynchronously the moment the block is produced,
+        through a bounded :class:`~.hostsync.AsyncFetchQueue`.  Async
+        issues ride ``SyncCounter.async_count`` (label ``emit-stream``);
+        the blocking-sync budget stays O(ops)."""
+        # The queue persists on the ENGINE (its staging arrays survive
+        # across passes); per-pass accounting resets here.
+        queue = getattr(self.engine, "_emit_queue", None)
+        if queue is None or queue.max_in_flight != self.emit_in_flight:
+            queue = AsyncFetchQueue(self.emit_in_flight, double_buffer=True)
+            self.engine._emit_queue = queue
+        else:
+            for _ in queue.drain():  # an abandoned prior stream's leftovers
+                pass
+            queue.reset()
+        self.emit_queue = queue
+        for pairs in self._iter_emitted(stream=True):
+            for pair in pairs:
+                for done in queue.put(pair, "emit-stream"):
+                    row = self._materialize(done)
+                    if row is not None:
+                        yield row
+            for done in queue.poll():
+                row = self._materialize(done)
+                if row is not None:
+                    yield row
+        for done in queue.drain():
+            row = self._materialize(done)
+            if row is not None:
+                yield row
+
+    @staticmethod
+    def _materialize(pair: Tuple[Any, Any]) -> Optional[np.ndarray]:
+        packed, k = pair
+        k = int(k)
+        if k == 0:
+            return None
+        # copy out of the fetch buffer: the double-buffered queue recycles
+        # the backing host array for a later fetch
+        return np.array(packed[:k])
+
     def t1_rows_collapsed(self) -> int:
         return int(device_get(self._t1_collapsed, "stats-t1"))
 
     # -- the interpreter -----------------------------------------------
-    def _exec(self, chunks: List[Any], pc: int, end: int) -> List[Any]:
-        """Execute ``ops[pc:end]`` over ``chunks``; returns the surviving
-        chunks at ``end`` (evaluation mode collects EMIT blocks in
-        ``_emitted``)."""
+    def _iter_emitted(self, stream: bool = False
+                      ) -> Iterator[List[Tuple[Any, Any]]]:
+        """Run the schedule; yields lists of emitted ``(packed, k)``
+        device pairs (evaluate mode only; count mode yields nothing).
+
+        With ``stream=True`` (and the engine's ``stream_interior`` knob
+        on), every *top-level* parent morsel's fold continuations run the
+        remaining schedule suffix the moment their fold closes, so result
+        blocks reach the async emit queue while the next parent morsel
+        still has device work in flight.  Per-table tier-2 probe/insert
+        order is unchanged: one bracket's parent morsels still run
+        sequentially, and a bracket's table is touched only by its own
+        ENTER/FOLD ops."""
+        forward = (stream and self.mode == "evaluate"
+                   and self.stream_interior)
+        # in forwarding mode the replay plans ride async issues too
+        # ("replay-plan-async"): see _fold_one_evaluate
+        self._stream_async = forward
+        yield from self._exec([self.engine.initial_frontier()], 0,
+                              len(self.schedule.ops), 0, forward)
+
+    def _exec(self, chunks: List[Any], pc: int, end: int, depth: int,
+              forward: bool):
+        """Execute ``ops[pc:end]`` over ``chunks``: yields emitted block
+        lists and *returns* the surviving chunks at ``end`` (a generator
+        return value — callers consume it via ``yield from``)."""
         ops = self.schedule.ops
         while pc < end:
             op = ops[pc]
@@ -338,17 +461,30 @@ class ScheduleExecutor:
                 if not chunks:  # nothing reaches this subtree: skip span
                     pc = fold_pc + 1
                     continue
+                self.op_runs["span"] += 1
                 conts: List[Any] = []
                 # parent chunks run the interior SEQUENTIALLY: chunk i's
                 # subtree results are inserted into tier 2 before chunk
                 # i+1 probes (cross-morsel reuse within one query)
                 for F in chunks:
                     frame, R = self._enter_one(F, op)
-                    exits = self._exec([R], pc + 1, fold_pc)
-                    conts.extend(self._fold_one(frame, exits, ops[fold_pc]))
+                    exits = yield from self._exec([R], pc + 1, fold_pc,
+                                                  depth + 1, forward)
+                    parts = self._fold_one(frame, exits, ops[fold_pc])
+                    if forward and depth == 0:
+                        # interior-span streaming: this morsel's
+                        # continuations run the suffix now
+                        yield from self._exec(
+                            self._admit(parts, "fold-admit"),
+                            fold_pc + 1, end, depth, forward)
+                    else:
+                        conts.extend(parts)
+                if forward and depth == 0:
+                    return []  # the suffix already ran per parent morsel
                 chunks = self._admit(conts, "fold-admit")
                 pc = fold_pc + 1
             else:  # EMIT
+                self.op_runs["emit"] += 1
                 if self.mode == "count":
                     for F in chunks:
                         self._total = self._total + torch.where(
@@ -358,9 +494,12 @@ class ScheduleExecutor:
                     # only (packed, k) — holding whole Frontiers until the
                     # fetch would keep factor/orig/lo/hi alive
                     efn = self.engine._emit_fn()
+                    pairs = []
                     for F in chunks:
                         self._count_launch("emit", F.assign)
-                        self._emitted.append(efn(F.assign, F.valid))
+                        pairs.append(efn(F.assign, F.valid))
+                    self.emitted_blocks += len(pairs)
+                    yield pairs
                 pc += 1
         return chunks
 
@@ -368,6 +507,7 @@ class ScheduleExecutor:
     def _op_expand(self, chunks, op: Op):
         if not chunks:
             return []
+        self.op_runs["expand"] += 1
         eng = self.engine
         d = op.d
         g_ai, rs, _ = eng.expand_plan(d)
@@ -405,13 +545,21 @@ class ScheduleExecutor:
         C = self.engine.capacity
         dev = F.assign.device
         cache_on = self.cache is not None and self.cache.enabled
-        # evaluation mode bypasses tier 2: count tables cannot replay
-        # tuples
-        use_t2 = op.probe and cache_on and self.mode == "count"
+        # evaluation mode probes tier 2 only when row-block payloads are
+        # on: count tables cannot replay tuples
+        use_t2 = op.probe and cache_on and (
+            self.mode == "count" or self.cache.config.cache_payloads)
         use_t1 = op.dedup and self.dedup
         keys = (_pack_keys(F.assign, op.adhesion, op.node)
                 if (op.probe or op.dedup) else None)
-        if use_t2:
+        poff = plen = None
+        if use_t2 and self.mode == "evaluate":
+            # a payload hit means: splice the cached factorized block at
+            # FOLD instead of descending into the bag for this row
+            hit, poff, plen = self.cache.get(op.node).probe_payload(
+                keys, F.valid)
+            hvals = torch.zeros(C, dtype=torch.int64, device=dev)
+        elif use_t2:
             hit, hvals = self.cache.get(op.node).probe(keys, F.valid)
         else:
             hit = torch.zeros(C, dtype=torch.bool, device=dev)
@@ -429,10 +577,12 @@ class ScheduleExecutor:
         self.subtree_launches += 1
         return _Frame(F=F, keys=keys, hit=hit, hvals=hvals,
                       rep_of_row=rep_of_row, first_idx=first_idx,
-                      n_reps=n_reps, use_t1=use_t1, use_t2=use_t2), R
+                      n_reps=n_reps, use_t1=use_t1, use_t2=use_t2,
+                      poff=poff, plen=plen), R
 
     # -- FOLD_CHILD (one parent chunk's subtree exits) -----------------
     def _fold_one(self, fr: _Frame, exits: List[Any], op: Op) -> List[Any]:
+        self.op_runs["fold"] += 1
         if self.mode == "evaluate":
             return self._fold_one_evaluate(fr, exits, op)
         C = self.engine.capacity
@@ -455,33 +605,180 @@ class ScheduleExecutor:
 
     def _fold_one_evaluate(self, fr: _Frame, exits: List[Any],
                            op: Op) -> List[Any]:
-        if not exits:
+        use_pay = fr.use_t2
+        if not exits and not use_pay:
             return []
         eng = self.engine
         C = eng.capacity
+        dev = fr.F.assign.device
+        d0, d1 = op.sub_first, op.sub_last
+        keys_h = None
+        if use_pay:
+            # with tier-1 dedup off, every parent row is its own rep — the
+            # store path needs the key values to collapse duplicates, so
+            # they ride the same fetch (still one sync per fold)
+            extra = ((fr.hit, fr.plen) if fr.use_t1
+                     else (fr.hit, fr.plen, fr.keys))
+        else:
+            extra = ()
+        pplan = (fr.rep_of_row, fr.F.valid & ~fr.hit) + extra
+        if self._stream_async:
+            # interior-streaming mode: the replay plan rides ASYNC issues
+            # ("replay-plan-async") — one per exit chunk plus one for the
+            # parent plan — so later exits' copies land while earlier
+            # exits' replay launches are being enqueued
+            efetches = [device_get_async((E.orig, E.valid),
+                                         "replay-plan-async")
+                        for E in exits]
+            host = device_get_async(pplan, "replay-plan-async").get()
+            exits_h: List[Any] = [None] * len(exits)
+        else:
+            # ONE planning fetch per fold: exit orig/valid, the parent rep
+            # map and (payload mode) the probe's hit mask and block
+            # lengths — O(ops) syncs
+            efetches = None
+            exits_h, host = device_get(
+                ([(E.orig, E.valid) for E in exits], pplan), "replay-plan")
+        ror_h, active_h = host[0], host[1]
+        if use_pay:
+            hit_h, plen_h = host[2], host[3]
+            if not fr.use_t1:
+                keys_h = host[4]
         active_dev = fr.F.valid & ~fr.hit
-        # ONE planning fetch per fold: exit orig/valid and the parent rep
-        # map — O(ops) syncs
-        exits_h, (ror_h, active_h) = device_get(
-            ([(E.orig, E.valid) for E in exits],
-             (fr.rep_of_row, active_dev)), "replay-plan")
         # the replay kernel needs sorted exits — guaranteed here: every
         # exit chunk is an EXPAND output or a fold continuation (bracket
         # interiors always contain >=1 EXPAND), both of which are
         # valid-prefix compacted with nondecreasing orig
-        fold_replay = eng._fold_fn(op.sub_first, op.sub_last)
+        fold_replay = eng._fold_fn(d0, d1, True, False) if exits else None
         out: List[Any] = []
-        for E, (eorig, evalid) in zip(exits, exits_h):
+        ecnts: List[np.ndarray] = []
+        for j, E in enumerate(exits):
+            eorig, evalid = (efetches[j].get() if efetches is not None
+                             else exits_h[j])
             ecnt = np.zeros(C, np.int64)
-            np.add.at(ecnt, np.clip(eorig, 0, C - 1), evalid.astype(np.int64))
+            np.add.at(ecnt, np.clip(eorig, 0, C - 1),
+                      evalid.astype(np.int64))
+            ecnts.append(ecnt)
             pcnt = np.where(active_h, ecnt[np.clip(ror_h, 0, C - 1)], 0)
             for mask in _pack_parent_morsels(pcnt, C):
                 self._count_launch("fold", fr.F.assign)
                 cont, _stats = fold_replay(
-                    fr.F, active_dev & torch.from_numpy(mask).to(
-                        active_dev.device), fr.rep_of_row, E)
+                    fr.F, active_dev & torch.from_numpy(mask).to(dev),
+                    fr.rep_of_row, E)
                 out.append(cont)
+        if use_pay:
+            tbl = self.cache.get(op.node)
+            if hit_h.any():
+                # splice FIRST: hit parents never descended into the bag;
+                # their cached blocks re-expand through the splice kernel.
+                # The probe's (poff, plen) pointers are only valid until
+                # this table's next insert (which may epoch-flush and
+                # reuse the arena rows), so the splice precedes the insert.
+                fold_splice = eng._fold_fn(d0, d1, False, True)
+                pcnt = np.where(hit_h, plen_h, 0).astype(np.int64)
+                for mask in _pack_parent_morsels(pcnt, C):
+                    self._count_launch("fold_splice", fr.F.assign)
+                    spl, _stats = fold_splice(
+                        fr.F, fr.hit & torch.from_numpy(mask).to(dev),
+                        fr.poff, fr.plen, tbl.slab)
+                    out.append(spl)
+            # feed the store throttle from the masks this fold already
+            # fetched (no extra sync): probes = hit + miss parent rows
+            n_hit = int(hit_h.sum())
+            tbl.note_eval_probes(n_hit + int(active_h.sum()), n_hit)
+            launches0 = tbl.window_launches
+            if exits:
+                probation = self.cache.config.payload_probation
+                if tbl.store_throttled():
+                    # keys don't recur on this table — stop paying the
+                    # arena writes; every Nth throttled fold still stores
+                    # (probation) so the hit rate can recover
+                    tbl.payload_throttled += 1
+                    if probation and tbl.payload_throttled % probation == 0:
+                        self._insert_payload_blocks(fr, exits, ecnts,
+                                                    active_h, keys_h, op)
+                else:
+                    # store the miss representatives' blocks BEFORE the
+                    # next parent morsel probes (cross-morsel reuse)
+                    self._insert_payload_blocks(fr, exits, ecnts,
+                                                active_h, keys_h, op)
+            # the sizing controller keeps running while the store
+            # throttle is engaged: tick its launch clock for insert-less
+            # folds (throttled, or nothing eligible) before deciding
+            if tbl.window_launches == launches0:
+                tbl.window_launches = launches0 + 1
+            self.cache.maybe_resize(op.node)
         return out
+
+    def _insert_payload_blocks(self, fr: _Frame, exits: List[Any],
+                               ecnts: List[np.ndarray], active_h,
+                               keys_h: Optional[np.ndarray], op: Op
+                               ) -> None:
+        """Tier-2 payload insert at FOLD (evaluation mode): slab-write the
+        representatives' row blocks and admit their keys.
+
+        A block is admitted from exit chunk *j* exactly when all of its
+        rep's exit rows are in chunk *j* (``ecnt_j == total``): a rep
+        spread over several chunks would cache a partial result, and is
+        skipped (that only costs recomputation)."""
+        tbl = self.cache.get(op.node)
+        C = self.engine.capacity
+        dev = fr.F.assign.device
+        total = ecnts[0] if len(ecnts) == 1 else np.sum(ecnts, axis=0)
+        if fr.use_t1:
+            # valid reps are exactly the rows ecnt can be nonzero at
+            rep_keys = fr.keys[fr.first_idx.clamp(0, C - 1)]
+            eligible = total > 0
+        else:
+            rep_keys = fr.keys
+            eligible = (total > 0) & active_h
+            if keys_h is not None:
+                # dedup off: duplicate adhesion keys each carry their own
+                # (identical) block, but only one copy per key can be
+                # admitted — keep the first, or the rest leak arena rows
+                big = np.int64(2 ** 62)
+                k = np.where(eligible, keys_h, big)
+                order = np.argsort(k, kind="stable")
+                ks = k[order]
+                isfirst = np.ones(ks.shape[0], bool)
+                isfirst[1:] = ks[1:] != ks[:-1]
+                isfirst &= ks != big
+                first = np.zeros_like(eligible)
+                first[order[isfirst]] = True
+                eligible &= first
+        stored = np.zeros(C, bool)
+        poff_all = np.zeros(C, np.int32)
+        flushes0 = tbl.payload_flushes
+        for E, ecnt in zip(exits, ecnts):
+            cand = eligible & (ecnt == total)
+            if not cand.any():
+                continue  # empty subtrees are not cached (no negatives)
+            tbl.ensure_slab(op.sub_last - op.sub_first + 1)
+            poff_np, admit_np = tbl.alloc_blocks(ecnt, cand)
+            if tbl.payload_flushes != flushes0:
+                # an epoch flush rewound the arena mid-fold: offsets from
+                # earlier chunks may now be overwritten — drop them from
+                # the batched admission (recompute later)
+                stored[:] = False
+                flushes0 = tbl.payload_flushes
+            if not admit_np.any():
+                continue
+            _store_blocks(tbl.slab, E, torch.from_numpy(poff_np).to(dev),
+                          torch.from_numpy(admit_np).to(dev),
+                          d0=op.sub_first, d1=op.sub_last)
+            poff_all = np.where(admit_np, poff_np, poff_all)
+            stored |= admit_np
+        if stored.any():
+            # one batched key admission for the whole fold (a rep is
+            # complete in at most one chunk, so the admit sets are
+            # disjoint); vals = block length = the exact subtree count
+            # (factors are all 1 in evaluation mode), so count() can
+            # reuse the entries
+            lens = torch.from_numpy(total).to(dev)
+            tbl.insert(rep_keys, lens, torch.from_numpy(stored).to(dev),
+                       poff=torch.from_numpy(poff_all).to(dev),
+                       plen=lens.to(torch.int32))
+        tbl.payload_skips += int((eligible & ~stored).sum())
 
     # -- shared --------------------------------------------------------
     def _admit(self, out, label: str):

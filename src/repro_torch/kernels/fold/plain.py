@@ -1,14 +1,23 @@
-"""Plain PyTorch FOLD, replay-only arity.
+"""Plain PyTorch FOLD, replay-only and splice-only arities.
 
 The counterpart of the reference's XLA chain
-(``repro/kernels/fold/xla.py::replay_step`` and ``_stats``) and the
-contract the CUDA kernel (``cuda.py``) is held to.  For every active
+(``repro/kernels/fold/xla.py::replay_step``, ``splice_step`` and
+``_stats``) and the contract the CUDA kernels (``cuda.py``) are held to.
+
+**Replay** (:func:`replay`).  For every active
 parent row *i* (representative ``rep_of_row[i]``) and every valid exit
 row *e* with ``E.orig == rep_of_row[i]``, one output row: the parent's
 assignment with the subtree columns ``[d0, d1]`` replaced by the exit
 row's, and ``factor`` = parent × exit.  Parents in row order, each
 parent's exits in exit-row order; rows past the valid prefix are
 unconstrained.
+
+**Splice** (:func:`splice`).  Every parent row *i* with a tier-2 payload
+hit contributes ``plen[i]`` rows: the parent's assignment with columns
+``[d0, d1]`` taken from its cached block, slab rows ``poff[i] ..
+poff[i] + plen[i] - 1``; ``factor``, ``orig``, ``lo`` and ``hi`` are the
+parent's.  Parents in row order; the offsets partition the output, so the
+valid rows are a prefix without a compaction.
 """
 from __future__ import annotations
 
@@ -16,7 +25,7 @@ import torch
 
 from ..expand.plain import compact
 
-__all__ = ["replay", "stats"]
+__all__ = ["replay", "splice", "stats"]
 
 
 def stats(C: int, needed: torch.Tensor) -> torch.Tensor:
@@ -58,3 +67,30 @@ def replay(P, active: torch.Tensor, rep_of_row: torch.Tensor, E, *,
     out = P._replace(assign=assign, factor=P.factor[src] * E.factor[eidx],
                      valid=ok, orig=P.orig[src], lo=P.lo[src], hi=P.hi[src])
     return compact(out), stats(C, needed)
+
+
+def splice(P, hit: torch.Tensor, poff: torch.Tensor, plen: torch.Tensor,
+           slab: torch.Tensor, *, d0: int, d1: int):
+    """Splice the hit parents' slab blocks: returns ``(cont, stats)`` with
+    ``stats`` the int64 ``[0, n_spliced, min(n_spliced, C)]``,
+    ``n_spliced`` uncapped.  Slab rows are clipped to ``[0, R - 1]``: the
+    last row, ``R``, is the store's scratch row and is never read."""
+    C = P.assign.shape[0]
+    dev = P.assign.device
+    i32 = torch.int32
+    R = slab.shape[0] - 1
+    pcnt = torch.where(hit, plen, 0).to(i32)
+    offsets = torch.cumsum(pcnt, 0, dtype=i32) - pcnt
+    n_spl = torch.where(hit, plen, 0).sum(dtype=torch.int64)
+    slot = torch.arange(C, dtype=i32, device=dev)
+    src = (torch.searchsorted(offsets, slot, right=True, out_int32=True)
+           - 1).clamp(0, C - 1)
+    delta = slot - offsets[src]
+    ok = (slot < n_spl) & (delta < pcnt[src])
+    sidx = torch.where(ok, (poff[src] + delta).clamp(0, R - 1), R)
+    assign = P.assign[src].clone()
+    assign[:, d0:d1 + 1] = slab[sidx]
+    out = P._replace(assign=assign, factor=P.factor[src], valid=ok,
+                     orig=P.orig[src], lo=P.lo[src], hi=P.hi[src])
+    return out, torch.stack([torch.zeros_like(n_spl), n_spl,
+                             n_spl.clamp(max=C)])

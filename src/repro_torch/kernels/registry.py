@@ -6,8 +6,10 @@ Every kernel is reached through this module:
     leapfrog-seek primitive, the branchless fixed-trip binary search of
     :func:`_bsearch`;
   * **EXPAND** (``expand_fn``) — one frontier-expansion step;
-  * **FOLD, replay-only arity** (``fold_fn``) — one bracket close in
-    evaluation mode: representative row blocks replayed through ``orig``;
+  * **FOLD** (``fold_fn``) — one bracket close in evaluation mode, in
+    two arities: replay-only (representative row blocks replayed through
+    ``orig``) and splice-only (tier-2 payload hits' cached blocks spliced
+    from the slab);
   * **EMIT** (``emit_fn``) — the stable valid-row pack of a result chunk.
 
 Dispatch goes by the device of the chunk a built function is called with:
@@ -85,7 +87,7 @@ class ExpandSpec:
 
 @dataclass(frozen=True)
 class FoldSpec:
-    """The shape of one FOLD_CHILD bracket close (replay-only arity)."""
+    """The shape of one FOLD_CHILD bracket close."""
 
     capacity: int
     n_vars: int
@@ -147,14 +149,41 @@ def expand_fn(spec: ExpandSpec, *, d: int, g_ai: int,
     return fn
 
 
-def fold_fn(spec: FoldSpec, *, d0: int, d1: int) -> Callable:
-    """Build the replay-only FOLD step:
-    ``fn(P, active, rep_of_row, E) -> (cont, stats)`` with ``stats`` the
-    int64 ``[needed, 0, min(needed, C)]``.  The CUDA kernel requires the
-    exit chunk valid-prefix compacted with nondecreasing ``orig`` (every
-    exit chunk the executor folds is)."""
+def fold_fn(spec: FoldSpec, *, d0: int, d1: int, with_replay: bool = True,
+            with_splice: bool = False) -> Callable:
+    """Build the FOLD step of bracket ``[d0, d1]`` in one of its arities,
+    as the reference's ``_fold_fn(d0, d1, with_replay, with_splice)``:
+
+    * replay-only: ``fn(P, active, rep_of_row, E) -> (cont, stats)`` with
+      ``stats`` the int64 ``[needed, 0, min(needed, C)]``.  The CUDA
+      kernel requires the exit chunk valid-prefix compacted with
+      nondecreasing ``orig`` (every exit chunk the executor folds is);
+    * splice-only: ``fn(P, hit, poff, plen, slab) -> (cont, stats)`` with
+      ``stats`` the int64 ``[0, n_spliced, min(n_spliced, C)]``.
+
+    The merged arity (``[replay | splice]`` in one chunk) is used only by
+    the static executor, which is not ported yet."""
     from .fold import cuda, plain
     C = spec.capacity
+    if with_replay and with_splice:
+        raise NotImplementedError(
+            "the merged FOLD arity belongs to the static executor "
+            "(execute_static), which the port does not have yet")
+    if not (with_replay or with_splice):
+        raise ValueError("FOLD needs at least one of replay/splice")
+
+    if with_splice:
+        def fn(P, hit, poff, plen, slab):
+            if path_of(P.assign) == "cuda":
+                return cuda.splice(P, hit, poff, plen, slab, d0=d0, d1=d1)
+            _check_chunk(spec, P)
+            _check("hit", hit, (C,), torch.bool)
+            _check("poff", poff, (C,), torch.int32)
+            _check("plen", plen, (C,), torch.int32)
+            _check("slab", slab, (slab.shape[0], d1 - d0 + 1), torch.int32)
+            return plain.splice(P, hit, poff, plen, slab, d0=d0, d1=d1)
+
+        return fn
 
     def fn(P, active, rep_of_row, E):
         if path_of(P.assign) == "cuda":

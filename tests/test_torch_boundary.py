@@ -69,6 +69,21 @@ def test_entry_points_default_to_cuda(entry):
     assert res.count > 0 and res.device == "cpu"
 
 
+def test_stream_entry_point_defaults_to_cuda():
+    from repro_torch.core import engine
+    from repro_torch.core.cq import cycle_query
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is available here: the default runs on the card")
+    db = _small_db()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        engine.evaluate_stream(cycle_query(4), db)
+    stream = engine.evaluate_stream(cycle_query(4), db, capacity=1 << 8,
+                                    device="cpu")
+    rows = sum(b.shape[0] for b in stream)
+    assert rows == stream.result.count > 0
+    assert stream.result.device == "cpu"
+
+
 def test_engines_default_to_cuda():
     from repro_torch.core.cached_frontier import CachedTrieJoin
     from repro_torch.core.cq import cycle_query
@@ -101,14 +116,21 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                  torch.zeros((C, m), dtype=i32),
                  torch.ones((C, m), dtype=i32))
     col = torch.arange(4, dtype=i32)
-    before = (expand_cuda.launches, fold_cuda.launches, emit_cuda.launches)
+    slab = torch.zeros((5, 2), dtype=i32)
+
+    def counts():
+        return (expand_cuda.launches, fold_cuda.launches,
+                fold_cuda.splice_launches, emit_cuda.launches)
+
+    before = counts()
     calls = [
         lambda: expand_cuda.expand(F, col, col, [col], d=0, g_ai=0,
                                    other_ais=(1,), n_rows_g=4),
         lambda: fold_cuda.replay(F, F.valid, F.orig, F, d0=1, d1=2),
+        lambda: fold_cuda.splice(F, F.valid, F.orig, F.orig, slab, d0=1,
+                                 d1=2),
         lambda: emit_cuda.pack(F.assign, F.valid)]
     for call in calls:
         with pytest.raises(ValueError, match="kernel runs on"):
             call()
-    assert (expand_cuda.launches, fold_cuda.launches,
-            emit_cuda.launches) == before
+    assert counts() == before

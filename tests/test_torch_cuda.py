@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from repro_torch.core import engine
+from repro_torch.core.cache import CacheConfig
 from repro_torch.core.cq import (bowtie_query, cycle_query, lollipop_query,
                                  path_query, star_query)
 from repro_torch.core.db import graph_db
@@ -139,3 +140,75 @@ def test_engine_on_the_card_matches_cpu(dev, qname, q, which):
         assert g.counters["expand_calls_cuda"] > 0
         assert g.counters["expand_calls_torch"] == 0
         assert c.counters["expand_calls_cuda"] == 0
+
+
+def _splice_inputs(C, seed, dev, n=5, m=3, w=3, slab_rows=1 << 17):
+    """A parent chunk and payload hits whose blocks are contiguous slab
+    runs (the last slab row is the store's scratch row), with about 1.25 C
+    spliced rows in all (so the output is truncated to C)."""
+    rng = np.random.default_rng(seed)
+    hit = rng.random(C) < 0.5
+    plen = np.where(hit, rng.integers(1, 5, C), 0).astype(np.int32)
+    poff = np.where(hit, rng.integers(0, slab_rows - 8, C),
+                    0).astype(np.int32)
+    P = Frontier(
+        torch.from_numpy(rng.integers(0, 99, (C, n)).astype(np.int32)),
+        torch.from_numpy(rng.integers(1, 9, C).astype(np.int64)),
+        torch.from_numpy(np.arange(C) < C // 2),
+        torch.from_numpy(np.arange(C, dtype=np.int32)),
+        torch.from_numpy(rng.integers(0, 99, (C, m)).astype(np.int32)),
+        torch.from_numpy(rng.integers(0, 99, (C, m)).astype(np.int32)))
+    slab = rng.integers(0, 1 << 20, (slab_rows + 1, w)).astype(np.int32)
+    return (Frontier(*(t.to(dev) for t in P)),
+            torch.from_numpy(hit).to(dev), torch.from_numpy(poff).to(dev),
+            torch.from_numpy(plen).to(dev), torch.from_numpy(slab).to(dev))
+
+
+@pytest.mark.parametrize("C,seed", [(1 << 12, 0), (1 << 16, 1)])
+def test_splice_kernel_matches_plain(dev, C, seed):
+    P, hit, poff, plen, slab = _splice_inputs(C, seed, dev)
+    before = fold_cuda.splice_launches
+    Oc, sc = fold_cuda.splice(P, hit, poff, plen, slab, d0=1, d1=3)
+    Op, sp = fold_plain.splice(P, hit, poff, plen, slab, d0=1, d1=3)
+    torch.cuda.synchronize()
+    assert fold_cuda.splice_launches == before + 1
+    assert torch.equal(sc, sp)
+    assert int(sp[1]) > C, "the case must overflow the chunk"
+    _same_prefix(Oc, Op)
+    with pytest.raises(ValueError):  # a slab of the wrong width
+        fold_cuda.splice(P, hit, poff, plen, slab[:, :2], d0=1, d1=3)
+
+
+PAYLOAD = CacheConfig(policy="setassoc", assoc=4, slots=64,
+                      cache_payloads=True, payload_rows=1 << 12)
+
+
+@pytest.mark.parametrize("qname,q,which", ENGINE_CASES,
+                         ids=[c[0] for c in ENGINE_CASES])
+def test_payload_engine_on_the_card_matches_cpu(dev, qname, q, which):
+    """Payload evaluation, cold then warm on one engine per device, and
+    a stream on fresh engines: the card gives the CPU's tuples in block
+    order and the same tier counters, with every splice on the kernel."""
+    from repro_torch.core.cached_frontier import CachedTrieJoin
+    db = _db(nv=20, ne=300) if which == "small" else _hub_db()
+    td, order = engine.plan_query(q, db)
+    engs = [CachedTrieJoin(q, td, order, db, capacity=1 << 8,
+                           cache=PAYLOAD, device=d) for d in (dev, "cpu")]
+    for run in ("cold", "warm"):
+        g, c = (list(e.evaluate()) for e in engs)
+        assert len(g) == len(c), run
+        for a, b in zip(g, c):
+            np.testing.assert_array_equal(a, b, err_msg=run)
+        for k in STATS + ["tier2_replay_hits", "tier2_payload_flushes",
+                          "tier2_payload_skips", "tier2_slab_rows"]:
+            assert engs[0].stats[k] == engs[1].stats[k], (run, k)
+    gs, cs = engs[0].stats, engs[1].stats
+    for op in ("fold", "fold_splice", "emit"):
+        assert gs[f"{op}_calls_cuda"] == cs[f"{op}_calls_torch"]
+        assert gs[f"{op}_calls_torch"] == 0
+    streams = [list(CachedTrieJoin(q, td, order, db, capacity=1 << 8,
+                                   cache=PAYLOAD, device=d)
+                    .evaluate_stream()) for d in (dev, "cpu")]
+    assert len(streams[0]) == len(streams[1])
+    for a, b in zip(*streams):
+        np.testing.assert_array_equal(a, b)
