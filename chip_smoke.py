@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -8,21 +8,27 @@ holds every kernel against its plain PyTorch version on the card, runs
 ``engine.count`` and ``engine.evaluate`` of the 4-cycle on Zipf graphs at
 the published scale of SNAP wiki-Vote and ca-GrQc, then payload-replay
 evaluation (tier 2 on, cold and warm passes on one engine) and streamed
-evaluation (``engine.evaluate_stream``) of the ca-GrQc-scale graph,
+evaluation (``engine.evaluate_stream``) of the ca-GrQc-scale graph, then
+the static executor (``StaticCLFTJ``: a count, and an evaluation cold and
+warm, each one fixed-capacity pass) and the distributed count and
+evaluation in four processes on the one card (a gloo process group; the
+script starts them as ``chip_smoke.py --dist-worker RANK WORLD DIR``),
 checks every result against scipy.sparse oracles, and checks that each
 path launched its kernels.  Phases print one line each; then come the
-card's name and
-power limit (as nvidia-smi prints them), a JSON object with each
-kernel's launches, error, times and bound, and as the last line
+card's name and power limit (as nvidia-smi prints them), a JSON object
+with each kernel's launches, error, times and bound, and as the last line
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
 Any failed check raises, so the script exits non-zero and prints no
-result; so does a machine without CUDA.
+result; so does a machine without CUDA, and a worker that fails.
 """
 from __future__ import annotations
 
+import gc
+import hashlib
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -41,6 +47,9 @@ from repro_torch.core.cache import CacheConfig  # noqa: E402
 from repro_torch.core.cached_frontier import CachedTrieJoin  # noqa: E402
 from repro_torch.core.cq import cycle_query  # noqa: E402
 from repro_torch.core.db import graph_db  # noqa: E402
+from repro_torch.core.distributed import (  # noqa: E402
+    StaticCLFTJ, make_distributed_count, make_distributed_evaluate,
+    shard_frontier)
 from repro_torch.core.frontier import Frontier  # noqa: E402
 from repro_torch.core.hostsync import SyncCounter  # noqa: E402
 from repro_torch.core.schedule import FOLD_CHILD  # noqa: E402
@@ -70,10 +79,21 @@ GRQC = dict(nv=5242, ne=14496)
 PAYLOAD_CACHE = CacheConfig(policy="setassoc", assoc=8, slots=1 << 14,
                             cache_payloads=True, payload_rows=1 << 17)
 STREAM_IN_FLIGHT = 16       # the streaming preset's async-emit window
+# the static executor's chunk: one chunk must hold the largest frontier
+# of the pass.  At ca-GrQc scale the 4-cycle's last EXPAND enumerates
+# 30,512,441 candidates (phase 10 prints the largest need), so 2^25.  At
+# wiki-Vote scale it enumerates 299,760,871, which would need 2^29 rows
+# a chunk (tens of GB each, several chunks live): there the static count
+# runs at 2^24 and must flag its overflow
+C_STATIC = 1 << 25
+C_STATIC_WIKI = 1 << 24
+DIST_WORLD = 4              # ranks of the distributed phase, on one card
+DIST_TIMEOUT_S = 900
 # kernel name -> (wrapper module, its launch counter)
 WRAPPERS = {"expand": (expand_cuda, "launches"),
             "fold_replay": (fold_cuda, "launches"),
             "fold_splice": (fold_cuda, "splice_launches"),
+            "fold_merged": (fold_cuda, "merged_launches"),
             "emit": (emit_cuda, "launches")}
 SOURCES = {"expand": ("src/repro_torch/csrc/expand.cu",
                       "src/repro/kernels/expand/fused.py:193"),
@@ -81,8 +101,12 @@ SOURCES = {"expand": ("src/repro_torch/csrc/expand.cu",
                            "src/repro/kernels/fold/fused.py:228"),
            "fold_splice": ("src/repro_torch/csrc/fold.cu",
                            "src/repro/kernels/fold/fused.py:228"),
+           "fold_merged": ("src/repro_torch/csrc/fold.cu",
+                           "src/repro/kernels/fold/fused.py:228"),
            "emit": ("src/repro_torch/csrc/emit.cu",
                     "src/repro/kernels/emit/fused.py:70")}
+# the kernels only the static executor launches
+STATIC_ONLY = ("fold_merged",)
 
 
 def check(ok: bool, what: str) -> None:
@@ -205,26 +229,43 @@ def fold_work(P, active, ror, E, d0: int, d1: int) -> tuple:
     return read + written, ops
 
 
-def splice_work(P, hit, plen, d0: int, d1: int) -> tuple:
+def splice_work(P, hit, plen, d0: int, d1: int, room=None) -> tuple:
     """(bytes, operations) one splice-only FOLD must spend on this input.
     Bytes: the hit flags, and the block length of every parent that hits;
     the block offset and the parent row (less the spliced columns) of
     every parent that fills an output row; one slab row of the spliced
     columns per output row; the output rows, the valid flags and the
     stats.  Operations: one scan of C values, and per output row the
-    offset inversion."""
+    offset inversion.  ``room``: the output rows left to the splice (C
+    unless a merged FOLD's replay rows come first)."""
     C, n = P.assign.shape
     m, w = P.lo.shape[1], d1 - d0 + 1
+    room = C if room is None else room
     h = host(hit)
     scnt = np.where(h, host(plen), 0).astype(np.int64)
     soff = np.cumsum(scnt) - scnt
-    feeding = int(((scnt > 0) & (soff < C)).sum())
-    out = min(int(scnt.sum()), C)
+    feeding = int(((scnt > 0) & (soff < room)).sum())
+    out = min(int(scnt.sum()), room)
     read = (C + 4 * int(h.sum())
             + feeding * (4 + 4 * (n - w) + 12 + 8 * m) + out * 4 * w)
     written = out * row_bytes(n, m) + C + 24
     ops = C + out * trips(C)
     return read + written, ops
+
+
+def merged_work(P, active, ror, E, hit, plen, d0: int, d1: int) -> tuple:
+    """(bytes, operations) one merged FOLD must spend on this input: its
+    replay part (``fold_work``) and its splice part (``splice_work``,
+    into the rows the replay leaves), with the valid flags and the stats
+    written once."""
+    C = P.assign.shape[0]
+    rb, ro = fold_work(P, active, ror, E, d0, d1)
+    ekey = np.where(host(E.valid), np.clip(host(E.orig), 0, C - 1), C)
+    ecnt = np.bincount(ekey, minlength=C + 1)[:C]
+    rep = np.clip(host(ror), 0, C - 1)
+    n1 = min(int(np.where(host(active), ecnt[rep], 0).sum()), C)
+    sb, so = splice_work(P, hit, plen, d0, d1, room=C - n1)
+    return rb + sb - (C + 24), ro + so
 
 
 def frontier_max_err(a, b, k: int) -> int:
@@ -324,6 +365,41 @@ def fold_inputs(eng, rng, dev):
     return P, active.to(dev), ror.to(dev), E, op.sub_first, op.sub_last
 
 
+def merged_inputs(eng, rng, dev, plen_max: int):
+    """fold_inputs plus payload hits on the parents that do not replay
+    (the executor's ``active = valid & ~hit``), each with a block of 1 to
+    ``plen_max`` rows at a random offset of a 2^17-row slab."""
+    P, active, ror, E, d0, d1 = fold_inputs(eng, rng, dev)
+    w = d1 - d0 + 1
+    hit = P.valid & ~active
+    plen = torch.from_numpy(rng.integers(1, plen_max + 1, C)
+                            .astype(np.int32)).to(dev)
+    plen = torch.where(hit, plen, 0)
+    slab_rows = 1 << 17
+    poff = torch.from_numpy(rng.integers(0, slab_rows - plen_max, C)
+                            .astype(np.int32)).to(dev)
+    poff = torch.where(hit, poff, 0)
+    slab = torch.from_numpy(rng.integers(0, 1 << 12, (slab_rows + 1, w))
+                            .astype(np.int32)).to(dev)
+    return (P, active, ror, E, hit, poff, plen, slab), d0, d1
+
+
+def merged_check(args, d0: int, d1: int, what: str) -> tuple:
+    """The merged kernel against its plain version on ``args``: returns
+    (max_abs_err, plain stats)."""
+    (Oc, sc) = fold_cuda.merged(*args, d0=d0, d1=d1)
+    (Op, sp_) = fold_plain.merged(*args, d0=d0, d1=d1)
+    torch.cuda.synchronize()
+    check(torch.equal(sc, sp_),
+          f"{what}: merged stats {sc.tolist()} != {sp_.tolist()}")
+    check(torch.equal(Oc.valid, Op.valid), f"{what}: merged valid differ")
+    k = int(Op.valid.sum())
+    err = frontier_max_err(Oc, Op, k)
+    check(err == 0, f"{what}: merged differs on the valid prefix "
+          f"(err {err})")
+    return err, sp_.tolist()
+
+
 def kernels_vs_plain(db, dev):
     """Phase 3: each kernel against its plain version at C = 2^16."""
     rng = np.random.default_rng(SEED)
@@ -331,6 +407,7 @@ def kernels_vs_plain(db, dev):
     eng = CachedTrieJoin(cycle_query(4), td, order, db, capacity=C,
                          device=dev)
     rows = {}
+    seeded = {}
 
     # EXPAND at the depth with the most membership atoms
     d = max(reversed(range(eng.n)), key=lambda x: len(eng.at_depth[x]))
@@ -372,6 +449,19 @@ def kernels_vs_plain(db, dev):
         **bound(moved, ops), library_ms=None,
         note=f"span=[{d0},{d1}] needed={int(sp_[0])}")
 
+    # FOLD, merged: seeded inputs that replay and splice, one of them with
+    # more rows than the chunk holds (its row comes from the static pass)
+    for label, plen_max in (("fits", 4), ("truncated", 16)):
+        args, d0, d1 = merged_inputs(eng, rng, dev, plen_max)
+        err, st = merged_check(args, d0, d1, f"merged {label}")
+        check((st[0] + st[1] > C) == (label == "truncated"),
+              f"merged {label}: stats {st} do not fit the case")
+        seeded[label] = dict(
+            err=err, stats=st,
+            ms=time_ms(lambda: fold_cuda.merged(*args, d0=d0, d1=d1)),
+            plain_ms=time_ms(lambda: fold_plain.merged(*args, d0=d0,
+                                                       d1=d1)))
+
     # EMIT
     assign = torch.from_numpy(rng.integers(0, 1 << 12, (C, eng.n))
                               .astype(np.int32)).to(dev)
@@ -393,7 +483,7 @@ def kernels_vs_plain(db, dev):
         # one PyTorch call computing the same rows: a boolean-mask gather
         library_ms=time_ms(lambda: assign[valid]),
         note=f"k={k}")
-    return rows, dict(n=eng.n, m=eng.m, order=order)
+    return rows, dict(n=eng.n, m=eng.m, order=order), seeded
 
 
 class SpliceCapture:
@@ -421,6 +511,52 @@ class SpliceCapture:
     def __exit__(self, *exc):
         fold_cuda.splice = self._orig
         return False
+
+
+class MergedCapture:
+    """Record the merged kernel's largest call (most replay and splice
+    rows together) while a pass runs, with a copy of the slab as it was
+    at the call (the store after it writes the slab in place).  Every
+    call still launches the kernel."""
+
+    def __init__(self):
+        self.best = None
+        self.rows = -1
+        self._orig = fold_cuda.merged
+
+    def __enter__(self):
+        def spy(P, active, ror, E, hit, poff, plen, slab, *, d0, d1):
+            out = self._orig(P, active, ror, E, hit, poff, plen, slab,
+                             d0=d0, d1=d1)
+            rows = int(out[1][0] + out[1][1])
+            if rows > self.rows:
+                self.rows = rows
+                self.best = ((P, active, ror, E, hit, poff, plen,
+                              slab.clone()), d0, d1)
+            return out
+
+        fold_cuda.merged = spy
+        return self
+
+    def __exit__(self, *exc):
+        fold_cuda.merged = self._orig
+        return False
+
+
+def merged_vs_plain(capture: MergedCapture) -> dict:
+    """Phase 3, fold_merged: the kernel against its plain version on the
+    captured static-pass inputs (C = C_STATIC)."""
+    args, d0, d1 = capture.best
+    err, st = merged_check(args, d0, d1, "merged (static pass)")
+    P, active, ror, E, hit, poff, plen, slab = args
+    moved, ops = merged_work(P, active, ror, E, hit, plen, d0, d1)
+    return dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: fold_cuda.merged(*args, d0=d0, d1=d1)),
+        plain_ms=time_ms(lambda: fold_plain.merged(*args, d0=d0, d1=d1)),
+        **bound(moved, ops), library_ms=None,
+        note=(f"C={P.assign.shape[0]} span=[{d0},{d1}] needed={st[0]} "
+              f"n_spliced={st[1]} hits={int(hit.sum())}"))
 
 
 def splice_vs_plain(capture: SpliceCapture) -> dict:
@@ -520,6 +656,187 @@ PAY_KEYS = ("tier2_replay_hits", "tier2_payload_flushes",
             "tier2_slab_rows", "tier2_probes", "tier2_inserts")
 
 
+def host_synced(fn):
+    """Run ``fn()`` and return (result, seconds), the clock stopped after
+    the results reached the host."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def static_phase(q, db, db2, want2: int, dev) -> dict:
+    """Phase 10: the static executor on one card.  A count at ca-GrQc
+    scale (the oracle's count, no overflow); a count at wiki-Vote scale at
+    C_STATIC_WIKI, which must flag its overflow; an evaluation cold then
+    warm at ca-GrQc scale with PAYLOAD_CACHE (the oracle's rows both
+    passes, one host fetch each, warm replay hits)."""
+    td, order = engine.plan_query(q, db)
+    td2, order2 = engine.plan_query(q, db2)
+    reset_launches()
+    sc_ = StaticCLFTJ(q, td2, order2, db2, capacity=C_STATIC, device=dev)
+    (total, ov), count_s = host_synced(
+        lambda: [x.item() for x in sc_.count_fn()(sc_.initial_frontier())])
+    count_needed = int(sc_.last_needed_max)
+    check(total == want2 and not ov, f"static count {total} (overflow "
+          f"{ov}) != scipy oracle {want2}")
+    sw = StaticCLFTJ(q, td, order, db, capacity=C_STATIC_WIKI, device=dev)
+    (wtotal, wov), wiki_s = host_synced(
+        lambda: [x.item() for x in sw.count_fn()(sw.initial_frontier())])
+    wiki_needed = int(sw.last_needed_max)
+    check(wov and wiki_needed > C_STATIC_WIKI,
+          f"wiki-scale static count at C={C_STATIC_WIKI}: overflow {wov} "
+          f"with a largest need of {wiki_needed}")
+    se = StaticCLFTJ(q, td2, order2, db2, capacity=C_STATIC,
+                     cache=PAYLOAD_CACHE, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    tables, passes = None, []
+    for label in ("cold", "warm"):
+        with SyncCounter() as sync:
+            (rows_, stats_, tables), secs = host_synced(
+                lambda: se.evaluate_static(tables))
+        check_rows(rows_, order2, q, db2, want2, f"static {label}")
+        check(stats_["count"] == want2 and not stats_["overflow"],
+              f"static {label}: {stats_}")
+        check(sync.count == 1 and sync.label_counts == {"static-eval": 1},
+              f"static {label} fetched {dict(sync.label_counts)}")
+        passes.append((label, secs, stats_, int(se.last_needed_max)))
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = read_launches()
+    check(passes[1][2]["tier2_replay_hits"] > 0,
+          "the warm static pass served no replay hits")
+    engines = (sc_, sw, se)
+    for op in ("expand", "fold", "fold_merged", "emit"):
+        check(all(e.stats[f"{op}_calls_torch"] == 0 for e in engines),
+              f"a static pass ran {op} off the card")
+    check(launches["fold_merged"] == se.stats["fold_merged_calls_cuda"] > 0,
+          f"merged launches {launches['fold_merged']} != executor count "
+          f"{se.stats['fold_merged_calls_cuda']}")
+    check(launches["expand"] == sum(e.stats["expand_calls_cuda"]
+                                    for e in engines)
+          and launches["emit"] == se.stats["emit_calls_cuda"]
+          and launches["fold_replay"] == se.stats["fold_calls_cuda"]
+          - se.stats["fold_merged_calls_cuda"],
+          "wrapper launches != executor counts in the static passes")
+    print(f"[10 static] StaticCLFTJ, 4-cycle: count at ca-GrQc scale "
+          f"C={C_STATIC}: {total} (oracle), largest need {count_needed}, "
+          f"{count_s:.3f} s; count at wiki-Vote scale C={C_STATIC_WIKI}: "
+          f"overflow flagged, largest need {wiki_needed}, {wiki_s:.3f} s; "
+          f"evaluate at ca-GrQc scale C={C_STATIC}, cache setassoc 8-way "
+          f"2^14 slots, payload_rows 2^17: rows={want2} (oracle) both "
+          f"passes, unique, every atom holds, one static-eval fetch each; "
+          + "; ".join(f"{lb} exec_s={secs:.3f} largest need {need} "
+                      + json.dumps(st) for lb, secs, st, need in passes)
+          + f"; sort-routed folds {se.stats['fold_sorted_exits']}; peak "
+          f"device memory {peak_gb:.2f} GiB | launches "
+          + json.dumps(launches), flush=True)
+    return dict(count=total, launches=launches, engine=se, tables=tables)
+
+
+def dist_worker(rank: int, world: int, work: str) -> int:
+    """One rank of phase 11 (``chip_smoke.py --dist-worker RANK WORLD
+    DIR``): the distributed count and evaluation (cold, then warm from
+    its own tables) of the 4-cycle at ca-GrQc scale on a gloo group of
+    ``world`` ranks on card 0.  Writes what it saw to DIR/rank<R>.json
+    (and rank 0 the merged rows to DIR/rows.npz)."""
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    out = Path(work)
+    dist.init_process_group("gloo", init_method=f"file://{out / 'init'}",
+                            rank=rank, world_size=world)
+    db2 = graph_db(zipf_graph(GRQC["nv"], GRQC["ne"], ZIPF_A, seed=SEED + 1),
+                   symmetrize=True)
+    q = cycle_query(4)
+    td2, order2 = engine.plan_query(q, db2)
+    reset_launches()
+    fn, eng = make_distributed_count(q, td2, order2, db2,
+                                     capacity=C_STATIC)
+    (total, ov), count_s = host_synced(lambda: [x.item() for x in fn()])
+    local, local_ov = (x.item() for x in eng.count_fn()(
+        shard_frontier(eng, rank, world)))
+    run, eng2 = make_distributed_evaluate(q, td2, order2, db2,
+                                          capacity=C_STATIC)
+    (rows1, s1, tables), t1 = host_synced(run)
+    (rows2, s2, _), t2 = host_synced(lambda: run(tables))
+    res = dict(rank=rank, count=total, overflow=ov, local=local,
+               local_overflow=local_ov, count_s=count_s, s1=s1, s2=s2,
+               exec_s=[t1, t2],
+               digest=[hashlib.sha1(r.tobytes()).hexdigest()
+                       for r in (rows1, rows2)],
+               stats={k: v for k, v in eng2.stats.items() if "calls" in k},
+               launches=read_launches(),
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    if rank == 0:
+        np.savez(out / "rows.npz", rows1=rows1, rows2=rows2)
+    dist.barrier()
+    dist.destroy_process_group()
+    (out / f"rank{rank}.json").write_text(json.dumps(res))
+    return 0
+
+
+def dist_phase(q, db2, want2: int, static_count: int) -> None:
+    """Phase 11: the distributed count and evaluation in DIST_WORLD
+    processes on the one card.  Every worker must exit 0; the count and
+    the rows of both passes equal the oracle's, every rank gathered the
+    same rows, the per-shard counts add up to phase 10's count and the
+    warm pass serves replay hits."""
+    work = ROOT / "build" / f"chip_smoke_dist_{int(time.time() * 1e3)}"
+    work.mkdir(parents=True)
+    procs = []
+    try:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--dist-worker",
+             str(r), str(DIST_WORLD), str(work)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(DIST_WORLD)]
+        outs = [p.communicate(timeout=DIST_TIMEOUT_S)[0] for p in procs]
+        wall = time.perf_counter() - t0
+        for r, (p, o) in enumerate(zip(procs, outs)):
+            check(p.returncode == 0,
+                  f"distributed rank {r} exited {p.returncode}:\n{o[-4000:]}")
+        res = [json.loads((work / f"rank{r}.json").read_text())
+               for r in range(DIST_WORLD)]
+        saved = np.load(work / "rows.npz")
+        for key in ("rows1", "rows2"):
+            check_rows(saved[key], engine.plan_query(q, db2)[1], q, db2,
+                       want2, f"distributed {key}")
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    for r in res:
+        check(r["count"] == want2 and r["overflow"] == 0,
+              f"rank {r['rank']}: distributed count {r['count']} "
+              f"(overflow {r['overflow']}) != oracle {want2}")
+        for s_ in (r["s1"], r["s2"]):
+            check(s_["count"] == want2 and not s_["overflow"],
+                  f"rank {r['rank']}: distributed evaluation {s_}")
+        check(r["digest"] == res[0]["digest"],
+              f"rank {r['rank']} gathered other rows than rank 0")
+        check(all(v == 0 for k, v in r["stats"].items() if "torch" in k),
+              f"rank {r['rank']} ran a kernel off the card")
+        check(r["launches"]["fold_merged"]
+              == r["stats"]["fold_merged_calls_cuda"] > 0,
+              f"rank {r['rank']}: merged launches != executor count")
+    local = [r["local"] for r in res]
+    check(sum(local) == static_count,
+          f"per-shard counts {local} do not add up to {static_count}")
+    check(res[0]["s2"]["tier2_replay_hits"] > 0,
+          "the warm distributed pass served no replay hits")
+    print(f"[11 distributed] {DIST_WORLD} processes on one card, gloo, "
+          f"4-cycle at ca-GrQc scale, C={C_STATIC}, default cache (direct "
+          f"2^15 slots, payloads): count {res[0]['count']} (oracle) = sum "
+          f"of shards {local} = static count; rows={want2} (oracle) cold "
+          f"and warm, the same on every rank; cold {res[0]['s1']}, warm "
+          f"{res[0]['s2']}; per rank count_s / exec_s cold, warm: "
+          + ", ".join(f"{r['count_s']:.3f}/{r['exec_s'][0]:.3f}/"
+                      f"{r['exec_s'][1]:.3f}" for r in res)
+          + "; peak GiB " + ", ".join(f"{r['peak_gib']:.2f}" for r in res)
+          + f"; wall {wall:.1f} s with process start", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("CUDA is not available: chip_smoke needs an NVIDIA GPU",
@@ -552,12 +869,15 @@ def main() -> int:
                    symmetrize=True)
 
     # 3. kernels against their plain versions on the card
-    rows, shape = kernels_vs_plain(db, dev)
+    rows, shape, seeded = kernels_vs_plain(db, dev)
     print(f"[3 kernels] C={C} n={shape['n']} m={shape['m']} "
           f"order={shape['order']}: " + "; ".join(
               f"{k}: {v['ms']:.4f} ms (plain {v['plain_ms']:.4f} ms, bound "
               f"{v['bound_ms']:.4f} ms by {v['bound_by']}, {v['note']})"
               for k, v in rows.items()), flush=True)
+    print("[3 kernels] fold_merged on seeded inputs, bit-exact: " + "; ".join(
+        f"{k}: {v['ms']:.4f} ms (plain {v['plain_ms']:.4f} ms), stats "
+        f"{v['stats']}" for k, v in seeded.items()), flush=True)
 
     # 4. count on the wiki-Vote-scale graph (main path)
     q = cycle_query(4)
@@ -603,7 +923,8 @@ def main() -> int:
           + json.dumps({k: v for k, v in cnt2.items() if v}), flush=True)
 
     # 6. the main path went through every kernel
-    main_path = {k: v for k, v in launches.items() if k != "fold_splice"}
+    main_path = {k: v for k, v in launches.items()
+                 if k != "fold_splice" and k not in STATIC_ONLY}
     for name, n in main_path.items():
         check(n > 0, f"kernel {name} was not launched on the main path")
     print(f"[6 launches] main path (count + evaluate): "
@@ -639,7 +960,8 @@ def main() -> int:
           and pay_launches["emit"] == pst["emit_calls_cuda"],
           "wrapper launches != executor counts in payload evaluation")
     for name, n in pay_launches.items():
-        check(n > 0, f"kernel {name} was not launched by payload evaluation")
+        check(n > 0 or name in STATIC_ONLY,
+              f"kernel {name} was not launched by payload evaluation")
     print(f"[8 payload] 4-cycle on the ca-GrQc-scale graph, C={C}, cache "
           f"setassoc 8-way 2^14 slots, payload_rows 2^17: rows={want2} "
           f"(oracle) both passes, unique, every atom holds; "
@@ -677,6 +999,8 @@ def main() -> int:
     check(sc.label_counts["emit-stream"] == len(blocks) > 0,
           "not every block went through the async emit queue")
     for name, n in stream_launches.items():
+        if name in STATIC_ONLY:
+            continue
         if name != "fold_splice" or one.counters["fold_splice_calls_cuda"]:
             check(n > 0, f"kernel {name} was not launched by the stream")
     for name in pay_launches:
@@ -692,18 +1016,45 @@ def main() -> int:
           + json.dumps(stream_launches)
           + f" | total {time.perf_counter() - t_start:.1f} s", flush=True)
 
+    # 10. the static executor (one fixed-capacity pass per call)
+    static = static_phase(q, db, db2, want2, dev)
+    static_launches = static["launches"]
+    static_count = static["count"]
+    se = static["engine"]
+
+    # 3, fold_merged: the kernel on the static warm pass's merged fold (a
+    #    third pass, untimed, records it)
+    with MergedCapture() as mcap:
+        se.evaluate_static(static["tables"])
+    check(mcap.best is not None, "the capture pass merged nothing")
+    rows["fold_merged"] = merged_vs_plain(mcap)
+    r = rows["fold_merged"]
+    print(f"[3 kernels] fold_merged: {r['ms']:.4f} ms (plain "
+          f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms by "
+          f"{r['bound_by']}, {r['note']}) | total "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    del mcap, static
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 11. the distributed count and evaluation, DIST_WORLD processes
+    dist_phase(q, db2, want2, static_count)
+    print(f"[11 distributed] total {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
     # 7. where the time goes (one more, traced pass of each path)
     for label, run in (
             ("count", lambda: engine.count(q, db, capacity=C)),
             ("evaluate", lambda: engine.evaluate(q, db2, capacity=C)),
-            ("payload-warm", lambda: list(pay.evaluate()))):
+            ("payload-warm", lambda: list(pay.evaluate())),
+            ("static-evaluate", lambda: se.evaluate_static())):
         print(f"[7 profile {label}] " + profile_line(run), flush=True)
 
     kernels = []
     for name, r in rows.items():
         src, replaces = SOURCES[name]
-        n = (launches[name] if name != "fold_splice" else 0) + \
-            pay_launches[name]
+        n = ((launches[name] if name != "fold_splice" else 0)
+             + pay_launches[name] + static_launches[name])
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": n,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -719,4 +1070,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-worker"]:
+        sys.exit(dist_worker(int(sys.argv[2]), int(sys.argv[3]),
+                             sys.argv[4]))
     sys.exit(main())

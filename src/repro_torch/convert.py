@@ -9,6 +9,9 @@ execution.  :func:`table_from_reference` carries a warm tier-2 table
 across: the state a reference table exports as numpy arrays becomes a
 port :class:`~.core.cache.DeviceCache`, so a warm pass can be compared
 with the reference's warm pass from the same tables.
+:func:`static_tables_from_reference` does the same for the static
+executor's tables (tuples of planes), so a warm static pass of the port
+can start from the reference's cold-pass tables.
 """
 from __future__ import annotations
 
@@ -20,9 +23,17 @@ import torch
 from .core.cache import CacheConfig, DeviceCache
 from .core.cq import CQ, Atom
 from .core.db import Database
+from .core.frontier import resolve_device
 from .core.td import TreeDecomposition
 
-__all__ = ["from_reference", "table_from_reference"]
+# dtypes of a static table tuple's planes, in order: keys, vals, used,
+# stamp, cost, then with payloads pay_off, pay_len, slab and bump
+_STATIC_DTYPES = (torch.int64, torch.int64, torch.bool, torch.int32,
+                  torch.int64, torch.int32, torch.int32, torch.int32,
+                  torch.int32)
+
+__all__ = ["from_reference", "table_from_reference",
+           "static_tables_from_reference"]
 
 
 def from_reference(relations: Dict[str, np.ndarray],
@@ -50,7 +61,7 @@ def from_reference(relations: Dict[str, np.ndarray],
 
 
 def table_from_reference(state: Dict[str, object], config: CacheConfig,
-                         device="cpu") -> DeviceCache:
+                         device="cuda") -> DeviceCache:
     """A port tier-2 table holding a reference table's exported state.
 
     ``state`` is what the reference's ``DeviceCache.export_state()``
@@ -59,9 +70,10 @@ def table_from_reference(state: Dict[str, object], config: CacheConfig,
     the arena was allocated), ``slab_bump``, ``payload_flushes`` and the
     LRU ``tick``.  The planes keep the reference's dtypes (int64 keys,
     counts and costs, int32 stamps and payload pointers); the table's
-    geometry comes from their shape.  Raises ``ValueError`` on planes
-    that do not fit ``config``."""
-    dev = torch.device(device)
+    geometry comes from their shape.  The table lives on ``device`` (the
+    card unless the caller asks for the CPU).  Raises ``ValueError`` on
+    planes that do not fit ``config``."""
+    dev = resolve_device(device)
     dtypes = {"keys": np.int64, "vals": np.int64, "used": bool,
               "stamp": np.int32, "cost": np.int64}
     planes = {k: np.asarray(state[k], dt) for k, dt in dtypes.items()}
@@ -92,3 +104,29 @@ def table_from_reference(state: Dict[str, object], config: CacheConfig,
         tbl.slab_bump = int(state["slab_bump"])
         tbl.payload_flushes = int(state.get("payload_flushes", 0))
     return tbl
+
+
+def static_tables_from_reference(tables: Dict[int, Sequence[object]],
+                                 device="cuda") -> Dict[int, tuple]:
+    """The port's static tables from a reference ``StaticCLFTJ`` tables
+    dict (node id to a tuple of planes, given as numpy arrays): the
+    count-only 5-tuple ``(keys, vals, used, stamp, cost)`` or the 9-tuple
+    adding ``(pay_off, pay_len, slab, bump)``, each plane a tensor of the
+    reference's dtype on ``device`` (the card unless the caller asks for
+    the CPU).  Raises ``ValueError`` on a tuple of another length or
+    planes of mismatched shapes."""
+    dev = resolve_device(device)
+    out: Dict[int, tuple] = {}
+    for node, tbl in tables.items():
+        if len(tbl) not in (5, 9):
+            raise ValueError(f"table {node}: {len(tbl)} planes, expected "
+                             f"5 or 9")
+        planes = tuple(torch.from_numpy(np.array(a)).to(dev, dt)
+                       for a, dt in zip(tbl, _STATIC_DTYPES))
+        shape = planes[0].shape
+        if any(x.shape != shape for x in planes[1:min(len(planes), 7)]):
+            raise ValueError(f"table {node}: planes of unequal shape")
+        if len(planes) == 9 and planes[8].dim() != 0:
+            raise ValueError(f"table {node}: bump must be a scalar")
+        out[int(node)] = planes
+    return out

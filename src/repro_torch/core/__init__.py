@@ -4,7 +4,11 @@ Layers:
   * planning  — cq / gaifman / td / separators / decompose (paper §2, §4)
   * data      — db
   * engine    — frontier / cached_frontier / schedule / cache / hostsync
+  * static    — distributed (StaticCLFTJ: the fixed-capacity pass, and
+                its count / evaluation split over a process group)
   * facade    — engine.count / engine.evaluate / engine.plan_query
+
+Reference: ``repro/core/__init__.py``.
 """
 from .cq import (CQ, Atom, bowtie_query, cq, path_query, cycle_query,
                  clique_query, lollipop_query, random_graph_query,
@@ -15,7 +19,9 @@ from .decompose import choose_plan, enumerate_tds, DBStats
 from .clftj_ref import Plan
 from .cache import CacheConfig, CacheManager, DeviceCache
 from .hostsync import SyncCounter, device_get
-from .schedule import Op, Schedule, ScheduleExecutor, lower
+from .schedule import Op, Schedule, ScheduleExecutor, execute_static, lower
 from .frontier import Frontier, TrieJoin
 from .cached_frontier import CachedTrieJoin
+from .distributed import (StaticCLFTJ, make_distributed_count,
+                          make_distributed_evaluate)
 from . import engine

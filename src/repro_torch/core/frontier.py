@@ -201,7 +201,8 @@ class TrieJoin:
     def _fold_fn(self, d0: int, d1: int, with_replay: bool,
                  with_splice: bool):
         """The registry-built FOLD step for bracket [d0, d1] in the arity
-        the flags select (replay-only or splice-only)."""
+        the flags select: replay-only, splice-only, or merged (both flags;
+        the static executor's)."""
         key = (d0, d1, with_replay, with_splice)
         fn = self._fold_fns.get(key)
         if fn is None:

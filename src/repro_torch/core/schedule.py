@@ -22,9 +22,14 @@ tier-2 cache (``core/cache.py``), batched chunk admission so host syncs
 happen at most once per op execution (not per chunk — every sync is routed
 through :mod:`hostsync`), while parent morsels still run an ENTER…FOLD
 span sequentially so later morsels hit earlier morsels' tier-2 inserts.
-EXPAND, the evaluation-mode FOLD replay and splice and the EMIT pack are
-kernels behind ``kernels/registry.py``; the slab store
-(:func:`_store_blocks`) is plain PyTorch ops.
+:func:`execute_static` is the fixed-capacity executor: the whole schedule
+as one pass over one chunk per op, overflow flagged instead of split,
+tier-2 tables threaded through as tuples, and no host sync inside.
+EXPAND, the evaluation-mode FOLD (replay, splice and their merged arity)
+and the EMIT pack are kernels behind ``kernels/registry.py``; the slab
+store (:func:`_store_blocks`) is plain PyTorch ops.
+
+Reference: ``repro/core/schedule.py``.
 """
 from __future__ import annotations
 
@@ -250,6 +255,31 @@ def _store_blocks(slab: torch.Tensor, E, poff: torch.Tensor,
                        R).long()
     rows = E.assign[eorder, d0:d1 + 1]
     slab[dest] = torch.where(ok[:, None], rows, slab[dest])
+
+
+def _alloc_blocks_static(bump: torch.Tensor, tplen: torch.Tensor,
+                         lens: torch.Tensor, cand: torch.Tensor, *,
+                         cap: int):
+    """The twin of :meth:`~.cache.DeviceCache.alloc_blocks` for the static
+    executor, with the arena state (the 0-d int32 ``bump`` pointer and the
+    ``tplen`` plane) kept on the device: bump-allocate one batch of
+    variable-length slab blocks.  Same rules as the host allocator: blocks
+    larger than the whole arena are refused; if the batch does not fit
+    the rest of the arena and the arena is not empty, every payload is
+    epoch-flushed (``tplen`` reset to -1) before admitting; candidates
+    still beyond the arena are refused prefix-wise.  Returns ``(offsets,
+    admitted, bump', tplen')``; the inputs are not modified."""
+    lens = torch.where(cand, lens.to(torch.int32), 0)
+    lens = torch.where(lens <= cap, lens, 0)
+    total = lens.sum(dtype=torch.int32)
+    flushed = (total > cap - bump) & (bump > 0) & (total > 0)
+    bump = torch.where(flushed, 0, bump)
+    tplen = torch.where(flushed, torch.full_like(tplen, -1), tplen)
+    cum = torch.cumsum(lens, 0, dtype=torch.int32)
+    admit = (lens > 0) & (cum <= cap - bump)
+    offs = torch.where(admit, bump + cum - lens, 0).to(torch.int32)
+    bump = bump + torch.where(admit, lens, 0).sum(dtype=torch.int32)
+    return offs, admit, bump, tplen
 
 
 # ---------------------------------------------------------------------------
@@ -807,3 +837,259 @@ def _pack_parent_morsels(pcnt: np.ndarray, cap: int) -> List[np.ndarray]:
     if acc:
         masks.append(cur)
     return masks
+
+
+# ---------------------------------------------------------------------------
+# Static (fixed-capacity) executor
+# ---------------------------------------------------------------------------
+
+
+def _sort_exits(E):
+    """The exit chunk stably sorted by ``ekey = valid ? clip(orig) : C``:
+    valid rows to the front in nondecreasing ``orig``, each
+    representative's rows in their original order — row for row what the
+    reference's XLA FOLD gathers through its ``eorder``."""
+    C = E.assign.shape[0]
+    ekey = torch.where(E.valid, E.orig.clamp(0, C - 1), C)
+    perm = torch.sort(ekey, stable=True).indices
+    return type(E)(*(x[perm] for x in E))
+
+
+def execute_static(schedule: Schedule, engine, F0, tables: Dict[int, tuple],
+                   cfg, mode: str = "count",
+                   counts: Optional[Dict[str, Any]] = None):
+    """Run ``schedule`` as one fixed-capacity pass with no host sync.
+
+    Every op runs once, on one chunk of the engine's capacity C: a chunk
+    that would need more rows is truncated and the pass's overflow flag is
+    set (the flag is honest: every EXPAND's ``needed`` and all three
+    figures of a merged FOLD's stats are checked against C).  Tier-2
+    tables are threaded through the pass: ``tables[c]`` is the count-only
+    ``(keys, vals, used, stamp, cost)`` tuple of ``core/cache.py`` or the
+    payload-capable 9-tuple extending it with ``(pay_off, pay_len, slab,
+    bump)``, ``bump`` a 0-d int32 device tensor, so slab allocation and
+    its epoch flush stay on the device (:func:`_alloc_blocks_static`).
+    The table planes are replaced, as in the reference; the **slab is
+    written in place** (:func:`_store_blocks`), so a slab passed in is the
+    slab returned, updated.  The LRU tick is a Python int counted up op by
+    op, as the reference unrolls it.
+
+    ``mode="count"`` returns ``(count, overflow, tables)``;
+    ``mode="evaluate"`` returns ``(assign, valid, count, overflow,
+    replay_hits, tables)``, ``(assign, valid)`` the result chunk with the
+    valid rows packed to the front by the EMIT kernel.  All results are
+    device tensors.  In evaluation, FOLD replays the miss representatives
+    through ``orig`` and, on a payload table, splices the hit rows'
+    cached blocks into the same chunk: one merged FOLD kernel, then the
+    miss representatives' blocks are stored.  Count-only tables are
+    bypassed in evaluation (optionality); with tier-1 dedup off only the
+    first occurrence of a duplicate key may store its block.
+
+    The FOLD kernels need the exit chunk sorted by ``orig``.  The pass
+    tracks that as the reference does: the initial chunk and every
+    representative chunk are sorted, EXPAND and a replay-only FOLD keep
+    their input's order, a merged FOLD's output is two sorted regions.  An
+    exit chunk that is not sorted is stably sorted on the device first
+    (:func:`_sort_exits`) and goes to the same kernel (the reference sends
+    such a fold to its XLA chain, which gathers the exits in this same
+    order).
+
+    ``counts``, when given, receives the pass's kernel launches per path
+    (``expand_calls_cuda`` …, ``fold_merged_calls_*`` for the merged
+    arity, which ``fold_calls_*`` also counts), ``fold_sorted_exits`` (the
+    folds that sorted their exits first) and ``needed_max`` (a 0-d device
+    tensor: the most rows any op of the pass needed, a merged FOLD's
+    replay and splice rows together).
+    """
+    from .cache import (_insert as cache_insert, _probe as cache_probe,
+                        _probe_payload as cache_probe_payload)
+    if mode not in ("count", "evaluate"):
+        raise ValueError(mode)
+    C = engine.capacity
+    dev = F0.assign.device
+    i32, i64 = torch.int32, torch.int64
+    counts = {} if counts is None else counts
+    for op_name in ("expand", "fold", "fold_merged", "emit"):
+        for path in ("cuda", "torch"):
+            counts.setdefault(f"{op_name}_calls_{path}", 0)
+    counts.setdefault("fold_sorted_exits", 0)
+
+    def launched(op_name: str, t: torch.Tensor) -> None:
+        counts[f"{op_name}_calls_{path_of(t)}"] += 1
+
+    F = F0
+    ov = torch.zeros((), dtype=torch.bool, device=dev)
+    needed_max = torch.zeros((), dtype=i64, device=dev)
+    stack: List[tuple] = []
+    tick = 0
+    total = torch.zeros((), dtype=i64, device=dev)
+    n_replay = torch.zeros((), dtype=i64, device=dev)
+    rows = rvalid = None
+    ar = torch.arange(C, dtype=i32, device=dev)
+    # the FOLD kernels' sorted-exits precondition, tracked as the
+    # reference tracks it: F0's orig is constant (sorted); ENTER resets
+    # the flag (rep chunks carry orig = arange); EXPAND keeps its input's
+    # order; a replay-only fold's output is sorted iff its parent was; a
+    # merged output is two sorted regions, not sorted as a whole
+    sorted_now = True
+    for op in schedule.ops:
+        if op.kind == EXPAND:
+            launched("expand", F.assign)
+            F, needed = engine._expand_fn(op.d)(F)
+            ov = ov | (needed > C)
+            needed_max = torch.maximum(needed_max, needed.to(i64))
+        elif op.kind == ENTER_CHILD:
+            keys = (_pack_keys(F.assign, op.adhesion, op.node)
+                    if (op.probe or op.dedup) else None)
+            tbl = tables.get(op.node)
+            has_pay = tbl is not None and len(tbl) > 5
+            # evaluation probes tier 2 only on payload tables: count-only
+            # entries cannot replay tuples (optionality)
+            use_t2 = op.probe and tbl is not None and (
+                mode == "count" or has_pay)
+            poff = plen = None
+            if use_t2 and mode == "evaluate":
+                tk, tv, tu, ts, tc, tpoff, tplen, slab, bump = tbl
+                tick += 1
+                hit, poff, plen, ts = cache_probe_payload(
+                    tk, tu, ts, tpoff, tplen, keys, F.valid, tick)
+                hvals = torch.zeros(C, dtype=i64, device=dev)
+                n_replay = n_replay + hit.sum(dtype=i64)
+                tables = dict(tables)
+                tables[op.node] = (tk, tv, tu, ts, tc, tpoff, tplen, slab,
+                                   bump)
+            elif use_t2:
+                tk, tv, tu, ts, tc = tbl[:5]
+                tick += 1
+                hit, hvals, ts = cache_probe(tk, tv, tu, ts, keys, F.valid,
+                                             tick)
+                tables = dict(tables)
+                tables[op.node] = (tk, tv, tu, ts, tc) + tuple(tbl[5:])
+            else:
+                hit = torch.zeros(C, dtype=torch.bool, device=dev)
+                hvals = torch.zeros(C, dtype=i64, device=dev)
+            active = F.valid & ~hit
+            if op.dedup:
+                first_idx, rep_of_row, n_reps = _dedup(keys, active)
+                R = _make_rep_frontier(F, first_idx, n_reps)
+            else:
+                first_idx, n_reps = None, None
+                rep_of_row = ar
+                R = _identity_reps(F, active)
+            stack.append((F, keys, hit, hvals, rep_of_row, first_idx,
+                          n_reps, active, use_t2, poff, plen, sorted_now))
+            F = R
+            sorted_now = True  # rep chunks carry orig = arange
+        elif op.kind == FOLD_CHILD:
+            (P, keys, hit, hvals, rep_of_row, first_idx, n_reps, active,
+             use_t2, poff, plen, parent_sorted) = stack.pop()
+            if mode == "evaluate":
+                E = F
+                d0, d1 = op.sub_first, op.sub_last
+                if not sorted_now:
+                    E = _sort_exits(E)
+                    counts["fold_sorted_exits"] += 1
+                ffn = engine._fold_fn(d0, d1, True, use_t2)
+                launched("fold", P.assign)
+                if use_t2:
+                    (tk, tv, tu, ts, tc, tpoff, tplen, slab,
+                     bump) = tables[op.node]
+                    # the splice reads the probed blocks BEFORE this
+                    # table's store below (an epoch flush may reuse their
+                    # arena rows); stream order keeps that on the card.
+                    # Everything replays and splices at once, so all
+                    # three stats figures are checked against C
+                    launched("fold_merged", P.assign)
+                    F, stats = ffn(P, active, rep_of_row, E, hit, poff,
+                                   plen, slab)
+                    ov = ov | (stats > C).any()
+                    needed_max = torch.maximum(needed_max,
+                                               stats[0] + stats[1])
+                    sorted_now = False  # two sorted regions
+                    # store the miss representatives' blocks: one exit
+                    # chunk, so every block is complete
+                    ecnt = torch.zeros(C, dtype=i32, device=dev).scatter_add_(
+                        0, E.orig.clamp(0, C - 1).long(), E.valid.to(i32))
+                    if op.dedup:
+                        rep_keys = keys[first_idx.clamp(0, C - 1)]
+                        eligible = (ecnt > 0) & (ar < n_reps)
+                    else:
+                        rep_keys = keys
+                        eligible = (ecnt > 0) & active
+                        # duplicate adhesion keys: only the first
+                        # occurrence may store, or the rest leak arena rows
+                        fi, _, nr = _dedup(keys, eligible)
+                        isrep = torch.zeros(C, dtype=i32, device=dev
+                                            ).scatter_reduce_(
+                            0, fi.clamp(0, C - 1).long(), (ar < nr).to(i32),
+                            "amax")
+                        eligible = eligible & (isrep > 0)
+                    offs, admit, bump, tplen = _alloc_blocks_static(
+                        bump, tplen, ecnt, eligible,
+                        cap=int(cfg.payload_rows))
+                    _store_blocks(slab, E, offs, admit, d0=d0, d1=d1)
+                    tick += 1
+                    lens = ecnt.to(i64)
+                    out = cache_insert(
+                        tk, tv, tu, ts, tc, rep_keys, lens,
+                        torch.clamp(lens, min=1), admit, tick,
+                        policy=cfg.policy, rounds=min(cfg.ways, 8),
+                        pay=(tpoff, tplen, offs, ecnt))
+                    tables = dict(tables)
+                    tables[op.node] = tuple(out[:7]) + (slab, bump)
+                else:
+                    F, stats = ffn(P, active, rep_of_row, E)
+                    ov = ov | (stats[0] > C)
+                    needed_max = torch.maximum(needed_max, stats[0])
+                    # the continuation keeps the parent's row order
+                    sorted_now = parent_sorted
+            else:
+                cnt = _segment_counts(F, C)
+                sorted_now = parent_sorted  # _apply_counts keeps row order
+                if use_t2:
+                    if op.dedup:
+                        rep_keys = keys[first_idx.clamp(0, C - 1)]
+                        rep_active = ar < n_reps
+                    else:
+                        rep_keys, rep_active = keys, active
+                    tbl = tables[op.node]
+                    tick += 1
+                    if len(tbl) > 5:
+                        # a payload table in count mode: the count insert
+                        # writes the -1 sentinel into the payload planes,
+                        # so an eviction never leaves a stale block
+                        # reachable
+                        tpoff, tplen, slab, bump = tbl[5:]
+                        out = cache_insert(
+                            *tbl[:5], rep_keys, cnt, torch.clamp(cnt, min=1),
+                            rep_active, tick, policy=cfg.policy,
+                            rounds=min(cfg.ways, 8),
+                            pay=(tpoff, tplen,
+                                 torch.zeros(C, dtype=i32, device=dev),
+                                 torch.full((C,), -1, dtype=i32,
+                                            device=dev)))
+                        new_tbl = tuple(out[:7]) + (slab, bump)
+                    else:
+                        out = cache_insert(*tbl, rep_keys, cnt,
+                                           torch.clamp(cnt, min=1),
+                                           rep_active, tick,
+                                           policy=cfg.policy,
+                                           rounds=min(cfg.ways, 8))
+                        new_tbl = tuple(out[:5])
+                    tables = dict(tables)
+                    tables[op.node] = new_tbl
+                F = _apply_counts(P, hit, hvals, rep_of_row, cnt)
+        else:  # EMIT
+            if mode == "count":
+                total = torch.where(F.valid, F.factor, 0).sum()
+            else:
+                # valid rows to the front: the result mask becomes a
+                # prefix predicate
+                launched("emit", F.assign)
+                rows, k = engine._emit_fn()(F.assign, F.valid)
+                rvalid = ar < k
+                total = k.to(i64)
+    counts["needed_max"] = needed_max
+    if mode == "count":
+        return total, ov, tables
+    return rows, rvalid, total, ov, n_replay, tables

@@ -1,5 +1,6 @@
-// FOLD, replay-only and splice-only arities: one bracket close in
-// evaluation mode.
+// FOLD, in its three arities (replay-only, splice-only and merged): one
+// bracket close in evaluation mode.  The file holds one copy of each
+// gather (replay_row, splice_row) and three entry points.
 //
 // ---- Replay-only (ctj_fold_replay) ----------------------------------------
 //
@@ -62,6 +63,44 @@
 // The offsets partition [0, n_spliced), so the valid rows are a prefix
 // and no compaction is needed.  Blocks are contiguous in the slab, so no
 // per-representative sort is needed either.
+// ---- Merged (ctj_fold_merged) ---------------------------------------------
+//
+// Replaces: the same Pallas kernel's two-region arity
+// (src/repro/kernels/fold/fused.py, build with with_replay=True,
+// with_splice=True: the `with_replay and with_splice` branch of
+// _make_kernel), which only the static executor calls.  Output layout
+// [replay | splice]: the replay rows of the miss parents first, truncated
+// to n1 = min(needed, C), then the splice rows of the hit parents in slots
+// n1 .. min(n1 + n_spliced, C) - 1.  stats = [needed, n_spliced,
+// min(needed, C) + min(n_spliced, C)], the last figure uncapped so that
+// the executor can flag an overflow.
+//
+// What bounds it on an H100: bytes.  It must read the parent plan (active,
+// rep_of_row, hit, plen: 10 bytes a parent), the exits' valid flags and
+// orig, the parent row of every parent that fills an output row, the exit
+// or slab row each output row takes, and write min(n1 + n2, C) output rows
+// (61 bytes each at n = m = 4) and the valid flags.  At the static path's
+// capacities (C = 2^23 to 2^25) that is 0.5-2 GB at most, 0.15-0.6 ms at
+// 3.35 TB/s; but the two exclusive scans run in one block each
+// (block_scan, about 0.6 ns a value), 5-20 ms apiece, and they set the
+// kernel's time.
+//
+// Design.  The Pallas kernel computed both plans into VMEM scratch in grid
+// step 0 and read them in later steps; Hopper runs blocks concurrently, so
+// the steps are four launches on one stream:
+//   1. plan  — one thread per parent row writes both plans: the replay
+//              plan (its representative's exit range by two bounded
+//              searches over the sorted exit keys, pcnt) and the splice
+//              plan (scnt = hit ? plen : 0);
+//   2. scan  — exclusive scan of pcnt: roff and `needed`;
+//   3. scan  — exclusive scan of scnt: soff and n_spliced;
+//   4. slots — one thread per output slot reads n1 from the first scan's
+//              total in device memory (no host round trip): slots below n1
+//              take the replay gather at pair s, the rest the splice
+//              gather at pair u = s - n1; slot 0 writes stats.
+// Both regions are prefixes of their own offsets, so the valid rows are a
+// prefix with no compaction.  The scans are the repo's single-block scan,
+// kept simple here: a multi-block scan is the way to make this fast.
 #include "common.cuh"
 
 namespace ctj {
@@ -76,14 +115,52 @@ struct ExitKey {
   }
 };
 
-__global__ void fold_plan(const bool* __restrict__ active,
-                          const int* __restrict__ rep_of_row,
-                          const bool* __restrict__ e_valid,
-                          const int* __restrict__ e_orig, int C,
-                          int* __restrict__ plb, int* __restrict__ pcnt) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= C) return;
-  const ExitKey key{e_valid, e_orig, C};
+// The parent chunk's fields that an output row copies.
+struct Parent {
+  const int* assign;
+  const long long* factor;
+  const int* orig;
+  const int* lo;
+  const int* hi;
+};
+
+// The output chunk.
+struct Out {
+  int* assign;
+  long long* factor;
+  bool* valid;
+  int* orig;
+  int* lo;
+  int* hi;
+};
+
+// What the replay gather reads: the exit rows and the replay plan.
+struct Replay {
+  const int* e_assign;
+  const long long* e_factor;
+  const int* plb;   // first exit of each parent's representative
+  const int* roff;  // exclusive scan of the pair counts
+};
+
+// What the splice gather reads: the block pointers, the slab and the
+// splice offsets.
+struct Splice {
+  const int* poff;
+  const int* slab;
+  const int* soff;  // exclusive scan of the spliced row counts
+  int nslab;
+};
+
+struct Shape {
+  int C, n, m, d0, d1;
+};
+
+// Replay plan of parent row i: its representative's exit range [lb, ub)
+// (the exits are sorted by representative) and the pairs it replays.
+__device__ __forceinline__ void replay_plan_row(
+    int i, const bool* __restrict__ active,
+    const int* __restrict__ rep_of_row, const ExitKey& key, int C,
+    int* __restrict__ plb, int* __restrict__ pcnt) {
   const int rep = clampi(rep_of_row[i], 0, C - 1);
   const int lb = bsearch<true>(key, C, rep, 0, C);
   const int ub = bsearch<false>(key, C, rep, 0, C);
@@ -91,43 +168,86 @@ __global__ void fold_plan(const bool* __restrict__ active,
   pcnt[i] = active[i] ? ub - lb : 0;
 }
 
-__global__ void fold_slots(
-    const int* __restrict__ p_assign, const long long* __restrict__ p_factor,
-    const int* __restrict__ p_orig, const int* __restrict__ p_lo,
-    const int* __restrict__ p_hi, const int* __restrict__ e_assign,
-    const long long* __restrict__ e_factor, const int* __restrict__ plb,
-    const int* __restrict__ roff, const int* __restrict__ needed_p, int C,
-    int n, int m, int d0, int d1, int* __restrict__ o_assign,
-    long long* __restrict__ o_factor, bool* __restrict__ o_valid,
-    int* __restrict__ o_orig, int* __restrict__ o_lo,
-    int* __restrict__ o_hi, long long* __restrict__ stats) {
+// Output slot s takes replay pair r: the parent by an upper-bound search
+// of r in roff, minus 1, and that parent's (r - roff[src])-th exit.
+__device__ __forceinline__ void replay_row(int s, int r, const Shape& sh,
+                                           const Parent& p, const Replay& rp,
+                                           const Out& o) {
+  const int C = sh.C, n = sh.n, m = sh.m;
+  const int src =
+      clampi(bsearch<false>(ColLoad{rp.roff}, C, r, 0, C) - 1, 0, C - 1);
+  const int eidx = clampi(rp.plb[src] + (r - rp.roff[src]), 0, C - 1);
+  const size_t so = static_cast<size_t>(s);
+  const size_t ps = static_cast<size_t>(src);
+  const size_t es = static_cast<size_t>(eidx);
+  for (int c = 0; c < n; ++c) {
+    o.assign[so * n + c] = (c >= sh.d0 && c <= sh.d1)
+                               ? rp.e_assign[es * n + c]
+                               : p.assign[ps * n + c];
+  }
+  for (int c = 0; c < m; ++c) {
+    o.lo[so * m + c] = p.lo[ps * m + c];
+    o.hi[so * m + c] = p.hi[ps * m + c];
+  }
+  o.factor[s] = p.factor[src] * rp.e_factor[eidx];
+  o.orig[s] = p.orig[src];
+}
+
+// Output slot s takes splice row u: the parent by an upper-bound search
+// of u in soff, minus 1, and slab row poff[src] + u - soff[src], clipped
+// to [0, nslab - 2] as the Pallas kernel clips it (the last slab row is
+// the store's scratch row, never read).
+__device__ __forceinline__ void splice_row(int s, int u, const Shape& sh,
+                                           const Parent& p, const Splice& sp,
+                                           const Out& o) {
+  const int C = sh.C, n = sh.n, m = sh.m;
+  const int src =
+      clampi(bsearch<false>(ColLoad{sp.soff}, C, u, 0, C) - 1, 0, C - 1);
+  const int w = sh.d1 - sh.d0 + 1;
+  const int sidx = clampi(sp.poff[src] + (u - sp.soff[src]), 0,
+                          sp.nslab - 2);
+  const size_t so = static_cast<size_t>(s);
+  const size_t ps = static_cast<size_t>(src);
+  const size_t ss = static_cast<size_t>(sidx);
+  for (int c = 0; c < n; ++c) {
+    o.assign[so * n + c] = (c >= sh.d0 && c <= sh.d1)
+                               ? sp.slab[ss * w + (c - sh.d0)]
+                               : p.assign[ps * n + c];
+  }
+  for (int c = 0; c < m; ++c) {
+    o.lo[so * m + c] = p.lo[ps * m + c];
+    o.hi[so * m + c] = p.hi[ps * m + c];
+  }
+  o.factor[s] = p.factor[src];
+  o.orig[s] = p.orig[src];
+}
+
+__global__ void fold_plan(const bool* __restrict__ active,
+                          const int* __restrict__ rep_of_row,
+                          const bool* __restrict__ e_valid,
+                          const int* __restrict__ e_orig, int C,
+                          int* __restrict__ plb, int* __restrict__ pcnt) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= C) return;
+  replay_plan_row(i, active, rep_of_row, ExitKey{e_valid, e_orig, C}, C,
+                  plb, pcnt);
+}
+
+__global__ void fold_slots(Shape sh, Parent p, Replay rp,
+                           const int* __restrict__ needed_p, Out o,
+                           long long* __restrict__ stats) {
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= C) return;
+  if (s >= sh.C) return;
   const int needed = *needed_p;
-  const int n_valid = needed < C ? needed : C;
+  const int n_valid = needed < sh.C ? needed : sh.C;
   if (s == 0) {
     stats[0] = needed;
     stats[1] = 0;
     stats[2] = n_valid;
   }
-  o_valid[s] = s < n_valid;
+  o.valid[s] = s < n_valid;
   if (s >= n_valid) return;
-  const int src =
-      clampi(bsearch<false>(ColLoad{roff}, C, s, 0, C) - 1, 0, C - 1);
-  const int eidx = clampi(plb[src] + (s - roff[src]), 0, C - 1);
-  const size_t so = static_cast<size_t>(s);
-  const size_t ps = static_cast<size_t>(src);
-  const size_t es = static_cast<size_t>(eidx);
-  for (int c = 0; c < n; ++c) {
-    o_assign[so * n + c] = (c >= d0 && c <= d1) ? e_assign[es * n + c]
-                                                : p_assign[ps * n + c];
-  }
-  for (int c = 0; c < m; ++c) {
-    o_lo[so * m + c] = p_lo[ps * m + c];
-    o_hi[so * m + c] = p_hi[ps * m + c];
-  }
-  o_factor[s] = p_factor[src] * e_factor[eidx];
-  o_orig[s] = p_orig[src];
+  replay_row(s, s, sh, p, rp, o);
 }
 
 __global__ void splice_plan(const bool* __restrict__ hit,
@@ -138,47 +258,85 @@ __global__ void splice_plan(const bool* __restrict__ hit,
   scnt[i] = hit[i] ? plen[i] : 0;
 }
 
-__global__ void splice_slots(
-    const int* __restrict__ p_assign, const long long* __restrict__ p_factor,
-    const int* __restrict__ p_orig, const int* __restrict__ p_lo,
-    const int* __restrict__ p_hi, const int* __restrict__ poff,
-    const int* __restrict__ slab, const int* __restrict__ soff,
-    const int* __restrict__ n_spl_p, int C, int n, int m, int d0, int d1,
-    int nslab, int* __restrict__ o_assign, long long* __restrict__ o_factor,
-    bool* __restrict__ o_valid, int* __restrict__ o_orig,
-    int* __restrict__ o_lo, int* __restrict__ o_hi,
-    long long* __restrict__ stats) {
+__global__ void splice_slots(Shape sh, Parent p, Splice sp,
+                             const int* __restrict__ n_spl_p, Out o,
+                             long long* __restrict__ stats) {
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= C) return;
+  if (s >= sh.C) return;
   const int n_spl = *n_spl_p;
-  const int n_valid = n_spl < C ? n_spl : C;
+  const int n_valid = n_spl < sh.C ? n_spl : sh.C;
   if (s == 0) {
     stats[0] = 0;
     stats[1] = n_spl;
     stats[2] = n_valid;
   }
-  o_valid[s] = s < n_valid;
+  o.valid[s] = s < n_valid;
   if (s >= n_valid) return;
-  const int src =
-      clampi(bsearch<false>(ColLoad{soff}, C, s, 0, C) - 1, 0, C - 1);
-  const int w = d1 - d0 + 1;
-  const int sidx = clampi(poff[src] + (s - soff[src]), 0, nslab - 2);
-  const size_t so = static_cast<size_t>(s);
-  const size_t ps = static_cast<size_t>(src);
-  const size_t ss = static_cast<size_t>(sidx);
-  for (int c = 0; c < n; ++c) {
-    o_assign[so * n + c] = (c >= d0 && c <= d1) ? slab[ss * w + (c - d0)]
-                                                : p_assign[ps * n + c];
+  splice_row(s, s, sh, p, sp, o);
+}
+
+__global__ void merged_plan(const bool* __restrict__ active,
+                            const int* __restrict__ rep_of_row,
+                            const bool* __restrict__ e_valid,
+                            const int* __restrict__ e_orig,
+                            const bool* __restrict__ hit,
+                            const int* __restrict__ plen, int C,
+                            int* __restrict__ plb, int* __restrict__ pcnt,
+                            int* __restrict__ scnt) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= C) return;
+  replay_plan_row(i, active, rep_of_row, ExitKey{e_valid, e_orig, C}, C,
+                  plb, pcnt);
+  scnt[i] = hit[i] ? plen[i] : 0;
+}
+
+__global__ void merged_slots(Shape sh, Parent p, Replay rp, Splice sp,
+                             const int* __restrict__ needed_p,
+                             const int* __restrict__ n_spl_p, Out o,
+                             long long* __restrict__ stats) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  const int C = sh.C;
+  if (s >= C) return;
+  const int needed = *needed_p;
+  const int n_spl = *n_spl_p;
+  const int n1 = needed < C ? needed : C;
+  const int n2 = n_spl < C ? n_spl : C;
+  const int n_valid = n1 + n2 < C ? n1 + n2 : C;  // n1 + n2 <= 2C < 2^31
+  if (s == 0) {
+    stats[0] = needed;
+    stats[1] = n_spl;
+    stats[2] = static_cast<long long>(n1) + n2;
   }
-  for (int c = 0; c < m; ++c) {
-    o_lo[so * m + c] = p_lo[ps * m + c];
-    o_hi[so * m + c] = p_hi[ps * m + c];
+  o.valid[s] = s < n_valid;
+  if (s >= n_valid) return;
+  if (s < n1) {
+    replay_row(s, s, sh, p, rp, o);
+  } else {
+    splice_row(s, s - n1, sh, p, sp, o);
   }
-  o_factor[s] = p_factor[src];
-  o_orig[s] = p_orig[src];
 }
 
 }  // namespace ctj
+
+namespace {
+
+ctj::Parent parent_of(const void* assign, const void* factor,
+                      const void* orig, const void* lo, const void* hi) {
+  return ctj::Parent{static_cast<const int*>(assign),
+                     static_cast<const long long*>(factor),
+                     static_cast<const int*>(orig),
+                     static_cast<const int*>(lo),
+                     static_cast<const int*>(hi)};
+}
+
+ctj::Out out_of(void* assign, void* factor, void* valid, void* orig,
+                void* lo, void* hi) {
+  return ctj::Out{static_cast<int*>(assign), static_cast<long long*>(factor),
+                  static_cast<bool*>(valid), static_cast<int*>(orig),
+                  static_cast<int*>(lo), static_cast<int*>(hi)};
+}
+
+}  // namespace
 
 // Scratch layout (int32, 3C + 1 values): plb, pcnt, roff (C each),
 // needed (1).  Returns the first CUDA error.
@@ -209,14 +367,11 @@ extern "C" int ctj_fold_replay(
   CTJ_CHECK(cudaGetLastError());
   CTJ_CHECK(launch_scan<int>(pcnt, roff, needed, C, false, stream));
   fold_slots<<<grid, kThreads, 0, stream>>>(
-      static_cast<const int*>(p_assign),
-      static_cast<const long long*>(p_factor),
-      static_cast<const int*>(p_orig), static_cast<const int*>(p_lo),
-      static_cast<const int*>(p_hi), static_cast<const int*>(e_assign),
-      static_cast<const long long*>(e_factor), plb, roff, needed, C, n, m,
-      d0, d1, static_cast<int*>(o_assign), static_cast<long long*>(o_factor),
-      static_cast<bool*>(o_valid), static_cast<int*>(o_orig),
-      static_cast<int*>(o_lo), static_cast<int*>(o_hi),
+      Shape{C, n, m, d0, d1},
+      parent_of(p_assign, p_factor, p_orig, p_lo, p_hi),
+      Replay{static_cast<const int*>(e_assign),
+             static_cast<const long long*>(e_factor), plb, roff},
+      needed, out_of(o_assign, o_factor, o_valid, o_orig, o_lo, o_hi),
       static_cast<long long*>(o_stats));
   return static_cast<int>(cudaGetLastError());
 }
@@ -247,14 +402,60 @@ extern "C" int ctj_fold_splice(
   CTJ_CHECK(cudaGetLastError());
   CTJ_CHECK(launch_scan<int>(scnt, soff, n_spl, C, false, stream));
   splice_slots<<<grid, kThreads, 0, stream>>>(
-      static_cast<const int*>(p_assign),
-      static_cast<const long long*>(p_factor),
-      static_cast<const int*>(p_orig), static_cast<const int*>(p_lo),
-      static_cast<const int*>(p_hi), static_cast<const int*>(poff),
-      static_cast<const int*>(slab), soff, n_spl, C, n, m, d0, d1, nslab,
-      static_cast<int*>(o_assign), static_cast<long long*>(o_factor),
-      static_cast<bool*>(o_valid), static_cast<int*>(o_orig),
-      static_cast<int*>(o_lo), static_cast<int*>(o_hi),
+      Shape{C, n, m, d0, d1},
+      parent_of(p_assign, p_factor, p_orig, p_lo, p_hi),
+      Splice{static_cast<const int*>(poff), static_cast<const int*>(slab),
+             soff, nslab},
+      n_spl, out_of(o_assign, o_factor, o_valid, o_orig, o_lo, o_hi),
+      static_cast<long long*>(o_stats));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Merged FOLD [replay | splice].  The exits must be valid-prefix compacted
+// with nondecreasing orig, as for ctj_fold_replay; slab as for
+// ctj_fold_splice.  Scratch layout (int32, 5C + 2 values): plb, pcnt,
+// roff, scnt, soff (C each), needed, n_spliced (1 each).  Returns the
+// first CUDA error.
+extern "C" int ctj_fold_merged(
+    const void* p_assign, const void* p_factor, const void* p_orig,
+    const void* p_lo, const void* p_hi, const void* active,
+    const void* rep_of_row, const void* e_assign, const void* e_factor,
+    const void* e_valid, const void* e_orig, const void* hit,
+    const void* poff, const void* plen, const void* slab, int C, int n,
+    int m, int d0, int d1, int nslab, void* o_assign, void* o_factor,
+    void* o_valid, void* o_orig, void* o_lo, void* o_hi, void* o_stats,
+    void* scratch, void* stream_ptr) {
+  using namespace ctj;
+  if (C <= 0 || d0 < 0 || d1 < d0 || d1 >= n || nslab < 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const size_t c = static_cast<size_t>(C);
+  int* plb = static_cast<int*>(scratch);
+  int* pcnt = plb + c;
+  int* roff = pcnt + c;
+  int* scnt = roff + c;
+  int* soff = scnt + c;
+  int* needed = soff + c;
+  int* n_spl = needed + 1;
+  const int grid = blocks_for(C);
+
+  merged_plan<<<grid, kThreads, 0, stream>>>(
+      static_cast<const bool*>(active), static_cast<const int*>(rep_of_row),
+      static_cast<const bool*>(e_valid), static_cast<const int*>(e_orig),
+      static_cast<const bool*>(hit), static_cast<const int*>(plen), C, plb,
+      pcnt, scnt);
+  CTJ_CHECK(cudaGetLastError());
+  CTJ_CHECK(launch_scan<int>(pcnt, roff, needed, C, false, stream));
+  CTJ_CHECK(launch_scan<int>(scnt, soff, n_spl, C, false, stream));
+  merged_slots<<<grid, kThreads, 0, stream>>>(
+      Shape{C, n, m, d0, d1},
+      parent_of(p_assign, p_factor, p_orig, p_lo, p_hi),
+      Replay{static_cast<const int*>(e_assign),
+             static_cast<const long long*>(e_factor), plb, roff},
+      Splice{static_cast<const int*>(poff), static_cast<const int*>(slab),
+             soff, nslab},
+      needed, n_spl, out_of(o_assign, o_factor, o_valid, o_orig, o_lo, o_hi),
       static_cast<long long*>(o_stats));
   return static_cast<int>(cudaGetLastError());
 }

@@ -45,6 +45,8 @@ _SIGNATURES = {
                        + [_P, _P],
     "ctj_fold_splice": [_P] * 5 + [_P] * 4 + [_I] * 6 + [_P] * 7
                        + [_P, _P],
+    "ctj_fold_merged": [_P] * 5 + [_P, _P] + [_P] * 4 + [_P] * 4 + [_I] * 6
+                       + [_P] * 7 + [_P, _P],
     "ctj_emit": [_P, _P, _I, _I, _P, _P, _P, _P],
 }
 

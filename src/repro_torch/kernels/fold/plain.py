@@ -1,8 +1,10 @@
-"""Plain PyTorch FOLD, replay-only and splice-only arities.
+"""Plain PyTorch FOLD in its three arities: replay-only, splice-only and
+merged.
 
 The counterpart of the reference's XLA chain
-(``repro/kernels/fold/xla.py::replay_step``, ``splice_step`` and
-``_stats``) and the contract the CUDA kernels (``cuda.py``) are held to.
+(``repro/kernels/fold/xla.py::replay_step``, ``splice_step``,
+``merge_compact`` and ``_stats``) and the contract the CUDA kernels
+(``cuda.py``) are held to.
 
 **Replay** (:func:`replay`).  For every active
 parent row *i* (representative ``rep_of_row[i]``) and every valid exit
@@ -18,6 +20,12 @@ hit contributes ``plen[i]`` rows: the parent's assignment with columns
 poff[i] + plen[i] - 1``; ``factor``, ``orig``, ``lo`` and ``hi`` are the
 parent's.  Parents in row order; the offsets partition the output, so the
 valid rows are a prefix without a compaction.
+
+**Merged** (:func:`merged`).  Both in one chunk, ``[replay | splice]``:
+the replay rows first, truncated to ``n1 = min(needed, C)``, then the
+splice rows in slots ``n1 .. min(n1 + n_spliced, C) - 1``.  ``stats`` is
+``[needed, n_spliced, min(needed, C) + min(n_spliced, C)]``; the third
+figure may exceed ``C`` (the static executor checks it for overflow).
 """
 from __future__ import annotations
 
@@ -25,7 +33,7 @@ import torch
 
 from ..expand.plain import compact
 
-__all__ = ["replay", "splice", "stats"]
+__all__ = ["replay", "splice", "merged", "stats"]
 
 
 def stats(C: int, needed: torch.Tensor) -> torch.Tensor:
@@ -94,3 +102,26 @@ def splice(P, hit: torch.Tensor, poff: torch.Tensor, plen: torch.Tensor,
                      orig=P.orig[src], lo=P.lo[src], hi=P.hi[src])
     return out, torch.stack([torch.zeros_like(n_spl), n_spl,
                              n_spl.clamp(max=C)])
+
+
+def merged(P, active: torch.Tensor, rep_of_row: torch.Tensor, E,
+           hit: torch.Tensor, poff: torch.Tensor, plen: torch.Tensor,
+           slab: torch.Tensor, *, d0: int, d1: int):
+    """Replay the misses and splice the hits into one chunk, replay rows
+    first (the reference's ``merge_compact`` of the two): returns
+    ``(cont, stats)``."""
+    C = P.assign.shape[0]
+    cont, rstats = replay(P, active, rep_of_row, E, d0=d0, d1=d1)
+    spl, sstats = splice(P, hit, poff, plen, slab, d0=d0, d1=d1)
+    n1, n2 = rstats[2], sstats[2]
+    slot = torch.arange(C, device=P.assign.device)
+    from_spl = slot >= n1
+    sidx = (slot - n1).clamp(0, C - 1)
+
+    def pick(a, b):
+        m = from_spl.reshape((C,) + (1,) * (a.dim() - 1))
+        return torch.where(m, b[sidx], a)
+
+    out = type(P)(*(pick(a, b) for a, b in zip(cont, spl)))
+    out = out._replace(valid=slot < (n1 + n2).clamp(max=C))
+    return out, torch.stack([rstats[0], sstats[1], n1 + n2])

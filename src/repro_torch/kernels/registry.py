@@ -7,9 +7,10 @@ Every kernel is reached through this module:
     :func:`_bsearch`;
   * **EXPAND** (``expand_fn``) — one frontier-expansion step;
   * **FOLD** (``fold_fn``) — one bracket close in evaluation mode, in
-    two arities: replay-only (representative row blocks replayed through
-    ``orig``) and splice-only (tier-2 payload hits' cached blocks spliced
-    from the slab);
+    three arities: replay-only (representative row blocks replayed
+    through ``orig``), splice-only (tier-2 payload hits' cached blocks
+    spliced from the slab) and merged (both in one chunk, the static
+    executor's);
   * **EMIT** (``emit_fn``) — the stable valid-row pack of a result chunk.
 
 Dispatch goes by the device of the chunk a built function is called with:
@@ -155,32 +156,51 @@ def fold_fn(spec: FoldSpec, *, d0: int, d1: int, with_replay: bool = True,
     as the reference's ``_fold_fn(d0, d1, with_replay, with_splice)``:
 
     * replay-only: ``fn(P, active, rep_of_row, E) -> (cont, stats)`` with
-      ``stats`` the int64 ``[needed, 0, min(needed, C)]``.  The CUDA
-      kernel requires the exit chunk valid-prefix compacted with
-      nondecreasing ``orig`` (every exit chunk the executor folds is);
+      ``stats`` the int64 ``[needed, 0, min(needed, C)]``;
     * splice-only: ``fn(P, hit, poff, plen, slab) -> (cont, stats)`` with
-      ``stats`` the int64 ``[0, n_spliced, min(n_spliced, C)]``.
+      ``stats`` the int64 ``[0, n_spliced, min(n_spliced, C)]``;
+    * merged: ``fn(P, active, rep_of_row, E, hit, poff, plen, slab) ->
+      (cont, stats)``, the replay rows then the splice rows, truncated to
+      ``C``, with ``stats`` the int64 ``[needed, n_spliced, min(needed, C)
+      + min(n_spliced, C)]`` (the static executor's arity).
 
-    The merged arity (``[replay | splice]`` in one chunk) is used only by
-    the static executor, which is not ported yet."""
+    The replay and merged CUDA kernels require the exit chunk
+    valid-prefix compacted with nondecreasing ``orig`` (every exit chunk
+    the executors hand them is)."""
     from .fold import cuda, plain
     C = spec.capacity
-    if with_replay and with_splice:
-        raise NotImplementedError(
-            "the merged FOLD arity belongs to the static executor "
-            "(execute_static), which the port does not have yet")
     if not (with_replay or with_splice):
         raise ValueError("FOLD needs at least one of replay/splice")
+
+    def check_replay(P, active, rep_of_row, E):
+        _check_chunk(spec, P)
+        _check_chunk(spec, E)
+        _check("active", active, (C,), torch.bool)
+        _check("rep_of_row", rep_of_row, (C,), torch.int32)
+
+    def check_splice(P, hit, poff, plen, slab):
+        _check_chunk(spec, P)
+        _check("hit", hit, (C,), torch.bool)
+        _check("poff", poff, (C,), torch.int32)
+        _check("plen", plen, (C,), torch.int32)
+        _check("slab", slab, (slab.shape[0], d1 - d0 + 1), torch.int32)
+
+    if with_replay and with_splice:
+        def fn(P, active, rep_of_row, E, hit, poff, plen, slab):
+            args = (P, active, rep_of_row, E, hit, poff, plen, slab)
+            if path_of(P.assign) == "cuda":
+                return cuda.merged(*args, d0=d0, d1=d1)
+            check_replay(P, active, rep_of_row, E)
+            check_splice(P, hit, poff, plen, slab)
+            return plain.merged(*args, d0=d0, d1=d1)
+
+        return fn
 
     if with_splice:
         def fn(P, hit, poff, plen, slab):
             if path_of(P.assign) == "cuda":
                 return cuda.splice(P, hit, poff, plen, slab, d0=d0, d1=d1)
-            _check_chunk(spec, P)
-            _check("hit", hit, (C,), torch.bool)
-            _check("poff", poff, (C,), torch.int32)
-            _check("plen", plen, (C,), torch.int32)
-            _check("slab", slab, (slab.shape[0], d1 - d0 + 1), torch.int32)
+            check_splice(P, hit, poff, plen, slab)
             return plain.splice(P, hit, poff, plen, slab, d0=d0, d1=d1)
 
         return fn
@@ -188,10 +208,7 @@ def fold_fn(spec: FoldSpec, *, d0: int, d1: int, with_replay: bool = True,
     def fn(P, active, rep_of_row, E):
         if path_of(P.assign) == "cuda":
             return cuda.replay(P, active, rep_of_row, E, d0=d0, d1=d1)
-        _check_chunk(spec, P)
-        _check_chunk(spec, E)
-        _check("active", active, (C,), torch.bool)
-        _check("rep_of_row", rep_of_row, (C,), torch.int32)
+        check_replay(P, active, rep_of_row, E)
         return plain.replay(P, active, rep_of_row, E, d0=d0, d1=d1)
 
     return fn

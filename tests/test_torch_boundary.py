@@ -85,7 +85,9 @@ def test_stream_entry_point_defaults_to_cuda():
 
 
 def test_engines_default_to_cuda():
+    from repro_torch.convert import static_tables_from_reference
     from repro_torch.core.cached_frontier import CachedTrieJoin
+    from repro_torch.core.distributed import StaticCLFTJ
     from repro_torch.core.cq import cycle_query
     from repro_torch.core.decompose import choose_plan
     from repro_torch.core.frontier import TrieJoin
@@ -98,6 +100,10 @@ def test_engines_default_to_cuda():
         CachedTrieJoin(q, td, order, db)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         TrieJoin(q, order, db)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        StaticCLFTJ(q, td, order, db)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        static_tables_from_reference({})
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -120,7 +126,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
     def counts():
         return (expand_cuda.launches, fold_cuda.launches,
-                fold_cuda.splice_launches, emit_cuda.launches)
+                fold_cuda.splice_launches, fold_cuda.merged_launches,
+                emit_cuda.launches)
 
     before = counts()
     calls = [
@@ -129,6 +136,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         lambda: fold_cuda.replay(F, F.valid, F.orig, F, d0=1, d1=2),
         lambda: fold_cuda.splice(F, F.valid, F.orig, F.orig, slab, d0=1,
                                  d1=2),
+        lambda: fold_cuda.merged(F, F.valid, F.orig, F, F.valid, F.orig,
+                                 F.orig, slab, d0=1, d1=2),
         lambda: emit_cuda.pack(F.assign, F.valid)]
     for call in calls:
         with pytest.raises(ValueError, match="kernel runs on"):

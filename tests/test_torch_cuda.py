@@ -212,3 +212,90 @@ def test_payload_engine_on_the_card_matches_cpu(dev, qname, q, which):
     assert len(streams[0]) == len(streams[1])
     for a, b in zip(*streams):
         np.testing.assert_array_equal(a, b)
+
+
+def _merged_inputs(C, seed, dev, case, n=5, m=3, w=3, slab_rows=1 << 17):
+    """A parent chunk, sorted exits (the sorted-exits invariant), miss
+    parents that replay and hit parents with contiguous slab blocks.
+    ``case``: ``fits`` (replay and splice fill about 0.75 C together),
+    ``truncated`` (the replay fills half the chunk and the splice is cut
+    short), ``no-replay`` or ``no-splice``."""
+    rng = np.random.default_rng(seed)
+    n_reps = C // 8
+    n_exits = C // 8 if case != "truncated" else C // 4
+    P = _splice_inputs(C, seed, "cpu", n=n, m=m, w=w, slab_rows=16)[0]
+    hit = P.valid.numpy() & (rng.random(C) < 0.5)
+    active = P.valid.numpy() & ~hit
+    if case == "no-replay":
+        active[:] = False
+    if case == "no-splice":
+        hit[:] = False
+    plen = np.where(hit, rng.integers(1, 3 if case != "truncated" else 9,
+                                      C), 0).astype(np.int32)
+    poff = np.where(hit, rng.integers(0, slab_rows - 8, C),
+                    0).astype(np.int32)
+    ror = rng.integers(0, n_reps, C).astype(np.int32)
+    eorig = np.full(C, n_reps - 1, np.int32)
+    eorig[:n_exits] = np.sort(rng.integers(0, n_reps, n_exits))
+    E = P._replace(assign=torch.from_numpy(
+        rng.integers(0, 99, (C, n)).astype(np.int32)),
+        valid=torch.from_numpy(np.arange(C) < n_exits),
+        orig=torch.from_numpy(eorig))
+    slab = rng.integers(0, 1 << 20, (slab_rows + 1, w)).astype(np.int32)
+    t = (torch.from_numpy(x).to(dev)
+         for x in (active, ror, hit, poff, plen, slab))
+    active, ror, hit, poff, plen, slab = t
+    return (Frontier(*(x.to(dev) for x in P)), active, ror,
+            Frontier(*(x.to(dev) for x in E)), hit, poff, plen, slab)
+
+
+@pytest.mark.parametrize("case", ["fits", "truncated", "no-replay",
+                                  "no-splice"])
+@pytest.mark.parametrize("C,seed", [(1 << 12, 3), (1 << 16, 4)])
+def test_merged_kernel_matches_plain(dev, C, seed, case):
+    args = _merged_inputs(C, seed, dev, case)
+    before = fold_cuda.merged_launches
+    Oc, sc = fold_cuda.merged(*args, d0=1, d1=3)
+    Op, sp = fold_plain.merged(*args, d0=1, d1=3)
+    torch.cuda.synchronize()
+    assert fold_cuda.merged_launches == before + 1
+    assert torch.equal(sc, sp)
+    needed, n_spl = int(sp[0]), int(sp[1])
+    assert (needed > 0) == (case != "no-replay")
+    assert (n_spl > 0) == (case != "no-splice")
+    assert (needed + n_spl > C) == (case == "truncated")
+    assert needed <= C
+    _same_prefix(Oc, Op)
+    with pytest.raises(ValueError):  # a slab of the wrong width
+        fold_cuda.merged(*args[:7], args[7][:, :2], d0=1, d1=3)
+
+
+@pytest.mark.parametrize("q", [bowtie_query(), cycle_query(5),
+                               path_query(5)], ids=["bowtie", "cycle5",
+                                                    "path5"])
+def test_static_engine_on_the_card_matches_cpu(dev, q):
+    """StaticCLFTJ cold then warm, and a count pass, on the card and on
+    the CPU: the same rows in the same order, stats and table planes, with
+    every FOLD on a CUDA kernel (the 5-path also sorts an exit chunk)."""
+    from repro_torch.core.distributed import StaticCLFTJ
+    db = _db(nv=16, ne=120)
+    td, order = engine.plan_query(q, db)
+    engs = [StaticCLFTJ(q, td, order, db, capacity=1 << 15, cache=PAYLOAD,
+                        device=d) for d in (dev, "cpu")]
+    tables = [None, None]
+    for run in ("cold", "warm"):
+        (rg, sg, tables[0]), (rc_, sc_, tables[1]) = (
+            e.evaluate_static(t) for e, t in zip(engs, tables))
+        np.testing.assert_array_equal(rg, rc_, err_msg=run)
+        assert sg == sc_ and not sg["overflow"], run
+        for node in tables[1]:
+            for a, b in zip(tables[0][node], tables[1][node]):
+                assert torch.equal(a.cpu(), b), (run, node)
+    assert sg["tier2_replay_hits"] > 0
+    gs, cs = engs[0].stats, engs[1].stats
+    for op in ("expand", "fold", "fold_merged", "emit"):
+        assert gs[f"{op}_calls_cuda"] == cs[f"{op}_calls_torch"] > 0, op
+        assert gs[f"{op}_calls_torch"] == 0, op
+    assert gs["fold_sorted_exits"] == cs["fold_sorted_exits"]
+    counts = [e.count_fn()(e.initial_frontier()) for e in engs]
+    assert [int(x) for x in counts[0]] == [int(x) for x in counts[1]]

@@ -26,6 +26,7 @@ from repro.kernels.emit.fused import FusedEmitConfig
 from repro_torch.convert import from_reference
 from repro_torch.core.cached_frontier import CachedTrieJoin
 from repro_torch.core.frontier import Frontier as TFrontier
+from repro_torch.core.schedule import _sort_exits
 from repro_torch.kernels import registry
 from repro_torch.kernels.emit import plain as t_emit
 from repro_torch.kernels.expand import plain as t_expand
@@ -210,6 +211,91 @@ def test_fold_replay_plain_matches_reference(C, seed, kw):
                                       err_msg=f)
     if kw:
         assert int(st[0]) > C, "case must overflow capacity"
+
+
+def _merged_inputs(C, seed, kw, side, w=3):
+    """Replay inputs plus payload hits on the parents that do not replay
+    (the executor's ``active = valid & ~hit``), with their blocks in a slab
+    whose last row is scratch.  ``side`` empties one side (``no-replay``,
+    ``no-splice``) or shuffles the exit chunk (``unsorted``)."""
+    P, active, ror, E = _fold_inputs(C, seed, **kw)
+    rng = np.random.default_rng(seed + 100)
+    hit = np.asarray(P.valid) & ~active & (rng.random(C) < 0.7)
+    if side == "no-replay":
+        hit, active = np.asarray(P.valid).copy(), np.zeros(C, bool)
+    elif side == "no-splice":
+        hit = np.zeros(C, bool)
+    plen = np.where(hit, rng.integers(1, 6, size=C), 0).astype(np.int32)
+    slab_rows = 300
+    poff = np.where(hit, rng.integers(0, slab_rows - 6, size=C),
+                    0).astype(np.int32)
+    slab = rng.integers(0, 1 << 20, size=(slab_rows + 1, w)).astype(np.int32)
+    if side == "unsorted":
+        perm = rng.permutation(C)
+        E = RFrontier(*(np.asarray(x)[perm] for x in E))
+    return P, active, ror, E, hit, poff, plen, slab
+
+
+MERGED_CASES = [
+    pytest.param(C, seed, kw, "both", id=f"C{C}-seed{seed}")
+    for C, seed, kw in FOLD_CASES] + [
+    # the replay fits, replay + splice does not: the splice is cut short
+    pytest.param(1 << 8, 5, dict(n_parents=120, n_exits=200, n_reps=40),
+                 "both", id="splice-truncated"),
+    pytest.param(1 << 8, 6, {}, "no-replay", id="no-replay"),
+    pytest.param(1 << 8, 7, {}, "no-splice", id="no-splice"),
+    pytest.param(1 << 8, 8, {}, "unsorted", id="unsorted-exits")]
+
+
+@pytest.mark.parametrize("C,seed,kw,side", MERGED_CASES)
+def test_fold_merged_plain_matches_reference(C, seed, kw, side):
+    """The merged arity ``[replay | splice]``: the port's plain version
+    against the reference's XLA chain, its Pallas kernel in interpret
+    mode and the numpy oracle.  An unsorted exit chunk goes to the XLA
+    chain as it is (the reference's route for it) and, stably sorted by
+    the static executor's ``_sort_exits``, to the Pallas kernel and the
+    port: both routes must give the same rows."""
+    d0, d1 = 1, 3
+    P, active, ror, E, hit, poff, plen, slab = _merged_inputs(C, seed, kw,
+                                                              side)
+    Et = _to_torch(E)
+    Es = _host(_sort_exits(Et)) if side == "unsorted" else E
+    ref = fold_ref(P, active, ror, E, hit, poff, plen, slab, d0=d0, d1=d1)
+    with enable_x64():
+        pay = (jnp.asarray(hit), jnp.asarray(poff), jnp.asarray(plen),
+               jnp.asarray(slab))
+        Fx, sx = r_fold_xla.build(d0=d0, d1=d1, with_replay=True,
+                                  with_splice=True)(
+            _to_jax(P), jnp.asarray(active), jnp.asarray(ror), _to_jax(E),
+            *pay)
+        Fp, sp = r_fold_fused.build(
+            d0=d0, d1=d1, with_replay=True, with_splice=True,
+            config=FusedFoldConfig(interpret=True))(
+            _to_jax(P), jnp.asarray(active), jnp.asarray(ror), _to_jax(Es),
+            *pay)
+    args = (_to_torch(P), torch.from_numpy(active), torch.from_numpy(ror))
+    tpay = tuple(torch.from_numpy(x) for x in (hit, poff, plen, slab))
+    Ft, st = t_fold.merged(*args, _to_torch(Es), *tpay, d0=d0, d1=d1)
+    assert st.dtype == torch.int64
+    for s_ in (np.asarray(sx), np.asarray(sp), ref[5]):
+        np.testing.assert_array_equal(st.numpy(), s_)
+    k = _assert_chunks_equal(Ft, Fx, "plain vs xla")
+    _assert_chunks_equal(Ft, Fp, "plain vs pallas")
+    assert k == ref[0].shape[0] == min(int(st[2]), C)
+    for f, r in zip(FIELDS, ref[:5]):
+        np.testing.assert_array_equal(getattr(Ft, f)[:k].numpy(), r,
+                                      err_msg=f)
+    needed, n_spl = int(st[0]), int(st[1])
+    if side == "unsorted":
+        Fu, su = t_fold.merged(*args, Et, *tpay, d0=d0, d1=d1)
+        assert torch.equal(su, st)
+        _assert_chunks_equal(Fu, Ft, "unsorted vs sorted exits")
+    if side == "no-replay":
+        assert needed == 0 and n_spl > 0
+    if side == "no-splice":
+        assert n_spl == 0 and needed > 0
+    if kw:
+        assert min(needed, C) + n_spl > C, "case must truncate"
 
 
 def test_fold_registry_checks_shapes():

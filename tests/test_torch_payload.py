@@ -172,7 +172,7 @@ def test_warm_start_from_reference_tables_splices_like_reference(db):
         assert set(ref.cache.import_state(states).values()) == {"ok"}
     cfg = tc.CacheConfig(**PAY)
     for v, st in states.items():
-        port.cache.tables[v] = table_from_reference(st, cfg, "cpu")
+        port.cache.tables[v] = table_from_reference(st, cfg, device="cpu")
         tbl = port.cache.tables[v]
         np.testing.assert_array_equal(tbl.slab.numpy(), st["slab"])
         assert tbl.slab_bump == st["slab_bump"] > 0
@@ -180,7 +180,8 @@ def test_warm_start_from_reference_tables_splices_like_reference(db):
     assert port.stats["tier2_replay_hits"] > 0
     with pytest.raises(ValueError):
         table_from_reference(states[next(iter(states))],
-                             tc.CacheConfig(**{**PAY, "assoc": 2}), "cpu")
+                             tc.CacheConfig(**{**PAY, "assoc": 2}),
+                             device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -400,9 +401,9 @@ def test_plain_splice_matches_reference(seed, big):
 
 
 def test_fold_registry_arities():
-    """The registry builds the splice-only arity (checking the plain
-    path's inputs) and refuses the merged arity, which only the static
-    executor uses."""
+    """The registry builds the splice-only and merged arities, checks the
+    plain path's inputs, and the merged arity appends the splice rows
+    after the replay rows."""
     from repro_torch.kernels import registry
     C = 1 << 8
     spec = registry.FoldSpec(capacity=C, n_vars=5, n_atoms=3)
@@ -416,6 +417,17 @@ def test_fold_registry_arities():
     assert int(stats[1]) == int(plen[hit].sum())
     with pytest.raises(ValueError):
         fn(*args[:4], args[4][:, :2])  # slab narrower than [d0, d1]
-    with pytest.raises(NotImplementedError, match="static"):
-        registry.fold_fn(spec, d0=1, d1=3, with_replay=True,
-                         with_splice=True)
+    both = registry.fold_fn(spec, d0=1, d1=3, with_replay=True,
+                            with_splice=True)
+    P0 = args[0]
+    active = P0.valid & ~args[1]
+    ror = torch.arange(C, dtype=torch.int32)
+    E = P0._replace(orig=ror)  # exit row i is representative i's only one
+    Fm, sm = both(P0, active, ror, E, *args[1:])
+    n1 = int(active.sum())
+    assert sm.tolist() == [n1, int(stats[1]), n1 + int(stats[2])]
+    k = min(n1 + int(stats[2]), C)
+    assert torch.equal(Fm.valid, torch.arange(C) < k)
+    assert torch.equal(Fm.assign[n1:k], F.assign[:k - n1])
+    with pytest.raises(ValueError):
+        both(P0, active, ror, E, *args[1:4], args[4][:, :2])
