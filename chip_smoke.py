@@ -13,8 +13,14 @@ the static executor (``StaticCLFTJ``: a count, and an evaluation cold and
 warm, each one fixed-capacity pass) and the distributed count and
 evaluation in four processes on the one card (a gloo process group; the
 script starts them as ``chip_smoke.py --dist-worker RANK WORLD DIR``),
-checks every result against scipy.sparse oracles, and checks that each
-path launched its kernels.  Phases print one line each; then come the
+then the chain EXPAND with the leapfrog bound kernel
+(``expand_kernel="chain", impl="leapfrog"``: a count at wiki-Vote scale,
+an evaluation at ca-GrQc scale) and the serving layer (``engine.serve``
+with the ``GPU_SERVE`` preset: a plan-cache miss, an isomorphic hit that
+replays warm tables, a count, four concurrent streams, a snapshot that a
+fresh process, ``chip_smoke.py --serve-worker DIR``, loads and serves
+warm from, and a server on the chain path), checks every result against
+scipy.sparse oracles, and checks that each path launched its kernels.  Phases print one line each; then come the
 card's name and power limit (as nvidia-smi prints them), a JSON object
 with each kernel's launches, error, times and bound, and as the last line
 
@@ -42,10 +48,12 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
 
+from repro_torch.configs.paper_clftj import (  # noqa: E402
+    GPU_SERVE, JoinEngineConfig)
 from repro_torch.core import engine  # noqa: E402
 from repro_torch.core.cache import CacheConfig  # noqa: E402
 from repro_torch.core.cached_frontier import CachedTrieJoin  # noqa: E402
-from repro_torch.core.cq import cycle_query  # noqa: E402
+from repro_torch.core.cq import CQ, cycle_query, path_query  # noqa: E402
 from repro_torch.core.db import graph_db  # noqa: E402
 from repro_torch.core.distributed import (  # noqa: E402
     StaticCLFTJ, make_distributed_count, make_distributed_evaluate,
@@ -57,10 +65,14 @@ from repro_torch.data.graphs import zipf_graph  # noqa: E402
 from repro_torch.kernels import cudalib  # noqa: E402
 from repro_torch.kernels.emit import cuda as emit_cuda  # noqa: E402
 from repro_torch.kernels.emit import plain as emit_plain  # noqa: E402
+from repro_torch.kernels.expand import chain as expand_chain  # noqa: E402
 from repro_torch.kernels.expand import cuda as expand_cuda  # noqa: E402
 from repro_torch.kernels.expand import plain as expand_plain  # noqa: E402
 from repro_torch.kernels.fold import cuda as fold_cuda  # noqa: E402
 from repro_torch.kernels.fold import plain as fold_plain  # noqa: E402
+from repro_torch.kernels.leapfrog import cuda as bound_cuda  # noqa: E402
+from repro_torch.kernels.leapfrog import plain as bound_plain  # noqa: E402
+from repro_torch.serve.canonical import rename_query  # noqa: E402
 
 C = 1 << 16                 # the main path's chunk capacity
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
@@ -89,12 +101,17 @@ C_STATIC = 1 << 25
 C_STATIC_WIKI = 1 << 24
 DIST_WORLD = 4              # ranks of the distributed phase, on one card
 DIST_TIMEOUT_S = 900
+SERVE_WORKER_TIMEOUT_S = 300
+SERVE_STREAMS = 4           # concurrent streaming sessions of the serve phase
+# the leapfrog path: the chain EXPAND whose bounded searches launch ctj_bound
+CHAIN = dict(expand_kernel="chain", impl="leapfrog")
 # kernel name -> (wrapper module, its launch counter)
 WRAPPERS = {"expand": (expand_cuda, "launches"),
             "fold_replay": (fold_cuda, "launches"),
             "fold_splice": (fold_cuda, "splice_launches"),
             "fold_merged": (fold_cuda, "merged_launches"),
-            "emit": (emit_cuda, "launches")}
+            "emit": (emit_cuda, "launches"),
+            "bound": (bound_cuda, "launches")}
 SOURCES = {"expand": ("src/repro_torch/csrc/expand.cu",
                       "src/repro/kernels/expand/fused.py:193"),
            "fold_replay": ("src/repro_torch/csrc/fold.cu",
@@ -104,9 +121,12 @@ SOURCES = {"expand": ("src/repro_torch/csrc/expand.cu",
            "fold_merged": ("src/repro_torch/csrc/fold.cu",
                            "src/repro/kernels/fold/fused.py:228"),
            "emit": ("src/repro_torch/csrc/emit.cu",
-                    "src/repro/kernels/emit/fused.py:70")}
-# the kernels only the static executor launches
+                    "src/repro/kernels/emit/fused.py:70"),
+           "bound": ("src/repro_torch/csrc/leapfrog.cu",
+                     "src/repro/kernels/leapfrog/leapfrog.py:56")}
+# the kernels only the static executor launches, and only the chain EXPAND
 STATIC_ONLY = ("fold_merged",)
+CHAIN_ONLY = ("bound",)
 
 
 def check(ok: bool, what: str) -> None:
@@ -115,7 +135,10 @@ def check(ok: bool, what: str) -> None:
 
 
 def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
-    """Median device time of one call, by CUDA events around each call."""
+    """Median time of one call, by CUDA events recorded around it: from
+    the call's start to the end of its last device op, host work that the
+    device waits for (the wrapper's checks, allocations and launches)
+    included."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -129,6 +152,21 @@ def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def busy_ms(fn, reps: int = 25) -> float:
+    """Device busy time of one call: the summed time of the device ops
+    that ``reps`` calls ran under torch.profiler, over ``reps`` (the gaps
+    in which the device waits for the host are left out)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total
+               for e in prof.key_averages()) / 1e3 / reps
 
 
 def row_bytes(n: int, m: int) -> int:
@@ -292,6 +330,32 @@ def cycle_oracle(db, k: int) -> int:
     return int(P.multiply(A @ A.T).sum())
 
 
+def path_oracle(db, k: int) -> int:
+    """Number of k-path matches (cq.path_query: k - 1 edges): the sum of
+    the entries of A^(k-1)."""
+    import scipy.sparse as sp
+    e = db.relations["E"]
+    nv = int(e.max()) + 1
+    A = sp.csr_matrix((np.ones(len(e), np.int64), (e[:, 0], e[:, 1])),
+                      shape=(nv, nv))
+    P = A
+    for _ in range(k - 2):
+        P = P @ A
+    return int(P.sum())
+
+
+def grqc_db():
+    """The ca-GrQc-scale graph (made anew in every process that needs it)."""
+    return graph_db(zipf_graph(GRQC["nv"], GRQC["ne"], ZIPF_A, seed=SEED + 1),
+                    symmetrize=True)
+
+
+def renamed(q):
+    """An isomorphic copy of ``q``: variables renamed, atoms reversed."""
+    names = {v: f"w{i}" for i, v in enumerate(reversed(q.variables))}
+    return CQ(tuple(reversed(rename_query(q, names).atoms)))
+
+
 # ---------------------------------------------------------------------------
 # Phase 3 inputs: seeded, at the main path's shapes
 # ---------------------------------------------------------------------------
@@ -400,6 +464,40 @@ def merged_check(args, d0: int, d1: int, what: str) -> tuple:
     return err, sp_.tolist()
 
 
+def bound_inputs(eng, rng, dev):
+    """C queries for the leapfrog bound on the largest trie level of
+    ``eng`` (a column sorted within each run of its parent level), each
+    window one whole run, each value drawn over the column's range."""
+    ai = max(range(eng.m), key=lambda a: eng.sizes[a])
+    col = eng.levels[ai][1].col
+    rs = eng.levels[ai][0].runstarts_np
+    ends = np.append(rs[1:], eng.sizes[ai])
+    r = rng.integers(0, len(rs), C)
+    v = rng.integers(-1, int(col.max()) + 2, C)
+
+    def dev_i32(a):
+        return torch.from_numpy(np.asarray(a, np.int32)).to(dev)
+
+    return col, dev_i32(v), dev_i32(rs[r]), dev_i32(ends[r])
+
+
+def bound_work(lo, hi, n: int) -> tuple:
+    """(bytes, operations) one bound call must spend on these queries.
+    Bytes: each query's value, lo and hi in and its result out, and one
+    column value of every distinct non-empty window (a search reads at
+    least one value inside its window; the windows here are disjoint
+    runs).  Operations: the search steps, the bit length of each window's
+    width."""
+    start = np.maximum(host(lo).astype(np.int64), 0)
+    end = np.minimum(host(hi).astype(np.int64), n)
+    width = np.maximum(end - start, 0)
+    keep = width > 0
+    windows = np.unique(np.stack([start[keep], end[keep]]), axis=1).shape[1]
+    ops = int(np.where(keep, np.floor(np.log2(np.maximum(width, 1))) + 1,
+                       0).sum())
+    return 16 * start.size + 4 * windows, ops
+
+
 def kernels_vs_plain(db, dev):
     """Phase 3: each kernel against its plain version at C = 2^16."""
     rng = np.random.default_rng(SEED)
@@ -424,6 +522,8 @@ def kernels_vs_plain(db, dev):
     rows["expand"] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: expand_cuda.expand(F, g_col, g_rs, others, **kw)),
+        busy_ms=busy_ms(lambda: expand_cuda.expand(F, g_col, g_rs, others,
+                                                   **kw)),
         plain_ms=time_ms(lambda: expand_plain.expand_step(
             F, g_col, g_rs, others, **kw)),
         **bound(moved, ops), library_ms=None,
@@ -444,6 +544,8 @@ def kernels_vs_plain(db, dev):
         max_abs_err=err,
         ms=time_ms(lambda: fold_cuda.replay(P, active, ror, E, d0=d0,
                                             d1=d1)),
+        busy_ms=busy_ms(lambda: fold_cuda.replay(P, active, ror, E, d0=d0,
+                                                 d1=d1)),
         plain_ms=time_ms(lambda: fold_plain.replay(P, active, ror, E,
                                                    d0=d0, d1=d1)),
         **bound(moved, ops), library_ms=None,
@@ -476,6 +578,7 @@ def kernels_vs_plain(db, dev):
     rows["emit"] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: emit_cuda.pack(assign, valid)),
+        busy_ms=busy_ms(lambda: emit_cuda.pack(assign, valid)),
         plain_ms=time_ms(lambda: emit_plain.pack(assign, valid)),
         # the valid flags and the k valid rows in, the k rows and k out;
         # one scan of the valid flags
@@ -483,6 +586,28 @@ def kernels_vs_plain(db, dev):
         # one PyTorch call computing the same rows: a boolean-mask gather
         library_ms=time_ms(lambda: assign[valid]),
         note=f"k={k}")
+
+    # the leapfrog bound: C queries, each window a run of a trie level
+    col, v, lo, hi = bound_inputs(eng, rng, dev)
+    err = 0
+    for strict in (True, False):
+        bc = bound_cuda.bound(col, v, lo, hi, strict=strict)
+        bp = bound_plain.bound(col, v, lo, hi, strict=strict)
+        torch.cuda.synchronize()
+        err = max(err, int((bc.long() - bp.long()).abs().max()))
+    check(err == 0, f"bound differs from its plain version (err {err})")
+    rows["bound"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: bound_cuda.bound(col, v, lo, hi, strict=True)),
+        busy_ms=busy_ms(lambda: bound_cuda.bound(col, v, lo, hi,
+                                                 strict=True)),
+        plain_ms=time_ms(lambda: bound_plain.bound(col, v, lo, hi,
+                                                   strict=True)),
+        **bound(*bound_work(lo, hi, col.numel())),
+        # no PyTorch call searches a window of a shared column
+        # (torch.searchsorted takes one sorted row per query)
+        library_ms=None,
+        note=f"M={C} N={col.numel()} strict and non-strict bit-exact")
     return rows, dict(n=eng.n, m=eng.m, order=order), seeded
 
 
@@ -553,6 +678,7 @@ def merged_vs_plain(capture: MergedCapture) -> dict:
     return dict(
         max_abs_err=err,
         ms=time_ms(lambda: fold_cuda.merged(*args, d0=d0, d1=d1)),
+        busy_ms=busy_ms(lambda: fold_cuda.merged(*args, d0=d0, d1=d1)),
         plain_ms=time_ms(lambda: fold_plain.merged(*args, d0=d0, d1=d1)),
         **bound(moved, ops), library_ms=None,
         note=(f"C={P.assign.shape[0]} span=[{d0},{d1}] needed={st[0]} "
@@ -578,6 +704,8 @@ def splice_vs_plain(capture: SpliceCapture) -> dict:
         max_abs_err=err,
         ms=time_ms(lambda: fold_cuda.splice(P, hit, poff, plen, slab,
                                             d0=d0, d1=d1)),
+        busy_ms=busy_ms(lambda: fold_cuda.splice(P, hit, poff, plen, slab,
+                                                 d0=d0, d1=d1)),
         plain_ms=time_ms(lambda: fold_plain.splice(P, hit, poff, plen, slab,
                                                    d0=d0, d1=d1)),
         **bound(moved, ops), library_ms=None,
@@ -744,8 +872,7 @@ def dist_worker(rank: int, world: int, work: str) -> int:
     out = Path(work)
     dist.init_process_group("gloo", init_method=f"file://{out / 'init'}",
                             rank=rank, world_size=world)
-    db2 = graph_db(zipf_graph(GRQC["nv"], GRQC["ne"], ZIPF_A, seed=SEED + 1),
-                   symmetrize=True)
+    db2 = grqc_db()
     q = cycle_query(4)
     td2, order2 = engine.plan_query(q, db2)
     reset_launches()
@@ -837,6 +964,241 @@ def dist_phase(q, db2, want2: int, static_count: int) -> None:
           + f"; wall {wall:.1f} s with process start", flush=True)
 
 
+class BoundCapture:
+    """Record the bound calls of one real chain EXPAND while a run goes
+    on: of the first ``TRIES`` chain EXPANDs with a membership atom, the
+    one with the most candidate slots (``needed``, fetched for these
+    calls only).  Every call still launches the kernel."""
+
+    TRIES = 64
+
+    def __init__(self):
+        self.calls, self.needed, self.tries = None, -1, 0
+        self._step, self._bound = expand_chain.expand_step, bound_cuda.bound
+
+    def __enter__(self):
+        calls = []
+
+        def bound_spy(col, values, lo, hi, *, strict):
+            calls.append((col, values, lo, hi, strict))
+            return self._bound(col, values, lo, hi, strict=strict)
+
+        def step_spy(F, g_col, g_rs, other_cols, **kw):
+            calls.clear()
+            out = self._step(F, g_col, g_rs, other_cols, **kw)
+            if other_cols and self.tries < self.TRIES:
+                self.tries += 1
+                needed = int(out[1])
+                if needed > self.needed:
+                    self.needed, self.calls = needed, list(calls)
+            return out
+
+        expand_chain.expand_step, bound_cuda.bound = step_spy, bound_spy
+        return self
+
+    def __exit__(self, *exc):
+        expand_chain.expand_step, bound_cuda.bound = self._step, self._bound
+        return False
+
+    def check(self) -> str:
+        """The kernel against its plain version on every captured call,
+        on the slots below ``needed`` (the chain's kept slots)."""
+        check(bool(self.calls), "the capture saw no bound call")
+        k = min(self.needed, C)
+        for i, (col, v, lo, hi, strict) in enumerate(self.calls):
+            bc = self._bound(col, v, lo, hi, strict=strict)
+            bp = bound_plain.bound(col, v, lo, hi, strict=strict)
+            torch.cuda.synchronize()
+            check(torch.equal(bc[:k], bp[:k]),
+                  f"bound call {i} of a chain EXPAND differs from its plain "
+                  f"version on the kept slots")
+        return (f"{len(self.calls)} calls of a chain EXPAND with needed="
+                f"{self.needed} (N={[c[0].numel() for c in self.calls]}): "
+                f"bit-exact on the {k} kept slots")
+
+
+def leapfrog_phase(q, db, db2, want: int, want2: int, fused_rows) -> dict:
+    """Phase 12: the chain EXPAND with the leapfrog bound kernel.  A count
+    at wiki-Vote scale and an evaluation at ca-GrQc scale, each equal to
+    the scipy oracle and to the fused path (the evaluation row for row);
+    each run's ``bound_calls_cuda`` equals the wrapper's launches, no
+    bound call ran off the card and no fused EXPAND ran."""
+    reset_launches()
+    with BoundCapture() as cap:
+        res = engine.count(q, db, capacity=C, **CHAIN)
+    after_count = read_launches()
+    check(res.count == want, f"chain count {res.count} != oracle {want}")
+    res2 = engine.evaluate(q, db2, capacity=C, **CHAIN)
+    launches = read_launches()
+    check_rows(res2.tuples, res2.order, q, db2, want2, "chain evaluate")
+    check(np.array_equal(res2.tuples, fused_rows),
+          "chain evaluate rows differ from the fused path's")
+    runs = ((res, after_count),
+            (res2, {k: launches[k] - after_count[k] for k in launches}))
+    for r, lau in runs:
+        c = r.counters
+        check(c["bound_calls_cuda"] > 0 and c["bound_calls_torch"] == 0,
+              f"chain run bound calls {c['bound_calls_cuda']} on the card, "
+              f"{c['bound_calls_torch']} off it")
+        check(c["bound_calls_cuda"] == lau["bound"],
+              f"bound launches {lau['bound']} != executor count "
+              f"{c['bound_calls_cuda']}")
+        check(c["expand_calls_chain"] > 0 and c["expand_calls_cuda"] == 0
+              and lau["expand"] == 0, "a chain run launched a fused EXPAND")
+    c2 = res2.counters
+    check(c2["fold_calls_torch"] == 0 and c2["emit_calls_torch"] == 0
+          and launches["fold_replay"] == c2["fold_calls_cuda"]
+          and launches["emit"] == c2["emit_calls_cuda"] > 0,
+          "wrapper launches != executor counts in chain evaluate")
+    note = cap.check()
+    print(f"[12 leapfrog] expand_kernel=chain impl=leapfrog, 4-cycle: count "
+          f"at wiki-Vote scale {res.count} (oracle, = fused) exec_s="
+          f"{res.exec_s:.3f} chain EXPANDs {res.counters['expand_calls_chain']}"
+          f" bound calls {res.counters['bound_calls_cuda']}; evaluate at "
+          f"ca-GrQc scale rows={want2} (oracle) = fused row for row, exec_s="
+          f"{res2.exec_s:.3f} chain EXPANDs {c2['expand_calls_chain']} bound "
+          f"calls {c2['bound_calls_cuda']}; captured: {note} | launches "
+          + json.dumps(launches), flush=True)
+    return dict(launches=launches)
+
+
+def serve_phase(q, db2, want2: int) -> dict:
+    """Phase 13: ``engine.serve`` with ``GPU_SERVE`` on the ca-GrQc-scale
+    graph: the 4-cycle (a plan-cache miss), the same query with renamed
+    variables (a hit whose warm tables replay, rows in the client's
+    names), a 3-path count, SERVE_STREAMS concurrent streaming sessions,
+    each equal to the oracle; a snapshot that a fresh process
+    (``--serve-worker``) loads and serves warm from; and a server on the
+    chain path (``JoinEngineConfig(expand_kernel="chain",
+    impl="leapfrog")``) answering one count.  Returns the launches and the
+    open ``GPU_SERVE`` server (phase 7 profiles a warm query on it)."""
+    import threading
+    q2, q3 = renamed(q), path_query(3)
+    want3 = path_oracle(db2, 3)
+    reset_launches()
+    srv = engine.serve(db2, config=GPU_SERVE)
+    r1 = srv.evaluate(q)
+    check(not r1.plan_cache_hit, "the first query hit the plan cache")
+    check_rows(r1.tuples, r1.order, q, db2, want2, "serve miss")
+    r2 = srv.evaluate(q2)
+    check(r2.plan_cache_hit and r2.tier2_replay_hits > 0,
+          f"renamed query: plan-cache hit {r2.plan_cache_hit}, replay hits "
+          f"{r2.tier2_replay_hits}")
+    check_rows(r2.tuples, r2.order, q2, db2, want2, "serve warm hit")
+    r3 = srv.count(q3)
+    check(r3.count == want3, f"serve 3-path count {r3.count} != {want3}")
+    out, errors = [None] * SERVE_STREAMS, []
+
+    def drain(i, sess):
+        try:
+            out[i] = (list(sess.blocks()), sess.result(timeout=600))
+        except BaseException as e:  # re-raised below, in the main thread
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    sessions = [srv.evaluate_stream(q) for _ in range(SERVE_STREAMS)]
+    threads = [threading.Thread(target=drain, args=(i, s_))
+               for i, s_ in enumerate(sessions)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    streams_s = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    check(all(o is not None for o in out), "a streaming session hung")
+    for i, (blocks, res) in enumerate(out):
+        check_rows(np.concatenate(blocks), res.order, q, db2, want2,
+                   f"stream session {i}")
+    launches = read_launches()
+    results = [r1, r2, r3] + [res for _, res in out]
+
+    def total(key):
+        return sum(r.counters.get(key, 0) for r in results)
+
+    check(launches["expand"] == total("expand_calls_cuda") > 0
+          and total("expand_calls_torch") == 0
+          and launches["fold_splice"] == total("fold_splice_calls_cuda") > 0
+          and launches["fold_replay"] == total("fold_calls_cuda")
+          - total("fold_splice_calls_cuda")
+          and launches["emit"] == total("emit_calls_cuda")
+          and total("fold_calls_torch") + total("emit_calls_torch") == 0,
+          "wrapper launches != the sessions' executor counts")
+    work = ROOT / "build" / f"chip_smoke_serve_{int(time.time() * 1e3)}"
+    work.mkdir(parents=True)
+    proc = None
+    try:
+        snap = work / "serve.npz"
+        _, save_s = host_synced(lambda: srv.save_snapshot(str(snap)))
+        proc = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--serve-worker",
+             str(work)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        wout = proc.communicate(timeout=SERVE_WORKER_TIMEOUT_S)[0]
+        check(proc.returncode == 0,
+              f"serve worker exited {proc.returncode}:\n{wout[-4000:]}")
+        worker = json.loads((work / "serve_worker.json").read_text())
+        snap_mb = snap.stat().st_size / 2 ** 20
+    finally:
+        if proc is not None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    before = read_launches()
+    with engine.serve(db2, config=JoinEngineConfig(**CHAIN)) as lf:
+        r4 = lf.count(q)
+    after = read_launches()
+    c4 = r4.counters
+    check(r4.count == want2, f"chain server count {r4.count} != {want2}")
+    check(c4["bound_calls_cuda"] == after["bound"] - before["bound"] > 0
+          and c4["bound_calls_torch"] == 0 and c4["expand_calls_cuda"] == 0
+          and c4["expand_calls_chain"] > 0,
+          f"chain server: counters {c4} vs bound launches "
+          f"{after['bound'] - before['bound']}")
+    print(f"[13 serve] engine.serve(GPU_SERVE) on the ca-GrQc-scale graph: "
+          f"4-cycle miss rows={want2} (oracle) wall_s={r1.wall_s:.3f} "
+          f"exec_s={r1.exec_s:.3f}; renamed 4-cycle plan-cache hit, replay "
+          f"hits {r2.tier2_replay_hits}, rows (oracle, client names "
+          f"{list(r2.order)}) wall_s={r2.wall_s:.3f}; 3-path count "
+          f"{r3.count} (oracle) wall_s={r3.wall_s:.3f} (miss); "
+          f"{SERVE_STREAMS} concurrent streams, each the oracle's rows, "
+          f"{streams_s:.3f} s together, replay hits "
+          f"{[res.tier2_replay_hits for _, res in out]}; snapshot "
+          f"{snap_mb:.2f} MiB saved in {save_s:.3f} s; fresh process: "
+          f"{json.dumps(worker)}; chain server count {r4.count} (oracle) "
+          f"wall_s={r4.wall_s:.3f} bound calls {c4['bound_calls_cuda']} | "
+          f"server stats {json.dumps(srv.stats())} | launches "
+          + json.dumps(after), flush=True)
+    return dict(launches=after, server=srv, query=q2)
+
+
+def serve_worker(work: str) -> int:
+    """Phase 13's fresh process (``chip_smoke.py --serve-worker DIR``):
+    load DIR/serve.npz into a new ``GPU_SERVE`` server over the
+    ca-GrQc-scale graph, then answer the renamed 4-cycle: it must hit the
+    loaded plan, replay from the loaded tables and give the oracle's
+    rows.  Writes what it saw to DIR/serve_worker.json."""
+    db2 = grqc_db()
+    q2 = renamed(cycle_query(4))
+    want2 = cycle_oracle(db2, 4)
+    with engine.serve(db2, config=GPU_SERVE) as srv:
+        summary, load_s = host_synced(
+            lambda: srv.load_snapshot(str(Path(work) / "serve.npz")))
+        res = srv.evaluate(q2)
+    check(summary["status"] == "ok" and summary["plans"] >= 1
+          and summary["tables"] >= 1 and summary["flushed"] == 0,
+          f"snapshot load: {summary}")
+    check(res.plan_cache_hit and res.tier2_replay_hits > 0,
+          f"first query: plan-cache hit {res.plan_cache_hit}, replay hits "
+          f"{res.tier2_replay_hits}")
+    check_rows(res.tuples, res.order, q2, db2, want2, "serve worker")
+    (Path(work) / "serve_worker.json").write_text(json.dumps(dict(
+        load=summary, load_s=load_s, first_query_wall_s=res.wall_s,
+        exec_s=res.exec_s, compile_s=res.compile_s,
+        replay_hits=res.tier2_replay_hits, rows=res.count)))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("CUDA is not available: chip_smoke needs an NVIDIA GPU",
@@ -865,15 +1227,15 @@ def main() -> int:
 
     # the two graphs (data is made anew in every run)
     db = graph_db(zipf_graph(WIKI["nv"], WIKI["ne"], ZIPF_A, seed=SEED))
-    db2 = graph_db(zipf_graph(GRQC["nv"], GRQC["ne"], ZIPF_A, seed=SEED + 1),
-                   symmetrize=True)
+    db2 = grqc_db()
 
     # 3. kernels against their plain versions on the card
     rows, shape, seeded = kernels_vs_plain(db, dev)
     print(f"[3 kernels] C={C} n={shape['n']} m={shape['m']} "
           f"order={shape['order']}: " + "; ".join(
-              f"{k}: {v['ms']:.4f} ms (plain {v['plain_ms']:.4f} ms, bound "
-              f"{v['bound_ms']:.4f} ms by {v['bound_by']}, {v['note']})"
+              f"{k}: {v['ms']:.4f} ms, device busy {v['busy_ms']:.4f} ms "
+              f"(plain {v['plain_ms']:.4f} ms, bound {v['bound_ms']:.6f} ms "
+              f"by {v['bound_by']}, {v['note']})"
               for k, v in rows.items()), flush=True)
     print("[3 kernels] fold_merged on seeded inputs, bit-exact: " + "; ".join(
         f"{k}: {v['ms']:.4f} ms (plain {v['plain_ms']:.4f} ms), stats "
@@ -924,7 +1286,7 @@ def main() -> int:
 
     # 6. the main path went through every kernel
     main_path = {k: v for k, v in launches.items()
-                 if k != "fold_splice" and k not in STATIC_ONLY}
+                 if k != "fold_splice" and k not in STATIC_ONLY + CHAIN_ONLY}
     for name, n in main_path.items():
         check(n > 0, f"kernel {name} was not launched on the main path")
     print(f"[6 launches] main path (count + evaluate): "
@@ -960,7 +1322,7 @@ def main() -> int:
           and pay_launches["emit"] == pst["emit_calls_cuda"],
           "wrapper launches != executor counts in payload evaluation")
     for name, n in pay_launches.items():
-        check(n > 0 or name in STATIC_ONLY,
+        check(n > 0 or name in STATIC_ONLY + CHAIN_ONLY,
               f"kernel {name} was not launched by payload evaluation")
     print(f"[8 payload] 4-cycle on the ca-GrQc-scale graph, C={C}, cache "
           f"setassoc 8-way 2^14 slots, payload_rows 2^17: rows={want2} "
@@ -976,7 +1338,8 @@ def main() -> int:
     check(cap.best is not None, "the capture pass spliced nothing")
     rows["fold_splice"] = splice_vs_plain(cap)
     r = rows["fold_splice"]
-    print(f"[3 kernels] fold_splice: {r['ms']:.4f} ms (plain "
+    print(f"[3 kernels] fold_splice: {r['ms']:.4f} ms, device busy "
+          f"{r['busy_ms']:.4f} ms (plain "
           f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms by "
           f"{r['bound_by']}, {r['note']})", flush=True)
 
@@ -999,7 +1362,7 @@ def main() -> int:
     check(sc.label_counts["emit-stream"] == len(blocks) > 0,
           "not every block went through the async emit queue")
     for name, n in stream_launches.items():
-        if name in STATIC_ONLY:
+        if name in STATIC_ONLY + CHAIN_ONLY:
             continue
         if name != "fold_splice" or one.counters["fold_splice_calls_cuda"]:
             check(n > 0, f"kernel {name} was not launched by the stream")
@@ -1029,7 +1392,8 @@ def main() -> int:
     check(mcap.best is not None, "the capture pass merged nothing")
     rows["fold_merged"] = merged_vs_plain(mcap)
     r = rows["fold_merged"]
-    print(f"[3 kernels] fold_merged: {r['ms']:.4f} ms (plain "
+    print(f"[3 kernels] fold_merged: {r['ms']:.4f} ms, device busy "
+          f"{r['busy_ms']:.4f} ms (plain "
           f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms by "
           f"{r['bound_by']}, {r['note']}) | total "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
@@ -1042,19 +1406,36 @@ def main() -> int:
     print(f"[11 distributed] total {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
-    # 7. where the time goes (one more, traced pass of each path)
+    # 12. the chain EXPAND with the leapfrog bound kernel
+    lf = leapfrog_phase(q, db, db2, want, want2, rows2)
+    print(f"[12 leapfrog] total {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+    # 13. the serving layer
+    served = serve_phase(q, db2, want2)
+    srv = served["server"]
+    print(f"[13 serve] total {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+    # 7. where the time goes (one more, traced pass of each path; the
+    #    chain count at ca-GrQc scale, a warm query on phase 13's server)
     for label, run in (
             ("count", lambda: engine.count(q, db, capacity=C)),
             ("evaluate", lambda: engine.evaluate(q, db2, capacity=C)),
             ("payload-warm", lambda: list(pay.evaluate())),
-            ("static-evaluate", lambda: se.evaluate_static())):
+            ("static-evaluate", lambda: se.evaluate_static()),
+            ("chain-count-grqc",
+             lambda: engine.count(q, db2, capacity=C, **CHAIN)),
+            ("serve-warm", lambda: srv.evaluate(served["query"]))):
         print(f"[7 profile {label}] " + profile_line(run), flush=True)
+    srv.close()
 
     kernels = []
     for name, r in rows.items():
         src, replaces = SOURCES[name]
         n = ((launches[name] if name != "fold_splice" else 0)
-             + pay_launches[name] + static_launches[name])
+             + pay_launches[name] + static_launches[name]
+             + lf["launches"][name] + served["launches"][name])
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": n,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -1073,4 +1454,6 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--dist-worker"]:
         sys.exit(dist_worker(int(sys.argv[2]), int(sys.argv[3]),
                              sys.argv[4]))
+    if sys.argv[1:2] == ["--serve-worker"]:
+        sys.exit(serve_worker(sys.argv[2]))
     sys.exit(main())

@@ -9,5 +9,8 @@ Layout mirrors the JAX reference package ``repro``:
   * ``data``    — synthetic graph workloads;
   * ``kernels`` — the kernel registry, each kernel's plain PyTorch version
     and CUDA wrapper; ``csrc`` holds the CUDA sources;
-  * ``convert`` — the reference's database, query and plan carried across.
+  * ``configs`` — ``JoinEngineConfig`` and its presets;
+  * ``serve``   — the query server: plan cache, snapshots, sessions;
+  * ``convert`` — the reference's database, query, plan, tables and
+    engine config carried across.
 """

@@ -1,0 +1,78 @@
+"""The paper's artifact: CLFTJ join-engine configuration presets.
+
+The counterpart of the reference's ``repro/configs/paper_clftj.py``, with
+the fields the port honours: planning (the adhesion-dimension cap — the
+paper's hash maps take at most 2 key attributes — and the TD-enumeration
+budget, §4.3), the frontier capacity, tier-1 dedup, the tier-2 device
+cache (policy, associativity, slots, sizing controller, payload replay),
+the streaming-emit window, and the kernel path: ``expand_kernel``
+(``"fused"`` | ``"chain"``) with the chain's bounded search ``impl``
+(``"bsearch"`` | ``"leapfrog"``).  The presets are the reference's,
+named for the card: ``GPU_*`` for ``TPU_*``.  The reference's
+``TPU_FUSED_EXPAND`` is the port's default (the fused kernels run
+whenever the chunk is on the card).  Not carried yet: the reference's
+``fold_kernel``/``emit_kernel`` chains and the host engine's fields
+(``support_threshold``, ``capacity``, ``evict``, hence ``PAPER_FAITHFUL``
+and ``BOUNDED_100K``).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+from ..core.cache import CacheConfig
+
+__all__ = ["JoinEngineConfig", "GPU_DEFAULT", "GPU_SETASSOC",
+           "GPU_COST_AWARE", "GPU_ADAPTIVE", "GPU_EVAL_REPLAY",
+           "GPU_STREAM_EMIT", "GPU_SERVE"]
+
+
+@dataclass(frozen=True)
+class JoinEngineConfig:
+    # planning (paper §4)
+    max_adhesion: int = 2          # separator-size bound in TD enumeration
+    td_limit: int = 24             # TDs scored before picking one
+    # the frontier engine
+    frontier_capacity: int = 1 << 16
+    cache_slots: int = 1 << 16     # tier-2 table slots (initial)
+    cache_policy: str = "direct"   # direct | setassoc | costaware
+    cache_assoc: int = 4           # ways per set (setassoc/costaware)
+    cache_dynamic: bool = False    # sizing controller on/off
+    cache_budget: Optional[int] = None  # max total slots across node tables
+    cache_payloads: bool = False   # evaluation-mode row-block replay
+    payload_rows: int = 1 << 15    # slab arena rows per node table
+    dedup: bool = True             # tier-1 intra-chunk dedup
+    impl: str = "bsearch"          # bsearch | leapfrog (the chain's search)
+    expand_kernel: str = "fused"   # fused | chain
+    emit_in_flight: int = 8        # streaming-emit async-copy bound
+
+    def cache_config(self) -> CacheConfig:
+        """Tier-2 device-cache config of the frontier engine."""
+        return CacheConfig(policy=self.cache_policy, slots=self.cache_slots,
+                           assoc=self.cache_assoc, dynamic=self.cache_dynamic,
+                           budget=self.cache_budget,
+                           cache_payloads=self.cache_payloads,
+                           payload_rows=self.payload_rows)
+
+
+GPU_DEFAULT = JoinEngineConfig()
+
+# flexible-cache presets (the tier-2 policy sweep)
+GPU_SETASSOC = JoinEngineConfig(cache_policy="setassoc", cache_assoc=4)
+GPU_COST_AWARE = JoinEngineConfig(cache_policy="costaware", cache_assoc=4)
+GPU_ADAPTIVE = JoinEngineConfig(      # Fig 10's size knob made adaptive
+    cache_policy="setassoc", cache_assoc=4, cache_slots=1 << 10,
+    cache_dynamic=True, cache_budget=1 << 18)
+GPU_EVAL_REPLAY = JoinEngineConfig(   # §3.4 evaluation: replay on hit
+    cache_policy="setassoc", cache_assoc=8, cache_slots=1 << 14,
+    cache_payloads=True, payload_rows=1 << 17)
+GPU_STREAM_EMIT = JoinEngineConfig(   # streaming evaluation: replay-capable
+    # tier 2 and a deeper async-emit window
+    cache_policy="setassoc", cache_assoc=8, cache_slots=1 << 14,
+    cache_payloads=True, payload_rows=1 << 17, emit_in_flight=16)
+GPU_SERVE = JoinEngineConfig(         # the serving layer's default: long-
+    # lived engines answering many queries — associative tables so keys of
+    # different queries do not thrash one slot, payload replay so warm
+    # queries splice instead of recomputing, streaming emit for sessions
+    cache_policy="setassoc", cache_assoc=8, cache_slots=1 << 14,
+    cache_payloads=True, payload_rows=1 << 17, emit_in_flight=8)

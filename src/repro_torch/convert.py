@@ -7,11 +7,14 @@ atoms, TD bags and parents, variable order), so both engines can run the
 same plan and a difference in planning cannot hide a difference in
 execution.  :func:`table_from_reference` carries a warm tier-2 table
 across: the state a reference table exports as numpy arrays becomes a
-port :class:`~.core.cache.DeviceCache`, so a warm pass can be compared
-with the reference's warm pass from the same tables.
-:func:`static_tables_from_reference` does the same for the static
-executor's tables (tuples of planes), so a warm static pass of the port
-can start from the reference's cold-pass tables.
+port :class:`~.core.cache.DeviceCache` through its ``import_state``, so
+a warm pass can be compared with the reference's warm pass from the same
+tables (the port's ``export_state`` gives the same layout back, which the
+reference's ``import_state`` takes).  :func:`static_tables_from_reference`
+does the same for the static executor's tables (tuples of planes), so a
+warm static pass of the port can start from the reference's cold-pass
+tables.  :func:`engine_config_from_reference` maps a reference
+``JoinEngineConfig`` onto the port's.
 """
 from __future__ import annotations
 
@@ -33,7 +36,14 @@ _STATIC_DTYPES = (torch.int64, torch.int64, torch.bool, torch.int32,
                   torch.int32)
 
 __all__ = ["from_reference", "table_from_reference",
-           "static_tables_from_reference"]
+           "static_tables_from_reference", "engine_config_from_reference"]
+
+# the reference's kernel-path names, mapped onto the port's
+_IMPLS = {"bsearch": "bsearch", "pallas": "leapfrog"}
+_EXPAND_KERNELS = {"auto": "fused", "pallas": "fused", "xla": "chain"}
+# the reference's host-engine fields and the values the port takes (it
+# has no host engine yet)
+_HOST_FIELDS = {"support_threshold": 1, "capacity": None, "evict": "none"}
 
 
 def from_reference(relations: Dict[str, np.ndarray],
@@ -68,41 +78,14 @@ def table_from_reference(state: Dict[str, object], config: CacheConfig,
     returns: the ``keys``/``vals``/``used``/``stamp``/``cost`` planes, and
     with payloads the ``pay_off``/``pay_len`` planes, the ``slab`` (when
     the arena was allocated), ``slab_bump``, ``payload_flushes`` and the
-    LRU ``tick``.  The planes keep the reference's dtypes (int64 keys,
-    counts and costs, int32 stamps and payload pointers); the table's
-    geometry comes from their shape.  The table lives on ``device`` (the
-    card unless the caller asks for the CPU).  Raises ``ValueError`` on
-    planes that do not fit ``config``."""
-    dev = resolve_device(device)
-    dtypes = {"keys": np.int64, "vals": np.int64, "used": bool,
-              "stamp": np.int32, "cost": np.int64}
-    planes = {k: np.asarray(state[k], dt) for k, dt in dtypes.items()}
-    shape = planes["keys"].shape
-    if len(shape) != 2 or shape[1] != config.ways or any(
-            a.shape != shape for a in planes.values()):
-        raise ValueError(f"table planes of shape {shape} do not fit "
-                         f"{config.ways} ways")
-
-    def t(a):
-        return torch.from_numpy(np.array(a)).to(dev)  # a writable copy
-
-    tbl = DeviceCache.create(config, shape[0] * shape[1], device=dev)
-    tbl.keys, tbl.vals, tbl.used, tbl.stamp, tbl.cost = (
-        t(planes[k]) for k in dtypes)
-    tbl.tick = int(state.get("tick", 0))
-    if config.cache_payloads:
-        tbl.pay_off = t(np.asarray(state["pay_off"], np.int32))
-        tbl.pay_len = t(np.asarray(state["pay_len"], np.int32))
-        if tbl.pay_off.shape != shape or tbl.pay_len.shape != shape:
-            raise ValueError("payload planes do not match the key planes")
-        if "slab" in state:
-            slab = np.asarray(state["slab"], np.int32)
-            if slab.shape[0] != config.payload_rows + 1:
-                raise ValueError(f"slab of {slab.shape[0]} rows, config "
-                                 f"needs {config.payload_rows + 1}")
-            tbl.slab = t(slab)
-        tbl.slab_bump = int(state["slab_bump"])
-        tbl.payload_flushes = int(state.get("payload_flushes", 0))
+    LRU ``tick``.  A fresh table on ``device`` (the card unless the caller
+    asks for the CPU) adopts it with ``DeviceCache.import_state``.  Raises
+    ``ValueError`` unless that returns ``"ok"``: on planes that do not fit
+    ``config``, or a slab epoch the payloads cannot be served from."""
+    tbl = DeviceCache.create(config, device=resolve_device(device))
+    status = tbl.import_state(state)
+    if status != "ok":
+        raise ValueError(f"the table state was not adopted: {status}")
     return tbl
 
 
@@ -130,3 +113,29 @@ def static_tables_from_reference(tables: Dict[int, Sequence[object]],
             raise ValueError(f"table {node}: bump must be a scalar")
         out[int(node)] = planes
     return out
+
+
+def engine_config_from_reference(cfg):
+    """The port's :class:`~.configs.paper_clftj.JoinEngineConfig` for a
+    reference ``JoinEngineConfig``: ``impl`` ``"pallas"`` becomes
+    ``"leapfrog"``; ``expand_kernel`` ``"auto"``/``"pallas"`` becomes
+    ``"fused"`` and ``"xla"`` ``"chain"``; every other field the port has
+    is copied.  Raises ``ValueError`` on what the port does not carry
+    yet: a ``fold_kernel`` or ``emit_kernel`` of ``"xla"`` (the chains)
+    and host-engine fields off their defaults."""
+    from .configs.paper_clftj import JoinEngineConfig
+    for knob in ("fold_kernel", "emit_kernel"):
+        if getattr(cfg, knob) == "xla":
+            raise ValueError(f"{knob}='xla' (the op chain) is not ported")
+    for name, default in _HOST_FIELDS.items():
+        if getattr(cfg, name) != default:
+            raise ValueError(f"{name}={getattr(cfg, name)!r}: the host "
+                             f"engine's fields are not ported")
+    if cfg.impl not in _IMPLS or cfg.expand_kernel not in _EXPAND_KERNELS:
+        raise ValueError(f"no port path for impl={cfg.impl!r}, "
+                         f"expand_kernel={cfg.expand_kernel!r}")
+    fields = {f: getattr(cfg, f)
+              for f in JoinEngineConfig.__dataclass_fields__}
+    fields.update(impl=_IMPLS[cfg.impl],
+                  expand_kernel=_EXPAND_KERNELS[cfg.expand_kernel])
+    return JoinEngineConfig(**fields)

@@ -6,7 +6,8 @@ Layers:
   * engine    — frontier / cached_frontier / schedule / cache / hostsync
   * static    — distributed (StaticCLFTJ: the fixed-capacity pass, and
                 its count / evaluation split over a process group)
-  * facade    — engine.count / engine.evaluate / engine.plan_query
+  * facade    — engine.count / engine.evaluate / engine.evaluate_stream /
+                engine.serve / engine.plan_query
 
 Reference: ``repro/core/__init__.py``.
 """

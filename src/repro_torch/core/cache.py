@@ -555,6 +555,108 @@ class DeviceCache:
         out["slab_rows"] = self.slab_bump
         return out
 
+    # -- cross-process state (serving snapshots) -----------------------
+    def export_state(self) -> Dict[str, object]:
+        """Host copy of everything a fresh process needs to serve hits
+        from this table: the key/count planes, the payload metadata and
+        slab arena, and the host-side slab epoch (``slab_bump`` and
+        ``payload_flushes``) with the LRU ``tick``.  Without the epoch a
+        loader's allocator would restart at row 0 and overwrite resident
+        blocks whose ``pay_off``/``pay_len`` still claim those rows (stale
+        splices).  One ``cache-export`` fetch."""
+        arrays = {"keys": self.keys, "vals": self.vals, "used": self.used,
+                  "stamp": self.stamp, "cost": self.cost}
+        if self.pay_off is not None:
+            arrays["pay_off"] = self.pay_off
+            arrays["pay_len"] = self.pay_len
+            if self.slab is not None:
+                arrays["slab"] = self.slab
+        state: Dict[str, object] = dict(device_get(arrays, "cache-export"))
+        state["slab_bump"] = int(self.slab_bump)
+        state["payload_flushes"] = int(self.payload_flushes)
+        state["tick"] = int(self.tick)
+        return state
+
+    def import_state(self, state: Dict[str, object]) -> str:
+        """Adopt an exported table state (this port's or the reference's
+        ``export_state()``).  Returns:
+
+        * ``"ok"``       — keys/counts and (if configured) payloads resident;
+        * ``"flushed"``  — keys/counts adopted but the payload region was
+          cold-started because the state's slab epoch is unusable
+          (missing or mis-shaped slab, or a resident block outside
+          ``[0, slab_bump]``: a later allocation would overwrite rows a key
+          still points at);
+        * ``"rejected"`` — state malformed for this config; table unchanged.
+
+        The slot count may differ from ``config.slots`` (the writer may
+        have resized): the table's geometry follows the planes' shape."""
+        try:
+            keys = np.asarray(state["keys"], np.int64)
+            vals = np.asarray(state["vals"], np.int64)
+            used = np.asarray(state["used"], bool)
+            stamp = np.asarray(state["stamp"], np.int32)
+            cost = np.asarray(state["cost"], np.int64)
+        except (KeyError, TypeError, ValueError):
+            return "rejected"
+        shape = keys.shape
+        if (keys.ndim != 2 or shape[1] != self.config.ways
+                or any(a.shape != shape
+                       for a in (vals, used, stamp, cost))):
+            return "rejected"
+        dev = self.keys.device
+
+        def t(a: np.ndarray) -> torch.Tensor:
+            return torch.from_numpy(np.array(a)).to(dev)  # a writable copy
+
+        self.keys, self.vals, self.used, self.stamp, self.cost = (
+            t(keys), t(vals), t(used), t(stamp), t(cost))
+        self.tick = max(self.tick, int(state.get("tick", 0)))
+        if not self.config.cache_payloads:
+            return "ok"
+        cap = int(self.config.payload_rows)
+        try:
+            pay_off = np.asarray(state["pay_off"], np.int32)
+            pay_len = np.asarray(state["pay_len"], np.int32)
+            bump = int(state["slab_bump"])
+            if pay_off.shape != shape or pay_len.shape != shape:
+                raise ValueError("payload plane shape mismatch")
+            resident = used & (pay_len >= 0)
+            if not 0 <= bump <= cap:
+                raise ValueError("slab_bump outside the arena")
+            if "slab" in state:
+                slab = np.asarray(state["slab"], np.int32)
+                if slab.ndim != 2 or slab.shape[0] != cap + 1:
+                    raise ValueError("slab arena shape mismatch")
+            elif resident.any() or bump != 0:
+                # the writer never allocated an arena: legal only if no
+                # entry claims a block
+                raise ValueError("resident blocks but no slab arena")
+            else:
+                slab = None
+            off = pay_off[resident].astype(np.int64)
+            ln = pay_len[resident].astype(np.int64)
+            # the slab-epoch invariant: every resident block lies inside
+            # the allocated prefix, else a later allocation would
+            # overwrite rows a key still points at
+            if (off < 0).any() or (off + ln > bump).any():
+                raise ValueError("resident block outside the slab epoch")
+        except (KeyError, TypeError, ValueError):
+            # cold-start the payload region only: keys and counts stay
+            # warm, blocks fill again on use
+            self.pay_off = torch.zeros(shape, dtype=torch.int32, device=dev)
+            self.pay_len = torch.full(shape, -1, dtype=torch.int32,
+                                      device=dev)
+            self.slab = None
+            self.slab_bump = 0
+            self.payload_flushes += 1
+            return "flushed"
+        self.pay_off, self.pay_len = t(pay_off), t(pay_len)
+        self.slab = None if slab is None else t(slab)
+        self.slab_bump = bump
+        self.payload_flushes = int(state.get("payload_flushes", 0))
+        return "ok"
+
 
 class CacheManager:
     """Per-TD-node DeviceCaches under one global slot budget."""
@@ -571,6 +673,10 @@ class CacheManager:
     @property
     def enabled(self) -> bool:
         return self.config.initial_slots() > 0
+
+    def node_enabled(self, v: int) -> bool:
+        en = self.config.enabled_nodes
+        return self.enabled and (en is None or v in en)
 
     def get(self, v: int) -> DeviceCache:
         t = self.tables.get(v)
@@ -610,3 +716,21 @@ class CacheManager:
             for k, val in t.stats().items():
                 agg[k] = agg.get(k, 0) + val
         return agg
+
+    # -- cross-process state (serving snapshots) -----------------------
+    def export_state(self) -> Dict[int, Dict[str, object]]:
+        """Per-node table states (see :meth:`DeviceCache.export_state`)."""
+        return {int(v): t.export_state() for v, t in self.tables.items()}
+
+    def import_state(self, states: Dict[int, Dict[str, object]]
+                     ) -> Dict[int, str]:
+        """Adopt exported per-node states; nodes disabled under this
+        config are skipped.  Returns each node's status (``"ok"`` /
+        ``"flushed"`` / ``"rejected"``, see
+        :meth:`DeviceCache.import_state`, or ``"skipped"``)."""
+        out: Dict[int, str] = {}
+        for v, st in states.items():
+            v = int(v)
+            out[v] = (self.get(v).import_state(st) if self.node_enabled(v)
+                      else "skipped")
+        return out

@@ -35,7 +35,7 @@ from .clftj_ref import Plan
 from .cq import CQ
 from .db import Database
 from .frontier import MAX_KEY_BITS, TrieJoin
-from .schedule import ScheduleExecutor, lower
+from .schedule import CALL_COUNTERS, ScheduleExecutor, lower
 from .td import TreeDecomposition
 
 __all__ = ["CachedTrieJoin", "MAX_KEY_BITS"]
@@ -55,10 +55,12 @@ class CachedTrieJoin(TrieJoin):
     def __init__(self, q: CQ, td: TreeDecomposition, order: Sequence[str],
                  db: Database, capacity: int = 1 << 17, dedup: bool = True,
                  cache: Optional[CacheConfig] = None, device="cuda",
-                 emit_in_flight: int = 8, stream_interior: bool = True):
+                 emit_in_flight: int = 8, stream_interior: bool = True,
+                 impl: str = "bsearch", expand_kernel: str = "fused"):
         super().__init__(q, order, db, capacity=capacity, device=device,
                          emit_in_flight=emit_in_flight,
-                         stream_interior=stream_interior)
+                         stream_interior=stream_interior, impl=impl,
+                         expand_kernel=expand_kernel)
         self.plan = Plan.build(td, order)
         self.td = td
         cache = cache if cache is not None else CacheConfig()
@@ -80,9 +82,7 @@ class CachedTrieJoin(TrieJoin):
         self.stats = {"tier1_rows_collapsed": 0, "subtree_launches": 0,
                       **{f"tier2_{k}": 0 for k in _TIER2},
                       "tier2_replay_hits": 0,
-                      **{f"{op}_calls_{path}": 0
-                         for op in ("expand", "fold", "fold_splice", "emit")
-                         for path in ("cuda", "torch")}}
+                      **dict.fromkeys(CALL_COUNTERS, 0)}
 
     # -----------------------------------------------------------------
     def _node_cacheable(self, v: int) -> bool:

@@ -8,6 +8,9 @@
     for block in engine.evaluate_stream(q, db):   # streamed row blocks
         ...
     res = engine.count(q, db, device="cpu")       # plain kernels, on the CPU
+    res = engine.count(q, db, expand_kernel="chain", impl="leapfrog")
+    with engine.serve(db) as srv:                 # long-lived server
+        res = srv.evaluate(q)
 
 Engines run on ``device="cuda"`` unless the caller asks for the CPU; the
 default raises when CUDA is missing.  ``Result`` separates ``plan_s``
@@ -15,8 +18,15 @@ default raises when CUDA is missing.  ``Result`` separates ``plan_s``
 when the library was already built) and ``exec_s`` (the remainder).
 ``Result.counters`` carries the tier-1/tier-2 statistics and the kernel
 launches per path (``expand_calls_cuda`` / ``expand_calls_torch``, and
-likewise ``fold_``, ``fold_splice_`` and ``emit_``), so a run shows which
-path did the work.
+likewise ``fold_``, ``fold_splice_`` and ``emit_``; chain EXPANDs as
+``expand_calls_chain`` and their leapfrog bound calls as
+``bound_calls_cuda`` / ``bound_calls_torch``), so a run shows which path
+did the work.
+
+``expand_kernel`` picks the EXPAND path, ``"fused"`` (the EXPAND kernel,
+the default) or ``"chain"`` (the op chain), and ``impl`` the chain's
+bounded search, ``"bsearch"`` (the default) or ``"leapfrog"`` (the
+leapfrog kernel); the fused path does not read ``impl``.
 """
 from __future__ import annotations
 
@@ -36,8 +46,8 @@ from .decompose import choose_plan
 from .frontier import TrieJoin, resolve_device
 from .td import TreeDecomposition
 
-__all__ = ["Result", "ResultStream", "count", "evaluate", "evaluate_stream",
-           "plan_query"]
+__all__ = ["Result", "ResultStream", "CompileClock", "count", "evaluate",
+           "evaluate_stream", "serve", "plan_query"]
 
 ALGORITHMS = ("clftj", "lftj")
 
@@ -64,6 +74,46 @@ class Result:
         ``cache_payloads=True``."""
         return int(self.counters.get("tier2_replay_hits", 0))
 
+    @property
+    def plan_cache_hit(self) -> bool:
+        """True when the serving layer answered this query with a
+        plan-cached engine (``repro_torch.serve``): planning and engine
+        construction were skipped and its tier-2 tables were warm from
+        earlier queries.  Always False for the one-shot facade calls."""
+        return bool(self.counters.get("plan_cache_hit", 0))
+
+
+class CompileClock:
+    """Seconds this process spends building the CUDA kernels while the
+    scope is open (``total``, set on exit; 0 when the library was already
+    built).  The facade charges them to ``Result.compile_s``; the serving
+    layer opens one around each session."""
+
+    def __init__(self) -> None:
+        self.total = 0.0
+        self._start = 0.0
+
+    def __enter__(self) -> "CompileClock":
+        self._start = cudalib.build_seconds()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.total = cudalib.build_seconds() - self._start
+        return False
+
+
+def serve(db: Database, config=None, **kwargs):
+    """Open a long-lived query server over ``db``: a
+    :class:`repro_torch.serve.JoinServer` with a plan cache (isomorphic
+    queries share engines), tier-2 tables that persist across queries
+    (and across processes through snapshots), and bounded concurrent
+    streaming sessions.  ``config`` is a
+    :class:`repro_torch.configs.paper_clftj.JoinEngineConfig` (default
+    ``GPU_SERVE``); other keyword arguments (``device``, ``max_sessions``,
+    ...) go to the server."""
+    from ..serve import JoinServer  # lazy: serve imports this module
+    return JoinServer(db, config=config, **kwargs)
+
 
 def plan_query(q: CQ, db: Optional[Database] = None,
                max_adhesion: int = 2,
@@ -82,11 +132,10 @@ def _plan(q: CQ, db: Database, td, order):
 
 def _build_kernels(dev: torch.device) -> float:
     """Load (building if needed) the CUDA kernels; the build's seconds."""
-    if dev.type != "cuda":
-        return 0.0
-    before = cudalib.build_seconds()
-    cudalib.load()
-    return cudalib.build_seconds() - before
+    with CompileClock() as cc:
+        if dev.type == "cuda":
+            cudalib.load()
+    return cc.total
 
 
 def _engine(q: CQ, db: Database, algorithm: str, td, order, capacity: int,
@@ -111,14 +160,15 @@ def _check_algorithm(algorithm: str) -> None:
 
 def _run(q: CQ, db: Database, algorithm: str, td, order, capacity: int,
          dedup: bool, cache: Optional[CacheConfig], device,
-         evaluate: bool) -> Result:
+         evaluate: bool, **knobs) -> Result:
     _check_algorithm(algorithm)
     dev = resolve_device(device)
     t0 = time.perf_counter()
     td, order = _plan(q, db, td, order)
     t1 = time.perf_counter()
     compile_s = _build_kernels(dev)
-    eng = _engine(q, db, algorithm, td, order, capacity, dedup, cache, dev)
+    eng = _engine(q, db, algorithm, td, order, capacity, dedup, cache, dev,
+                  **knobs)
     rows = None
     if evaluate:
         blocks = list(eng.evaluate())
@@ -139,18 +189,20 @@ def count(q: CQ, db: Database, algorithm: str = "clftj",
           td: Optional[TreeDecomposition] = None,
           order: Optional[Sequence[str]] = None, capacity: int = 1 << 16,
           dedup: bool = True, cache: Optional[CacheConfig] = None,
-          device="cuda") -> Result:
+          device="cuda", impl: str = "bsearch",
+          expand_kernel: str = "fused") -> Result:
     """Count ``q`` over ``db``.  ``cache`` configures the tier-2 cache of
     the CLFTJ engine (policy / associativity / slots / dynamic budget)."""
     return _run(q, db, algorithm, td, order, capacity, dedup, cache, device,
-                evaluate=False)
+                evaluate=False, impl=impl, expand_kernel=expand_kernel)
 
 
 def evaluate(q: CQ, db: Database, algorithm: str = "clftj",
              td: Optional[TreeDecomposition] = None,
              order: Optional[Sequence[str]] = None, capacity: int = 1 << 16,
              dedup: bool = True, cache: Optional[CacheConfig] = None,
-             device="cuda") -> Result:
+             device="cuda", impl: str = "bsearch",
+             expand_kernel: str = "fused") -> Result:
     """Materialize ``q``'s full result: ``Result.tuples`` is an (N, n)
     int32 array over ``Result.order`` columns, in the engine's block
     order (tier-1 representatives replayed as row blocks).  With
@@ -158,7 +210,7 @@ def evaluate(q: CQ, db: Database, algorithm: str = "clftj",
     too: recurring subjoins splice their cached row blocks instead of
     re-expanding (``Result.tier2_replay_hits``)."""
     return _run(q, db, algorithm, td, order, capacity, dedup, cache, device,
-                evaluate=True)
+                evaluate=True, impl=impl, expand_kernel=expand_kernel)
 
 
 @dataclass
@@ -184,7 +236,8 @@ def evaluate_stream(q: CQ, db: Database, algorithm: str = "clftj",
                     capacity: int = 1 << 16, dedup: bool = True,
                     cache: Optional[CacheConfig] = None,
                     emit_in_flight: int = 8, stream_interior: bool = True,
-                    device="cuda") -> ResultStream:
+                    device="cuda", impl: str = "bsearch",
+                    expand_kernel: str = "fused") -> ResultStream:
     """Evaluate ``q`` as a *stream*: returns a :class:`ResultStream` whose
     iterator yields materialized (k, n) int32 blocks in arrival order —
     each block's device→host copy issued asynchronously as the executor
@@ -203,7 +256,8 @@ def evaluate_stream(q: CQ, db: Database, algorithm: str = "clftj",
         compile_s = _build_kernels(dev)
         eng = _engine(q, db, algorithm, td_, order_, capacity, dedup, cache,
                       dev, emit_in_flight=emit_in_flight,
-                      stream_interior=stream_interior)
+                      stream_interior=stream_interior, impl=impl,
+                      expand_kernel=expand_kernel)
         for block in eng.evaluate_stream():
             n_rows += block.shape[0]
             yield block

@@ -6,8 +6,12 @@ expansion*: a frontier is a fixed-capacity matrix of partial assignments
 every row, the distinct candidate values of a *guard* atom (via
 precomputed run-start arrays — the columnar trie) and verifies membership
 in every other participating atom with batched bounded binary search.
-The expansion step is a kernel behind ``kernels/registry.py``: the CUDA
-kernel on a CUDA chunk, the plain torch chain on a CPU chunk.  The static
+The expansion step is a kernel behind ``kernels/registry.py``, on the
+path ``expand_kernel`` names: ``"fused"`` (the default) runs the EXPAND
+kernel (the CUDA kernel on a CUDA chunk, its plain torch version on a CPU
+chunk); ``"chain"`` runs the op chain of ``kernels/expand/chain.py``,
+whose bounded searches are of flavour ``impl`` (``"bsearch"``, or
+``"leapfrog"``: the leapfrog kernel).  The static
 chunk capacity bounds device memory per launch (each morsel is one
 fixed-shape chunk).
 
@@ -34,7 +38,10 @@ from .db import Database
 from .schedule import MAX_KEY_BITS, ScheduleExecutor, lower
 
 __all__ = ["MAX_KEY_BITS", "Frontier", "AtomLevel", "TrieJoin",
-           "resolve_device"]
+           "resolve_device", "EXPAND_KERNELS", "IMPLS"]
+
+EXPAND_KERNELS = kernels.EXPAND_PATHS      # "fused" | "chain"
+IMPLS = ("bsearch", "leapfrog")            # the chain's bounded search
 
 
 def resolve_device(device) -> torch.device:
@@ -92,8 +99,19 @@ class TrieJoin:
 
     def __init__(self, q: CQ, order: Sequence[str], db: Database,
                  capacity: int = 1 << 17, device="cuda",
-                 emit_in_flight: int = 8, stream_interior: bool = True):
+                 emit_in_flight: int = 8, stream_interior: bool = True,
+                 impl: str = "bsearch", expand_kernel: str = "fused"):
+        if expand_kernel not in EXPAND_KERNELS:
+            raise ValueError(f"expand_kernel must be one of "
+                             f"{EXPAND_KERNELS}, got {expand_kernel!r}")
+        if impl not in IMPLS:
+            raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
         self.device = resolve_device(device)
+        self.impl = impl
+        self.expand_kernel = expand_kernel
+        # depth -> the EXPAND path built for it (as the reference records
+        # the path its registry resolved)
+        self.expand_paths: Dict[int, str] = {}
         # streaming-emit bound: max in-flight device→host result-block
         # copies, consumed by ScheduleExecutor.  With ``stream_interior``
         # (the default) evaluate_stream also forwards each top-level
@@ -172,14 +190,17 @@ class TrieJoin:
 
     # ------------------------------------------------------------------
     def _expand_fn(self, d: int):
-        """The registry-built expansion step for depth d."""
+        """The registry-built expansion step for depth d, on the
+        ``expand_kernel`` path (recorded in ``expand_paths[d]``)."""
         fn = self._expand_fns.get(d)
         if fn is None:
             args = self.expand_kernel_args(d)
             spec = kernels.ExpandSpec(
                 capacity=self.capacity, n_vars=self.n, n_atoms=self.m,
                 n_others=len(args["other_ais"]))
-            fn = self._expand_fns[d] = kernels.expand_fn(spec, **args)
+            fn = self._expand_fns[d] = kernels.expand_fn(
+                spec, path=self.expand_kernel, impl=self.impl, **args)
+            self.expand_paths[d] = fn.path
         return fn
 
     def expand_kernel_args(self, d: int) -> Dict:

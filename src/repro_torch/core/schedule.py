@@ -33,6 +33,7 @@ Reference: ``repro/core/schedule.py``.
 """
 from __future__ import annotations
 
+import hashlib
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
@@ -43,6 +44,25 @@ from ..kernels.registry import path_of
 from .hostsync import AsyncFetchQueue, device_get, device_get_async
 
 MAX_KEY_BITS = 21  # packed adhesion keys: values must fit in 21 bits
+
+# kernel launch counters of a pass, per path ("cuda" | "torch",
+# registry.path_of): "fold" counts both FOLD arities, "fold_splice" the
+# splice alone; "expand_calls_chain" counts chain EXPANDs (any device),
+# whose leapfrog bound calls land in "bound_calls_*"
+CALL_COUNTERS = tuple(
+    f"{op}_calls_{path}" for op in ("expand", "fold", "fold_splice", "emit")
+    for path in ("cuda", "torch")) + (
+    "expand_calls_chain", "bound_calls_cuda", "bound_calls_torch")
+
+
+def expand_launches(fn, t: torch.Tensor) -> Dict[str, int]:
+    """What one call of the registry-built EXPAND step ``fn`` on a chunk
+    on ``t``'s device adds to the launch counters: one fused EXPAND on
+    its path, or one chain EXPAND and its leapfrog bound calls."""
+    if fn.path == "chain":
+        return {"expand_calls_chain": 1,
+                f"bound_calls_{path_of(t)}": fn.bound_calls}
+    return {f"expand_calls_{path_of(t)}": 1}
 
 # ---------------------------------------------------------------------------
 # The IR
@@ -113,6 +133,18 @@ class Schedule:
 
     def describe(self) -> str:
         return "\n".join(str(op) for op in self.ops)
+
+    def signature(self) -> str:
+        """Stable structural hash of the lowered op list (kind, depth,
+        node, adhesion and the eligibility flags of every op), as the
+        reference computes it.  Engines with equal signatures execute the
+        same instruction stream, so tier-2 state persisted under it
+        (``serve/persist.py``) replays safely; a lowering change
+        invalidates old snapshots by changing the signature."""
+        parts = [(op.kind, op.d, op.node, op.adhesion, op.probe, op.dedup,
+                  op.sub_first, op.sub_last) for op in self.ops]
+        blob = repr((self.n, parts)).encode()
+        return hashlib.sha256(blob).hexdigest()[:16]
 
 
 def lower(n: int, plan: Optional[Any] = None,
@@ -360,11 +392,7 @@ class ScheduleExecutor:
         # op-execution counters: span interiors re-run once per parent
         # morsel, so the sync budget scales with these
         self.op_runs = {"expand": 0, "span": 0, "fold": 0, "emit": 0}
-        # kernel launches per path ("cuda" | "torch", registry.path_of);
-        # "fold" counts both FOLD arities, "fold_splice" the splice alone
-        self.path_runs = {op: {"cuda": 0, "torch": 0}
-                          for op in ("expand", "fold", "fold_splice",
-                                     "emit")}
+        self.calls = dict.fromkeys(CALL_COUNTERS, 0)
         self._emitted: List[Tuple[Any, Any]] = []  # (packed, k) pairs
         # streaming emit: bound on in-flight device→host block copies
         self.emit_in_flight = int(getattr(engine, "emit_in_flight", 8))
@@ -376,14 +404,13 @@ class ScheduleExecutor:
 
     def _count_launch(self, op: str, t: torch.Tensor) -> None:
         path = path_of(t)
-        self.path_runs[op][path] += 1
+        self.calls[f"{op}_calls_{path}"] += 1
         if op == "fold_splice":
-            self.path_runs["fold"][path] += 1
+            self.calls[f"fold_calls_{path}"] += 1
 
     def call_counts(self) -> Dict[str, int]:
-        return {f"{op}_calls_{path}": n
-                for op, runs in self.path_runs.items()
-                for path, n in runs.items()}
+        """Kernel launches of this pass (:data:`CALL_COUNTERS`)."""
+        return dict(self.calls)
 
     # -- public entry points -------------------------------------------
     def count(self) -> int:
@@ -566,7 +593,8 @@ class ScheduleExecutor:
         fn = eng._expand_fn(d)
         out = []
         for F in to_run:
-            self._count_launch("expand", F.assign)
+            for key, n in expand_launches(fn, F.assign).items():
+                self.calls[key] += n
             out.append(fn(F)[0])
         return self._admit(out, "expand-admit")
 
@@ -895,8 +923,9 @@ def execute_static(schedule: Schedule, engine, F0, tables: Dict[int, tuple],
     order).
 
     ``counts``, when given, receives the pass's kernel launches per path
-    (``expand_calls_cuda`` …, ``fold_merged_calls_*`` for the merged
-    arity, which ``fold_calls_*`` also counts), ``fold_sorted_exits`` (the
+    (``expand_calls_cuda`` …, chain EXPANDs and their bound calls as
+    :func:`expand_launches` counts them, ``fold_merged_calls_*`` for the
+    merged arity, which ``fold_calls_*`` also counts), ``fold_sorted_exits`` (the
     folds that sorted their exits first) and ``needed_max`` (a 0-d device
     tensor: the most rows any op of the pass needed, a merged FOLD's
     replay and splice rows together).
@@ -934,8 +963,10 @@ def execute_static(schedule: Schedule, engine, F0, tables: Dict[int, tuple],
     sorted_now = True
     for op in schedule.ops:
         if op.kind == EXPAND:
-            launched("expand", F.assign)
-            F, needed = engine._expand_fn(op.d)(F)
+            fn = engine._expand_fn(op.d)
+            for key, n in expand_launches(fn, F.assign).items():
+                counts[key] = counts.get(key, 0) + n
+            F, needed = fn(F)
             ov = ov | (needed > C)
             needed_max = torch.maximum(needed_max, needed.to(i64))
         elif op.kind == ENTER_CHILD:

@@ -3,7 +3,8 @@ each kernel package keeps ``plain.py`` (the PyTorch version, run on CPU
 tensors) and ``cuda.py`` (the wrapper around the CUDA kernel in
 ``repro_torch/csrc``, run on CUDA tensors).
 
-  * ``expand/`` — frontier expansion
-  * ``fold/``   — evaluation-mode FOLD, replay-only arity
-  * ``emit/``   — stable valid-row EMIT pack
+  * ``expand/``   — frontier expansion (fused kernel, or the op chain)
+  * ``leapfrog/`` — bounded search, the chain EXPAND's membership test
+  * ``fold/``     — evaluation-mode FOLD, three arities
+  * ``emit/``     — stable valid-row EMIT pack
 """

@@ -31,7 +31,7 @@ __all__ = ["load", "build_seconds", "build_log", "check", "ptr",
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("expand.cu", "fold.cu", "emit.cu")
+SOURCES = ("expand.cu", "fold.cu", "emit.cu", "leapfrog.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -48,6 +48,7 @@ _SIGNATURES = {
     "ctj_fold_merged": [_P] * 5 + [_P, _P] + [_P] * 4 + [_P] * 4 + [_I] * 6
                        + [_P] * 7 + [_P, _P],
     "ctj_emit": [_P, _P, _I, _I, _P, _P, _P, _P],
+    "ctj_bound": [_P] * 4 + [_I] * 3 + [_P, _P],
 }
 
 _lock = threading.Lock()

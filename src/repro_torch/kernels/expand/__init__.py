@@ -1,1 +1,2 @@
-"""EXPAND: ``plain`` (PyTorch) and ``cuda`` (CUDA kernel wrapper)."""
+"""EXPAND: ``plain`` (PyTorch), ``cuda`` (CUDA kernel wrapper) and
+``chain`` (the op-chain path, whose bounded searches take an ``impl``)."""

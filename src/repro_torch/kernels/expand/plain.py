@@ -1,19 +1,11 @@
-"""Plain PyTorch EXPAND: one frontier expansion as a torch op chain.
+"""Plain PyTorch EXPAND: the contract the fused CUDA kernel (``cuda.py``)
+is held to.
 
 The counterpart of the reference's XLA chain
-(``repro/kernels/expand/xla.py::expand_step``) and the contract the CUDA
-kernel (``cuda.py``) is held to:
-
-* enumerate each valid row's guard candidate runs (searchsorted over the
-  run-start array), lay the (row, candidate) pairs out over output slots
-  via cumsum + searchsorted;
-* verify each candidate's membership in every other participating atom
-  with bounded binary search (two per atom), narrowing that atom's
-  [lo, hi) trie window;
-* compact surviving rows to the front of the chunk (stable partition).
-
-Generic over any Frontier-shaped NamedTuple (assign/factor/valid/orig/
-lo/hi).  Rows past the valid prefix are unconstrained.
+(``repro/kernels/expand/xla.py::expand_step``) with its default bounded
+search: the chain EXPAND of ``chain.py`` with ``impl="bsearch"``, the
+fixed-trip binary search whose trip count and update the kernel's search
+repeats.  Rows past the valid prefix are unconstrained.
 """
 from __future__ import annotations
 
@@ -21,15 +13,9 @@ from typing import Sequence, Tuple
 
 import torch
 
-from ..registry import lower_bound, upper_bound
+from . import chain
 
-__all__ = ["expand_step", "compact"]
-
-
-def compact(F):
-    """Stable-partition valid rows to the front of the chunk."""
-    perm = torch.argsort((~F.valid).to(torch.uint8), stable=True)
-    return type(F)(*(x[perm] for x in F))
+__all__ = ["expand_step"]
 
 
 def expand_step(F, g_col: torch.Tensor, g_rs: torch.Tensor,
@@ -37,42 +23,6 @@ def expand_step(F, g_col: torch.Tensor, g_rs: torch.Tensor,
                 other_ais: Tuple[int, ...], n_rows_g: int):
     """One frontier expansion: returns ``(F', needed)`` with ``needed``
     the candidate-slot total as a 0-d int32 tensor."""
-    C = F.assign.shape[0]
-    dev = F.assign.device
-    i32 = torch.int32
-    nruns = g_rs.shape[0]
-    r0 = torch.searchsorted(g_rs, F.lo[:, g_ai].contiguous(), out_int32=True)
-    r1 = torch.searchsorted(g_rs, F.hi[:, g_ai].contiguous(), out_int32=True)
-    counts = torch.where(F.valid, r1 - r0, 0).to(i32)
-    offsets = torch.cumsum(counts, 0, dtype=i32) - counts     # exclusive
-    needed = offsets[-1] + counts[-1]
-    slot = torch.arange(C, dtype=i32, device=dev)
-    src = torch.searchsorted(offsets, slot, right=True, out_int32=True) - 1
-    src = src.clamp(0, C - 1)
-    delta = slot - offsets[src]
-    ok = (slot < needed) & (delta < counts[src])
-    if nruns:
-        k = (r0[src] + delta).clamp(0, nruns - 1)
-        pos = g_rs[k]
-        value = g_col[pos.clamp(0, max(n_rows_g - 1, 0))]
-        run_end = torch.where(k + 1 < nruns,
-                              g_rs[(k + 1).clamp(0, nruns - 1)],
-                              n_rows_g).to(i32)
-    else:
-        pos = value = run_end = torch.zeros_like(slot)
-        ok = torch.zeros_like(ok)
-    lo_src, hi_src = F.lo[src], F.hi[src]
-    lo2, hi2 = lo_src.clone(), hi_src.clone()
-    lo2[:, g_ai] = pos
-    hi2[:, g_ai] = run_end
-    for ai, col in zip(other_ais, other_cols):
-        s = lower_bound(col, value, lo_src[:, ai], hi_src[:, ai])
-        e = upper_bound(col, value, s, hi_src[:, ai])
-        ok = ok & (s < e)
-        lo2[:, ai] = s
-        hi2[:, ai] = e
-    assign2 = F.assign[src].clone()
-    assign2[:, d] = value
-    out = F._replace(assign=assign2, factor=F.factor[src], valid=ok,
-                     orig=F.orig[src], lo=lo2, hi=hi2)
-    return compact(out), needed
+    return chain.expand_step(F, g_col, g_rs, other_cols, d=d, g_ai=g_ai,
+                             other_ais=other_ais, n_rows_g=n_rows_g,
+                             impl="bsearch")

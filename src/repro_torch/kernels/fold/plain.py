@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import torch
 
-from ..expand.plain import compact
+from ..expand.chain import compact
 
 __all__ = ["replay", "splice", "merged", "stats"]
 

@@ -3,9 +3,16 @@
 Every kernel is reached through this module:
 
   * **bounded search** (``lower_bound``/``upper_bound``) — the batched
-    leapfrog-seek primitive, the branchless fixed-trip binary search of
-    :func:`_bsearch`;
-  * **EXPAND** (``expand_fn``) — one frontier-expansion step;
+    leapfrog-seek primitive, with ``impl`` choosing between the
+    branchless fixed-trip binary search of :func:`_bsearch` (PyTorch ops
+    on any device), the leapfrog kernel (``leapfrog/``: ``ctj_bound`` on
+    a CUDA column, the dense masked count of ``leapfrog/plain.py`` on a
+    CPU column) and the dense count over the whole column at once
+    (``"ref"``, for tests);
+  * **EXPAND** (``expand_fn``) — one frontier-expansion step, on one of
+    two paths: ``"fused"`` (the EXPAND kernel) or ``"chain"`` (the op
+    chain of ``expand/chain.py``, whose bounded searches go through
+    ``lower_bound``/``upper_bound`` with the given ``impl``);
   * **FOLD** (``fold_fn``) — one bracket close in evaluation mode, in
     three arities: replay-only (representative row blocks replayed
     through ``orig``), splice-only (tier-2 payload hits' cached blocks
@@ -16,8 +23,9 @@ Every kernel is reached through this module:
 Dispatch goes by the device of the chunk a built function is called with:
 a CUDA tensor launches the hand-written CUDA kernel (``<op>/cuda.py``,
 sources in ``repro_torch/csrc``), a CPU tensor runs the plain PyTorch
-version (``<op>/plain.py``).  There is nothing to choose between on one
-device, so there is no mode knob, no autotune and no fallback: a CUDA
+version (``<op>/plain.py``).  The one path choice is the caller's, as in
+the reference: the EXPAND path (``"fused"`` | ``"chain"``) and the chain's
+bounded search (``impl``).  There is no autotune and no fallback: a CUDA
 launch that fails raises.  Each path checks its inputs once: the CUDA
 wrappers check device, dtype, shape and contiguity of every pointer they
 pass, and the built functions here check the plain path's chunks against
@@ -32,8 +40,12 @@ from typing import Callable, Sequence, Tuple
 
 import torch
 
-__all__ = ["ExpandSpec", "FoldSpec", "EmitSpec", "lower_bound",
-           "upper_bound", "path_of", "expand_fn", "fold_fn", "emit_fn"]
+__all__ = ["ExpandSpec", "FoldSpec", "EmitSpec", "BOUND_IMPLS",
+           "EXPAND_PATHS", "lower_bound", "upper_bound", "path_of",
+           "expand_fn", "fold_fn", "emit_fn"]
+
+BOUND_IMPLS = ("bsearch", "leapfrog", "ref")
+EXPAND_PATHS = ("fused", "chain")
 
 
 # ---------------------------------------------------------------------------
@@ -62,12 +74,25 @@ def _bsearch(col: torch.Tensor, values: torch.Tensor, lo: torch.Tensor,
     return lo_
 
 
-def lower_bound(col, values, lo, hi):
-    return _bsearch(col, values, lo, hi, strict=True)
+def _bound(col, values, lo, hi, strict: bool, impl: str) -> torch.Tensor:
+    if impl == "bsearch":
+        return _bsearch(col, values, lo, hi, strict=strict)
+    from .leapfrog import cuda, plain  # lazy: the kernels import this module
+    if impl == "leapfrog":
+        if path_of(col) == "cuda":
+            return cuda.bound(col, values, lo, hi, strict=strict)
+        return plain.bound(col, values, lo, hi, strict=strict)
+    if impl == "ref":
+        return plain.bound_ref(col, values, lo, hi, strict=strict)
+    raise ValueError(f"impl must be one of {BOUND_IMPLS}, got {impl!r}")
 
 
-def upper_bound(col, values, lo, hi):
-    return _bsearch(col, values, lo, hi, strict=False)
+def lower_bound(col, values, lo, hi, impl: str = "bsearch"):
+    return _bound(col, values, lo, hi, True, impl)
+
+
+def upper_bound(col, values, lo, hi, impl: str = "bsearch"):
+    return _bound(col, values, lo, hi, False, impl)
 
 
 # ---------------------------------------------------------------------------
@@ -129,24 +154,48 @@ def _check_chunk(spec, F) -> None:
     _check("hi", F.hi, (C, m), torch.int32)
 
 
-def expand_fn(spec: ExpandSpec, *, d: int, g_ai: int,
+def expand_fn(spec: ExpandSpec, *, path: str = "fused",
+              impl: str = "bsearch", d: int, g_ai: int,
               other_ais: Tuple[int, ...], g_col: torch.Tensor,
               g_rs: torch.Tensor, other_cols: Sequence[torch.Tensor],
               n_rows_g: int) -> Callable:
-    """Build the EXPAND(d) step: ``fn(F) -> (F', needed)``."""
-    from .expand import cuda, plain  # lazy: the kernels import this module
+    """Build the EXPAND(d) step: ``fn(F) -> (F', needed)``.
+
+    ``path="fused"`` runs the EXPAND kernel (its plain version on a CPU
+    chunk; ``impl`` does not enter); ``path="chain"`` runs the op chain
+    with bounded searches of flavour ``impl``.  The built function
+    carries ``fn.path`` and ``fn.bound_calls``: the leapfrog bound calls
+    (kernel launches on a CUDA chunk) one call of it makes, two per
+    membership atom with a non-empty column under ``impl="leapfrog"``,
+    else 0."""
+    from .expand import chain, cuda, plain  # lazy: they import this module
+    if path not in EXPAND_PATHS:
+        raise ValueError(f"path must be one of {EXPAND_PATHS}, got {path!r}")
+    if impl not in BOUND_IMPLS:
+        raise ValueError(f"impl must be one of {BOUND_IMPLS}, got {impl!r}")
     other_ais = tuple(other_ais)
     other_cols = tuple(other_cols)
     if len(other_ais) != spec.n_others or len(other_cols) != spec.n_others:
         raise ValueError("other_ais/other_cols do not match spec.n_others")
+    kw = dict(d=d, g_ai=g_ai, other_ais=other_ais, n_rows_g=n_rows_g)
 
-    def fn(F):
-        kw = dict(d=d, g_ai=g_ai, other_ais=other_ais, n_rows_g=n_rows_g)
-        if path_of(F.assign) == "cuda":
-            return cuda.expand(F, g_col, g_rs, other_cols, **kw)
-        _check_chunk(spec, F)
-        return plain.expand_step(F, g_col, g_rs, other_cols, **kw)
+    if path == "chain":
+        def fn(F):
+            _check_chunk(spec, F)
+            return chain.expand_step(F, g_col, g_rs, other_cols, impl=impl,
+                                     **kw)
 
+        fn.bound_calls = (2 * sum(c.shape[0] > 0 for c in other_cols)
+                          if impl == "leapfrog" else 0)
+    else:
+        def fn(F):
+            if path_of(F.assign) == "cuda":
+                return cuda.expand(F, g_col, g_rs, other_cols, **kw)
+            _check_chunk(spec, F)
+            return plain.expand_step(F, g_col, g_rs, other_cols, **kw)
+
+        fn.bound_calls = 0
+    fn.path = path
     return fn
 
 

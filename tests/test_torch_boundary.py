@@ -114,6 +114,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     from repro_torch.kernels.emit import cuda as emit_cuda
     from repro_torch.kernels.expand import cuda as expand_cuda
     from repro_torch.kernels.fold import cuda as fold_cuda
+    from repro_torch.kernels.leapfrog import cuda as bound_cuda
     C, n, m = 8, 3, 2
     i32 = torch.int32
     F = Frontier(torch.zeros((C, n), dtype=i32),
@@ -127,7 +128,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     def counts():
         return (expand_cuda.launches, fold_cuda.launches,
                 fold_cuda.splice_launches, fold_cuda.merged_launches,
-                emit_cuda.launches)
+                emit_cuda.launches, bound_cuda.launches)
 
     before = counts()
     calls = [
@@ -138,8 +139,28 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                                  d1=2),
         lambda: fold_cuda.merged(F, F.valid, F.orig, F, F.valid, F.orig,
                                  F.orig, slab, d0=1, d1=2),
-        lambda: emit_cuda.pack(F.assign, F.valid)]
+        lambda: emit_cuda.pack(F.assign, F.valid),
+        lambda: bound_cuda.bound(col, col, col, col, strict=True)]
     for call in calls:
         with pytest.raises(ValueError, match="kernel runs on"):
             call()
     assert counts() == before
+
+
+def test_serve_defaults_to_cuda():
+    """The serving layer's entry points run on the card by default, like
+    the facade; ``device="cpu"`` runs the plain kernels."""
+    from repro_torch.core import engine
+    from repro_torch.core.cq import cycle_query
+    from repro_torch.serve import JoinServer, PlanCache
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is available here: the default runs on the card")
+    db = _small_db()
+    for make in (lambda: engine.serve(db), lambda: JoinServer(db),
+                 lambda: PlanCache(db)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    with engine.serve(db, device="cpu") as srv:
+        res = srv.count(cycle_query(4))
+    assert res.count > 0 and res.device == "cpu"
+

@@ -18,6 +18,8 @@ from repro_torch.kernels.emit import cuda as emit_cuda, plain as emit_plain
 from repro_torch.kernels.expand import cuda as expand_cuda
 from repro_torch.kernels.expand import plain as expand_plain
 from repro_torch.kernels.fold import cuda as fold_cuda, plain as fold_plain
+from repro_torch.kernels.leapfrog import cuda as bound_cuda
+from repro_torch.kernels.leapfrog import plain as bound_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -299,3 +301,84 @@ def test_static_engine_on_the_card_matches_cpu(dev, q):
     assert gs["fold_sorted_exits"] == cs["fold_sorted_exits"]
     counts = [e.count_fn()(e.initial_frontier()) for e in engs]
     assert [int(x) for x in counts[0]] == [int(x) for x in counts[1]]
+
+
+def _bound_inputs(M, n_runs, seed, dev, windows):
+    """M queries over a column sorted within each of ``n_runs`` runs, as a
+    trie level is.  ``windows``: "runs" (each query's window one whole
+    run), "inside" (a sub-window of a run), "clipped" (a run's start to
+    past the column's end) or "empty" (lo >= hi, some lo past the end)."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, 40, n_runs)
+    starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    col = np.concatenate([np.sort(rng.integers(0, 5000, k)) for k in lens])
+    n = col.size
+    r = rng.integers(0, n_runs, M)
+    lo, hi = starts[r], starts[r] + lens[r]
+    if windows == "inside":
+        lo = lo + rng.integers(0, lens[r])
+        hi = np.minimum(hi, lo + rng.integers(0, lens[r] + 1))
+    elif windows == "clipped":
+        hi = np.full(M, n + 7)
+        lo = starts[np.full(M, n_runs - 1)]
+    elif windows == "empty":
+        lo = rng.integers(0, n + 10, M)
+        hi = lo - rng.integers(0, 3, M)
+    v = rng.integers(-2, 5003, M)
+    return [torch.from_numpy(np.asarray(a, np.int32)).to(dev)
+            for a in (col, v, lo, hi)]
+
+
+@pytest.mark.parametrize("windows", ["runs", "inside", "clipped", "empty"])
+@pytest.mark.parametrize("M,n_runs,seed", [(1 << 8, 7, 0), (1 << 16, 5000, 1)])
+def test_bound_kernel_matches_plain(dev, M, n_runs, seed, windows):
+    col, v, lo, hi = _bound_inputs(M, n_runs, seed, dev, windows)
+    for strict in (True, False):
+        before = bound_cuda.launches
+        got = bound_cuda.bound(col, v, lo, hi, strict=strict)
+        want = bound_plain.bound(col, v, lo, hi, strict=strict)
+        torch.cuda.synchronize()
+        assert bound_cuda.launches == before + 1
+        assert got.dtype == want.dtype == torch.int32
+        assert torch.equal(got, want)
+
+
+def test_bound_kernel_refuses_other_dtypes_and_skips_empty_columns(dev):
+    col, v, lo, hi = _bound_inputs(64, 4, 2, dev, "runs")
+    with pytest.raises(ValueError, match="kernel takes"):
+        bound_cuda.bound(col.long(), v, lo, hi, strict=True)
+    with pytest.raises(ValueError, match="kernel takes"):
+        bound_cuda.bound(col, v, lo.long(), hi, strict=True)
+    before = bound_cuda.launches
+    empty = col[:0]
+    assert bound_cuda.bound(empty, v, lo, hi, strict=False) is lo
+    assert bound_cuda.launches == before
+
+
+@pytest.mark.parametrize("qname,q,which", ENGINE_CASES,
+                         ids=[c[0] for c in ENGINE_CASES])
+def test_chain_leapfrog_engine_on_the_card_matches_cpu(dev, qname, q, which):
+    """The chain EXPAND with the leapfrog kernel on the card equals the CPU
+    run (dense count) and the fused path: counts, tuples in block order,
+    tier counters; every bound call launched the kernel."""
+    db = _db(nv=20, ne=300) if which == "small" else _hub_db()
+    kw = dict(capacity=1 << 8, impl="leapfrog", expand_kernel="chain")
+    for fn in (engine.count, engine.evaluate):
+        before = bound_cuda.launches
+        g = fn(q, db, **kw)
+        launched = bound_cuda.launches - before
+        c = fn(q, db, device="cpu", **kw)
+        f = fn(q, db, capacity=1 << 8)
+        assert g.count == c.count == f.count
+        if g.tuples is not None:
+            np.testing.assert_array_equal(g.tuples, c.tuples)
+            np.testing.assert_array_equal(g.tuples, f.tuples)
+        for k in STATS:
+            assert g.counters.get(k, 0) == c.counters.get(k, 0), k
+        assert g.counters["expand_calls_chain"] == c.counters[
+            "expand_calls_chain"] == f.counters["expand_calls_cuda"] > 0
+        assert g.counters["expand_calls_cuda"] == 0
+        assert g.counters["bound_calls_cuda"] == launched == c.counters[
+            "bound_calls_torch"]
+        assert g.counters["bound_calls_torch"] == 0
+
