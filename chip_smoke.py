@@ -20,7 +20,12 @@ with the ``GPU_SERVE`` preset: a plan-cache miss, an isomorphic hit that
 replays warm tables, a count, four concurrent streams, a snapshot that a
 fresh process, ``chip_smoke.py --serve-worker DIR``, loads and serves
 warm from, and a server on the chain path), checks every result against
-scipy.sparse oracles, and checks that each path launched its kernels.  Phases print one line each; then come the
+scipy.sparse oracles, and checks that each path launched its kernels;
+then LM serving (phase 14): the flash-attention kernel against its plain
+version, and qwen2.5-3b at full width and depth (random weights from a
+seed) prefilling four 2048-token prompts and decoding 32 greedy tokens
+under ``greedy_generate``, checked against the plain attention path and
+against a full forward.  Phases print one line each; then come the
 card's name and power limit (as nvidia-smi prints them), a JSON object
 with each kernel's launches, error, times and bound, and as the last line
 
@@ -31,6 +36,7 @@ result; so does a machine without CUDA, and a worker that fails.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import hashlib
 import json
@@ -68,17 +74,27 @@ from repro_torch.kernels.emit import plain as emit_plain  # noqa: E402
 from repro_torch.kernels.expand import chain as expand_chain  # noqa: E402
 from repro_torch.kernels.expand import cuda as expand_cuda  # noqa: E402
 from repro_torch.kernels.expand import plain as expand_plain  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    cuda as flash_cuda, plain as flash_plain)
 from repro_torch.kernels.fold import cuda as fold_cuda  # noqa: E402
 from repro_torch.kernels.fold import plain as fold_plain  # noqa: E402
 from repro_torch.kernels.leapfrog import cuda as bound_cuda  # noqa: E402
 from repro_torch.kernels.leapfrog import plain as bound_plain  # noqa: E402
 from repro_torch.serve.canonical import rename_query  # noqa: E402
+from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.data.tokens import DataConfig, batch_at  # noqa: E402
+from repro_torch.models import Model  # noqa: E402
+from repro_torch.models.kvcache import pad_caches  # noqa: E402
+from repro_torch.train.serve_step import greedy_generate  # noqa: E402
 
 C = 1 << 16                 # the main path's chunk capacity
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 # H100 SXM peak outside the tensor cores (the data sheet's float32 rate;
 # it lists no int32 rate, and int32 issues no faster)
 OPS_PER_S = 67e12
+# H100 SXM dense bf16 tensor-core peak (the data sheet's): attention's
+# bound, whatever units the kernel uses
+TC_OPS_PER_S = 989e12
 ZIPF_A = 0.8                # endpoint-popularity skew of both graphs
 SEED = 0
 # SNAP wiki-Vote: 7,115 vertices, 103,689 directed edges
@@ -111,7 +127,8 @@ WRAPPERS = {"expand": (expand_cuda, "launches"),
             "fold_splice": (fold_cuda, "splice_launches"),
             "fold_merged": (fold_cuda, "merged_launches"),
             "emit": (emit_cuda, "launches"),
-            "bound": (bound_cuda, "launches")}
+            "bound": (bound_cuda, "launches"),
+            "flash_attention": (flash_cuda, "launches")}
 SOURCES = {"expand": ("src/repro_torch/csrc/expand.cu",
                       "src/repro/kernels/expand/fused.py:193"),
            "fold_replay": ("src/repro_torch/csrc/fold.cu",
@@ -123,10 +140,61 @@ SOURCES = {"expand": ("src/repro_torch/csrc/expand.cu",
            "emit": ("src/repro_torch/csrc/emit.cu",
                     "src/repro/kernels/emit/fused.py:70"),
            "bound": ("src/repro_torch/csrc/leapfrog.cu",
-                     "src/repro/kernels/leapfrog/leapfrog.py:56")}
-# the kernels only the static executor launches, and only the chain EXPAND
+                     "src/repro/kernels/leapfrog/leapfrog.py:56"),
+           "flash_attention": (
+               "src/repro_torch/csrc/flash_attention.cu",
+               "src/repro/kernels/flash_attention/flash_attention.py:74")}
+# the kernels only the static executor launches, only the chain EXPAND,
+# and only the LM (none of them the join's main path)
 STATIC_ONLY = ("fold_merged",)
 CHAIN_ONLY = ("bound",)
+LM_ONLY = ("flash_attention",)
+# phase 14: qwen2.5-3b at full width and depth, four prompts of 2048
+# tokens, 32 greedy tokens each
+LM_ARCH = "qwen2.5-3b"
+LM_BATCH, LM_PROMPT, LM_STEPS = 4, 2048, 32
+# the LM's tolerances, absolute and relative, on fp32 logits of standard
+# deviation about 0.9 (random weights, normal(0, 0.02), width 2048).  In
+# bf16 compute (the config's) two paths differ wherever a bf16 product or
+# attention output rounds the other way (2^-8 relative), and through 36
+# random layers such differences grow to about 0.2 at the logits: on an
+# H100 this script read 0.1957 for decode vs the full forward (whose bf16
+# KV cache the reference keeps too) and 0.1693 for fused vs chain
+# prefill, against 5.8e-5 for fused vs chain in fp32 compute.  The
+# reference allows 2e-3 and 5e-3 on its two-layer fp32 smoke configs
+# (tests/test_serve.py).  LM_TOL is the bf16 bound, and the top-2 margin
+# below which greedy tokens may differ; LM_TOL_FP32 bounds fused vs chain
+# prefill logits in fp32 compute.  In fp32 compute decode differs from
+# the full forward only by the bf16 KV cache: 0.053-0.061 read on an
+# H100, against 0.27 or more at every step of a decode with a planted fault
+# (the current token masked out, its key and value one slot early, its
+# rope one position early, its key unroped, the score unscaled, the GQA
+# head map transposed; scripts/lm_decode_faults.py), so
+# LM_DECODE_TOL_FP32 is absolute and sits between.
+LM_TOL = 0.25
+LM_TOL_FP32 = 1e-3
+LM_DECODE_TOL_FP32 = 0.1
+# the kernel against its plain version: the reference sweep's seven
+# cases (tests/test_kernels.py), qwen2.5-3b's prefill, a ragged length, a
+# chunked prefill and stablelm-12b's head dim.  b, t, s, h, hkv, dh,
+# causal, window, q_offset
+FLASH_CASES = [
+    (1, 8, 8, 4, 2, 16, True, None, 0),
+    (2, 16, 16, 4, 4, 32, True, None, 0),
+    (1, 8, 24, 4, 1, 16, True, None, 16),
+    (2, 32, 32, 6, 2, 16, True, 8, 0),
+    (1, 16, 16, 4, 2, 16, False, None, 0),
+    (2, 1, 40, 8, 2, 64, True, None, 39),
+    (1, 24, 24, 2, 2, 128, True, 16, 0),
+    (LM_BATCH, LM_PROMPT, LM_PROMPT, 16, 2, 128, True, None, 0),
+    (1, 1000, 1000, 16, 2, 128, True, None, 0),
+    (1, 1024, 2048, 16, 2, 128, True, None, 1024),
+    (1, 512, 512, 32, 8, 160, True, None, 0),
+]
+# the reference sweep's tolerance (absolute and relative): the kernel and
+# the plain version sum in other orders; a bf16 output may round to a
+# neighbouring value
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
 def check(ok: bool, what: str) -> None:
@@ -1199,6 +1267,231 @@ def serve_worker(work: str) -> int:
     return 0
 
 
+def flash_pairs(t: int, s: int, causal: bool, window, q_offset: int) -> int:
+    """Unmasked (query, key) pairs of one head."""
+    qpos = q_offset + np.arange(t, dtype=np.int64)
+    hi = np.minimum(qpos, s - 1) if causal else np.full(t, s - 1)
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(t, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_phase(dev) -> dict:
+    """Phase 14, part 1: the flash kernel against its plain version on
+    every FLASH_CASES case in bf16 and fp32, within FLASH_TOL; times at
+    qwen2.5-3b's prefill shape in bf16 (the model's dtype): the kernel by
+    CUDA events and device busy time, the plain version, and SDPA (the
+    library's attention, timed only: the port never calls it)."""
+    lines, worst = [], {}
+    main_case = FLASH_CASES[7]
+    for case in FLASH_CASES:
+        b, t, s, h, hkv, dh, causal, window, q_offset = case
+        rng = np.random.default_rng(list(case[:6]) + [q_offset])
+        draws = [rng.standard_normal(shape, dtype=np.float32) for shape in
+                 ((b, t, h, dh), (b, s, hkv, dh), (b, s, hkv, dh))]
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        for dtype, tol in FLASH_TOL.items():
+            q, k, v = (torch.from_numpy(x).to(dev, dtype) for x in draws)
+            got = flash_cuda.flash_attention(q, k, v, **kw).float()
+            want = flash_plain.flash_attention(q, k, v, **kw).float()
+            err = float((got - want).abs().max())
+            check(close_excess(got, want, tol) <= 0, f"flash {case} {dtype}: "
+                  f"max abs error {err} outside {tol} abs + {tol} rel")
+            worst[dtype] = max(worst.get(dtype, 0.0), err)
+            if case == main_case and dtype == torch.bfloat16:
+                main = (q, k, v, kw, err)
+    q, k, v, kw, err = main
+    b, t, s, h, hkv, dh = main_case[:6]
+    pairs = flash_pairs(t, s, *main_case[6:])
+    flops = 4 * b * h * dh * pairs
+    moved = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+    by_ops, by_bytes = flops / TC_OPS_PER_S * 1e3, moved / HBM_BYTES_PER_S * 1e3
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    row = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: flash_cuda.flash_attention(q, k, v, **kw)),
+        busy_ms=busy_ms(lambda: flash_cuda.flash_attention(q, k, v, **kw)),
+        plain_ms=time_ms(lambda: flash_plain.flash_attention(q, k, v, **kw)),
+        library_ms=time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                        enable_gqa=True)),
+        bound_ms=max(by_ops, by_bytes),
+        bound_by="operations" if by_ops >= by_bytes else "bytes",
+        note=(f"B={b} T=S={t} H={h} Hkv={hkv} Dh={dh} causal bf16, "
+              f"{flops / 1e9:.1f} GFLOP, {moved / 2 ** 20:.1f} MiB"))
+    print(f"[14 lm] flash kernel vs plain on {len(FLASH_CASES)} cases x "
+          f"{{bf16, fp32}}: max abs error "
+          + ", ".join(f"{str(d)[6:]} {e:.3g} (tol {FLASH_TOL[d]})"
+                      for d, e in worst.items())
+          + f"; at qwen2.5-3b's prefill ({row['note']}): {row['ms']:.4f} ms, "
+          f"device busy {row['busy_ms']:.4f} ms (plain {row['plain_ms']:.4f} "
+          f"ms, SDPA {row['library_ms']:.4f} ms, bound {row['bound_ms']:.6f} "
+          f"ms by {row['bound_by']}), max abs error {err:.3g}", flush=True)
+    return row
+
+
+def close_excess(got: torch.Tensor, want: torch.Tensor, tol: float,
+                 rel: float | None = None) -> float:
+    """max(|got - want| - tol - rel |want|), rel defaulting to tol: <= 0
+    when within tol absolute plus rel relative."""
+    rel = tol if rel is None else rel
+    return float(((got - want).abs() - tol - rel * want.abs()).max())
+
+
+def decode_replay(model, prompt: torch.Tensor, toks: torch.Tensor):
+    """The greedy tokens replayed (teacher forcing): prefill the prompt,
+    decode toks[:, :-1]; (every step's logits (B, steps, V), prefill s,
+    decode s)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, caches = model.prefill({"tokens": prompt})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    caches = pad_caches(model.cfg, caches, toks.shape[1])
+    steps = [lg]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(toks.shape[1] - 1):
+        lg, caches = model.decode(caches, toks[:, i:i + 1],
+                                  prompt.shape[1] + i)
+        steps.append(lg)
+    torch.cuda.synchronize()
+    return torch.stack(steps, dim=1), prefill_s, time.perf_counter() - t0
+
+
+def forward_at_steps(model, prompt: torch.Tensor, toks: torch.Tensor):
+    """The full forward over prompt + toks[:, :-1]: the logits at every
+    position that ``decode_replay`` predicts from (B, steps, V)."""
+    full = model({"tokens": torch.cat([prompt, toks[:, :-1]], dim=1)})
+    return full[:, prompt.shape[1] - 1:].clone()
+
+
+def lm_phase(dev) -> dict:
+    """Phase 14, part 2: qwen2.5-3b at full width and depth on the card,
+    weights from a seeded torch.Generator, four 2048-token prompts from
+    data/tokens.py under ``greedy_generate`` for LM_STEPS tokens: one
+    flash launch a layer a prefill and none in decode; a teacher-forced
+    replay of the greedy tokens times the prefill and the decode steps and
+    gives every step's logits (finite; their argmax is the greedy token).
+    A full forward over prompt and tokens reproduces every step's logits
+    (LM_TOL absolute + relative in bf16 compute; LM_DECODE_TOL_FP32
+    absolute with the same weights in fp32 compute); ``impl="chain"``
+    gives the same prefill logits (LM_TOL; LM_TOL_FP32 in fp32 compute)
+    and the same tokens wherever the top-2 margin exceeds LM_TOL."""
+    cfg = get_arch(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev)
+    model.reset_parameters(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    check(model.param_count() == cfg.param_count(),
+          f"{LM_ARCH} has {model.param_count()} parameters, its specs "
+          f"{cfg.param_count()}")
+    batch = batch_at(DataConfig(vocab=cfg.vocab, seq_len=LM_PROMPT,
+                                global_batch=LM_BATCH, seed=SEED), 0)
+    prompt = torch.from_numpy(batch["tokens"]).to(dev)
+    reset_launches()
+    out, gen_s = host_synced(
+        lambda: greedy_generate(model, {"tokens": prompt}, LM_STEPS))
+    launches = read_launches()
+    check(out.shape == (LM_BATCH, LM_STEPS) and bool(
+        ((out >= 0) & (out < cfg.vocab)).all()), f"greedy tokens {out.shape}")
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"greedy_generate launched the flash kernel "
+          f"{launches['flash_attention']} times, not {cfg.n_layers} (one a "
+          f"layer of its one prefill; decode launches none)")
+    check(all(n == 0 for k, n in launches.items() if k not in LM_ONLY),
+          f"the LM launched join kernels: {launches}")
+
+    toks = out.to(dev)
+    steps, prefill_s, decode_s = decode_replay(model, prompt, toks)
+    check(bool(torch.isfinite(steps).all()), "non-finite logits")
+    check(torch.equal(steps.argmax(-1).cpu().to(torch.int32), out),
+          "the replayed logits' argmax differs from the greedy tokens")
+    top2 = steps.topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]).cpu()
+    want = forward_at_steps(model, prompt, toks)
+    dec_err = float((steps - want).abs().max())
+    check(close_excess(steps, want, LM_TOL) <= 0,
+          f"prefill + decode vs forward: max abs error {dec_err} outside "
+          f"{LM_TOL} abs + {LM_TOL} rel")
+    del want
+
+    # the same weights in fp32 compute: decode vs the full forward to the
+    # bf16 cache's rounding, and the kernel's prefill against the plain
+    # attention's to fp32 rounding
+    model.cfg = dataclasses.replace(cfg, dtype_compute="float32")
+    steps32, _, _ = decode_replay(model, prompt, toks)
+    want = forward_at_steps(model, prompt, toks)
+    dec_err32 = float((steps32 - want).abs().max())
+    check(dec_err32 <= LM_DECODE_TOL_FP32,
+          f"fp32 compute: prefill + decode vs forward max abs error "
+          f"{dec_err32} outside {LM_DECODE_TOL_FP32} abs")
+    del want
+    lg32 = steps32[:, 0]
+    model.impl = "chain"
+    lg32_chain, _ = model.prefill({"tokens": prompt})
+    model.cfg = cfg
+    err32 = float((lg32 - lg32_chain).abs().max())
+    check(close_excess(lg32, lg32_chain, LM_TOL_FP32) <= 0,
+          f"fp32 compute: fused vs chain prefill logits max abs error "
+          f"{err32} outside {LM_TOL_FP32} abs + {LM_TOL_FP32} rel")
+    del steps32, lg32, lg32_chain
+    fused_launches = flash_cuda.launches
+    check(fused_launches == 5 * cfg.n_layers,
+          f"{fused_launches} flash launches, not one a layer of each of the "
+          f"five fused prefills and forwards (greedy, replay and forward in "
+          f"bf16, replay and forward in fp32)")
+
+    # impl="chain" in bf16: the plain blocked attention on the card
+    lg_chain, _ = model.prefill({"tokens": prompt})
+    impl_err = float((lg_chain - steps[:, 0]).abs().max())
+    check(close_excess(lg_chain, steps[:, 0], LM_TOL) <= 0,
+          f"fused vs chain prefill logits: max abs error {impl_err} outside "
+          f"{LM_TOL} abs + {LM_TOL} rel")
+    out_chain = greedy_generate(model, {"tokens": prompt}, LM_STEPS)
+    model.impl = "fused"
+    check(flash_cuda.launches == fused_launches,
+          "impl='chain' launched the flash kernel")
+    near, diverged = int((margin <= LM_TOL).sum()), []
+    for r in range(LM_BATCH):
+        for i in range(LM_STEPS):
+            if out[r, i] != out_chain[r, i]:
+                check(margin[r, i] <= LM_TOL,
+                      f"row {r} step {i}: fused and chain tokens differ at "
+                      f"a top-2 margin of {float(margin[r, i])}")
+                diverged.append((r, i))
+                break          # the contexts differ from here on
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    lm_launches = read_launches()
+    n_tok = LM_BATCH * LM_PROMPT
+    tol = f"{LM_TOL} abs + {LM_TOL} rel"
+    print(f"[14 lm] {LM_ARCH} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, Dh "
+          f"{cfg.dh}, vocab {cfg.vocab}, {model.param_count()} fp32 params, "
+          f"bf16 compute), init {init_s:.3f} s; greedy_generate of "
+          f"{LM_STEPS} tokens on {LM_BATCH} x {LM_PROMPT}-token prompts: "
+          f"{gen_s:.3f} s; prefill {prefill_s:.3f} s = "
+          f"{n_tok / prefill_s:.0f} tokens/s; decode "
+          f"{1e3 * decode_s / (LM_STEPS - 1):.3f} ms/step = "
+          f"{LM_BATCH * (LM_STEPS - 1) / decode_s:.1f} tokens/s; logits "
+          f"finite; decode vs forward max abs error {dec_err:.4g} (tol "
+          f"{tol}), in fp32 compute {dec_err32:.4g} (tol "
+          f"{LM_DECODE_TOL_FP32} abs); fused vs chain prefill logits "
+          f"{impl_err:.4g} (tol {tol}), in fp32 compute {err32:.4g} (tol "
+          f"{LM_TOL_FP32} abs + {LM_TOL_FP32} rel); top-2 margin min "
+          f"{float(margin.min()):.4g} median "
+          f"{float(margin.median()):.4g}, {near} of {margin.numel()} steps "
+          f"at or below {LM_TOL}; chain tokens "
+          f"= fused tokens "
+          + (f"but for rows diverging after near-ties at (row, step) "
+             f"{diverged}" if diverged else "at every step")
+          + f"; peak device memory {peak_gib:.2f} GiB | launches "
+          + json.dumps(lm_launches), flush=True)
+    return dict(model=model, prompt=prompt, launches=lm_launches,
+                tokens=out)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("CUDA is not available: chip_smoke needs an NVIDIA GPU",
@@ -1240,6 +1533,10 @@ def main() -> int:
     print("[3 kernels] fold_merged on seeded inputs, bit-exact: " + "; ".join(
         f"{k}: {v['ms']:.4f} ms (plain {v['plain_ms']:.4f} ms), stats "
         f"{v['stats']}" for k, v in seeded.items()), flush=True)
+    # 14, part 1: the flash kernel against its plain version, here beside
+    #    the other kernels' checks (a traced run of long launches late in
+    #    the script kept none of their records in the profiler)
+    rows["flash_attention"] = flash_phase(dev)
 
     # 4. count on the wiki-Vote-scale graph (main path)
     q = cycle_query(4)
@@ -1286,7 +1583,8 @@ def main() -> int:
 
     # 6. the main path went through every kernel
     main_path = {k: v for k, v in launches.items()
-                 if k != "fold_splice" and k not in STATIC_ONLY + CHAIN_ONLY}
+                 if k != "fold_splice"
+                 and k not in STATIC_ONLY + CHAIN_ONLY + LM_ONLY}
     for name, n in main_path.items():
         check(n > 0, f"kernel {name} was not launched on the main path")
     print(f"[6 launches] main path (count + evaluate): "
@@ -1322,7 +1620,7 @@ def main() -> int:
           and pay_launches["emit"] == pst["emit_calls_cuda"],
           "wrapper launches != executor counts in payload evaluation")
     for name, n in pay_launches.items():
-        check(n > 0 or name in STATIC_ONLY + CHAIN_ONLY,
+        check(n > 0 or name in STATIC_ONLY + CHAIN_ONLY + LM_ONLY,
               f"kernel {name} was not launched by payload evaluation")
     print(f"[8 payload] 4-cycle on the ca-GrQc-scale graph, C={C}, cache "
           f"setassoc 8-way 2^14 slots, payload_rows 2^17: rows={want2} "
@@ -1362,7 +1660,7 @@ def main() -> int:
     check(sc.label_counts["emit-stream"] == len(blocks) > 0,
           "not every block went through the async emit queue")
     for name, n in stream_launches.items():
-        if name in STATIC_ONLY + CHAIN_ONLY:
+        if name in STATIC_ONLY + CHAIN_ONLY + LM_ONLY:
             continue
         if name != "fold_splice" or one.counters["fold_splice_calls_cuda"]:
             check(n > 0, f"kernel {name} was not launched by the stream")
@@ -1417,8 +1715,23 @@ def main() -> int:
     print(f"[13 serve] total {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
+    # 14. LM serving: qwen2.5-3b at full width (the flash kernel was held
+    #     against its plain version after phase 3)
+    lm = lm_phase(dev)
+    print(f"[14 lm] total {time.perf_counter() - t_start:.1f} s", flush=True)
+
     # 7. where the time goes (one more, traced pass of each path; the
-    #    chain count at ca-GrQc scale, a warm query on phase 13's server)
+    #    chain count at ca-GrQc scale, a warm query on phase 13's server,
+    #    an LM prefill and 8 decode steps)
+    def lm_serve():
+        lm_model = lm["model"]
+        lg, caches = lm_model.prefill({"tokens": lm["prompt"]})
+        caches = pad_caches(lm_model.cfg, caches, 8)
+        tok = lg.argmax(-1)[:, None]
+        for i in range(8):
+            lg, caches = lm_model.decode(caches, tok, LM_PROMPT + i)
+            tok = lg.argmax(-1)[:, None]
+
     for label, run in (
             ("count", lambda: engine.count(q, db, capacity=C)),
             ("evaluate", lambda: engine.evaluate(q, db2, capacity=C)),
@@ -1426,7 +1739,8 @@ def main() -> int:
             ("static-evaluate", lambda: se.evaluate_static()),
             ("chain-count-grqc",
              lambda: engine.count(q, db2, capacity=C, **CHAIN)),
-            ("serve-warm", lambda: srv.evaluate(served["query"]))):
+            ("serve-warm", lambda: srv.evaluate(served["query"])),
+            ("lm-prefill-decode8", lm_serve)):
         print(f"[7 profile {label}] " + profile_line(run), flush=True)
     srv.close()
 
@@ -1435,7 +1749,8 @@ def main() -> int:
         src, replaces = SOURCES[name]
         n = ((launches[name] if name != "fold_splice" else 0)
              + pay_launches[name] + static_launches[name]
-             + lf["launches"][name] + served["launches"][name])
+             + lf["launches"][name] + served["launches"][name]
+             + lm["launches"][name])
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": n,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],

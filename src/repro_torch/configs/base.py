@@ -1,0 +1,151 @@
+"""Architecture configuration schema for the LM substrate.
+
+A copy of the reference's ``repro/configs/base.py`` (it imports no JAX):
+every architecture is an ``ArchConfig`` instance, one module per arch.
+The fields are the reference's, all of them, so a reference config
+carries across field for field (``convert.arch_config_from_reference``);
+the port's model code reads the dense ones (``block_pattern=("attn",)``),
+and :meth:`check_ported` refuses a config that sets one it does not
+honour.  :meth:`param_count` counts through the port's ``models/specs.py``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, fields, replace
+from typing import Optional, Tuple
+
+# fields the port's model does not honour yet, with the ROADMAP item that
+# ports them (Queue 1): a config that sets one away from its default is
+# refused.  The widths that only those blocks read (capacity_factor,
+# router_aux_coef, conv_width, rwkv_head_dim) and max_seq, which no model
+# code reads, carry across as data.
+WAITING = {
+    "n_experts": "item 4c (MoE)", "top_k": "item 4c (MoE)",
+    "window": "item 4c (local attention)", "d_rnn": "item 4c (RG-LRU)",
+    "n_image_tokens": "item 4c (VLM cross attention)",
+    "encoder_decoder": "item 4c (audio encoder-decoder)",
+    "n_encoder_layers": "item 4c (audio encoder-decoder)",
+    "encoder_seq": "item 4c (audio encoder-decoder)",
+    "remat_policy": "item 4b (training)",
+    "cost_exact": "item 4d (the reference's cost probe is not ported)",
+    "seq_shard": "item 4b (sharding)",
+}
+# fields whose only ported value is this one
+DENSE = {"family": "dense", "block_pattern": ("attn",), "norm": "rmsnorm",
+         "act": "silu"}
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                    # dense | moe | hybrid | ssm | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: Optional[int] = None  # default d_model // n_heads
+    qkv_bias: bool = False
+    tie_embeddings: bool = False
+    norm: str = "rmsnorm"          # rmsnorm | layernorm
+    act: str = "silu"              # silu (swiglu) | gelu
+    rope_theta: float = 10_000.0
+    # --- MoE ---
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
+    # --- layer pattern (repeated; remainder layers appended unrolled) ---
+    block_pattern: Tuple[str, ...] = ("attn",)
+    window: Optional[int] = None   # sliding window for "local" blocks
+    d_rnn: Optional[int] = None    # RG-LRU width
+    conv_width: int = 4
+    # --- vlm ---
+    n_image_tokens: int = 0
+    # --- enc-dec (audio) ---
+    encoder_decoder: bool = False
+    n_encoder_layers: int = 0
+    encoder_seq: int = 0
+    # --- attention-free (rwkv) ---
+    rwkv_head_dim: int = 64
+    # --- training knobs ---
+    remat_policy: str = "full"     # none | full | dots
+    dtype_compute: str = "bfloat16"
+    max_seq: int = 4096            # default trained context (shapes override)
+    # cost-probe mode: unroll every scan (layers, flash blocks, loss chunks)
+    # so compiled.cost_analysis() counts true totals — XLA counts a while
+    # body ONCE regardless of trip count (see launch/costprobe.py)
+    cost_exact: bool = False
+    # Megatron-style sequence parallelism: residuals/LN constrained to a
+    # sequence-sharded layout between blocks, turning per-layer activation
+    # all-reduces into reduce-scatter+all-gather pairs (half the bytes) and
+    # shrinking saved activations by the model-axis factor.  Only meaningful
+    # under a mesh context (dry-run / production); see §Perf.
+    seq_shard: bool = False
+
+    @property
+    def dh(self) -> int:
+        return self.head_dim if self.head_dim else self.d_model // self.n_heads
+
+    @property
+    def pattern(self) -> Tuple[str, ...]:
+        return self.block_pattern
+
+    @property
+    def n_groups(self) -> int:
+        return self.n_layers // len(self.pattern)
+
+    @property
+    def n_rem_layers(self) -> int:
+        return self.n_layers % len(self.pattern)
+
+    def layer_kinds(self) -> Tuple[str, ...]:
+        p = self.pattern
+        return p * self.n_groups + p[: self.n_rem_layers]
+
+    def check_ported(self) -> None:
+        """Raise ``NotImplementedError`` naming the first field this config
+        sets that the port's model does not honour (``WAITING``,
+        ``DENSE``)."""
+        for f in fields(self):
+            value = getattr(self, f.name)
+            if f.name in WAITING and value != f.default:
+                raise NotImplementedError(
+                    f"{self.name}: {f.name}={value!r} is not ported yet "
+                    f"(ROADMAP Queue 1, {WAITING[f.name]})")
+            if f.name in DENSE and value != DENSE[f.name]:
+                raise NotImplementedError(
+                    f"{self.name}: {f.name}={value!r}; the port runs "
+                    f"{DENSE[f.name]!r} only (ROADMAP Queue 1, item 4c)")
+
+    # ------------------------------------------------------------------
+    def param_count(self) -> int:
+        """Exact parameter count of this config, from its specs (no
+        allocation)."""
+        from ..models.specs import model_specs, count_params
+        return count_params(model_specs(self))
+
+    def smoke(self) -> "ArchConfig":
+        """Reduced same-family config for CPU smoke tests."""
+        pat_len = len(self.pattern)
+        n_layers = max(pat_len, min(2 * pat_len, 4))
+        return replace(
+            self,
+            name=self.name + "-smoke",
+            n_layers=n_layers,
+            d_model=64,
+            n_heads=4,
+            n_kv_heads=min(self.n_kv_heads, 2),
+            head_dim=16,
+            d_ff=128,
+            vocab=256,
+            d_rnn=64 if self.d_rnn else None,
+            n_experts=min(self.n_experts, 4) if self.n_experts else 0,
+            top_k=min(self.top_k, 2) if self.top_k else 0,
+            window=16 if self.window else None,
+            n_image_tokens=8 if self.n_image_tokens else 0,
+            n_encoder_layers=min(self.n_encoder_layers, 2),
+            encoder_seq=16 if self.encoder_seq else 0,
+            rwkv_head_dim=16,
+            max_seq=32,
+        )

@@ -15,6 +15,12 @@ does the same for the static executor's tables (tuples of planes), so a
 warm static pass of the port can start from the reference's cold-pass
 tables.  :func:`engine_config_from_reference` maps a reference
 ``JoinEngineConfig`` onto the port's.
+
+The LM has weights, random ones (nothing is fetched): the reference's
+parameter tree, as numpy arrays, becomes the port's ``state_dict``
+(:func:`lm_params_from_reference`), and a reference ``ArchConfig``'s
+fields the port's (:func:`arch_config_from_reference`);
+:data:`ATTENTION_IMPLS` maps the reference's attention ``impl`` names.
 """
 from __future__ import annotations
 
@@ -36,11 +42,14 @@ _STATIC_DTYPES = (torch.int64, torch.int64, torch.bool, torch.int32,
                   torch.int32)
 
 __all__ = ["from_reference", "table_from_reference",
-           "static_tables_from_reference", "engine_config_from_reference"]
+           "static_tables_from_reference", "engine_config_from_reference",
+           "arch_config_from_reference", "lm_params_from_reference",
+           "ATTENTION_IMPLS"]
 
 # the reference's kernel-path names, mapped onto the port's
 _IMPLS = {"bsearch": "bsearch", "pallas": "leapfrog"}
 _EXPAND_KERNELS = {"auto": "fused", "pallas": "fused", "xla": "chain"}
+ATTENTION_IMPLS = {"pallas": "fused", "xla": "chain", "ref": "ref"}
 # the reference's host-engine fields and the values the port takes (it
 # has no host engine yet)
 _HOST_FIELDS = {"support_threshold": 1, "capacity": None, "evict": "none"}
@@ -139,3 +148,43 @@ def engine_config_from_reference(cfg):
     fields.update(impl=_IMPLS[cfg.impl],
                   expand_kernel=_EXPAND_KERNELS[cfg.expand_kernel])
     return JoinEngineConfig(**fields)
+
+
+def arch_config_from_reference(fields: Dict[str, object]):
+    """The port's :class:`~.configs.base.ArchConfig` with a reference
+    config's fields (``dataclasses.asdict`` of it); both have the same
+    fields, and an unknown one raises ``TypeError``."""
+    from .configs.base import ArchConfig
+    return ArchConfig(**fields)
+
+
+def lm_params_from_reference(cfg, params: Dict) -> Dict[str, torch.Tensor]:
+    """The port's ``Model`` state dict from the reference's parameter tree
+    (nested dicts of numpy arrays, as ``Model.init`` gives them).  Each
+    weight keeps its layout (``wq`` (D, H, Dh), ...), so both packages
+    compute the same einsums; the dense block's stack under
+    ``groups["b0_attn"]`` (leading axis = layer) is unstacked into
+    ``blocks.<layer>``.  Tensors are fp32 on the CPU
+    (``load_state_dict`` copies them to the model's device)."""
+    def t(a) -> torch.Tensor:
+        return torch.from_numpy(np.array(a, dtype=np.float32))
+
+    def flat(prefix: str, tree: Dict, index=None):
+        for name, leaf in tree.items():
+            if isinstance(leaf, dict):
+                yield from flat(f"{prefix}{name}.", leaf, index)
+            else:
+                yield f"{prefix}{name}", t(leaf if index is None
+                                           else np.asarray(leaf)[index])
+
+    sd = dict(flat("embed.", params["embed"]))
+    sd.update(flat("final_norm.", params["final_norm"]))
+    if "unembed" in params:
+        sd.update(flat("unembed.", params["unembed"]))
+    if cfg.pattern != ("attn",):
+        raise NotImplementedError(
+            f"pattern {cfg.pattern}: only the dense block is ported "
+            "(ROADMAP Queue 1, item 4c)")
+    for i in range(cfg.n_layers):
+        sd.update(flat(f"blocks.{i}.", params["groups"]["b0_attn"], i))
+    return sd

@@ -31,13 +31,15 @@ __all__ = ["load", "build_seconds", "build_log", "check", "ptr",
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("expand.cu", "fold.cu", "emit.cu", "leapfrog.cu")
+SOURCES = ("expand.cu", "fold.cu", "emit.cu", "leapfrog.cu",
+           "flash_attention.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argument lists of the C entry points (csrc/*.cu): pointers and the
-# stream as c_void_p (a plain int would be cut to 32 bits), sizes as c_int
+# stream as c_void_p (a plain int would be cut to 32 bits), sizes as
+# c_int, a float scale as c_float
 _SIGNATURES = {
     "ctj_expand": [_P] * 8 + [_P, _P, _P, _I] + [_I] * 7 + [_P] * 7
                   + [_P, _P, _P],
@@ -49,6 +51,7 @@ _SIGNATURES = {
                        + [_P] * 7 + [_P, _P],
     "ctj_emit": [_P, _P, _I, _I, _P, _P, _P, _P],
     "ctj_bound": [_P] * 4 + [_I] * 3 + [_P, _P],
+    "ctj_flash_attention": [_P] * 4 + [_I] * 10 + [_F, _P],
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,92 @@
+"""Model facade: parameters, prefill, decode and the full forward.
+
+The counterpart of the reference's ``repro/models/model.py`` as an
+``nn.Module`` that owns its parameters (the reference keeps them in a
+separate tree).  Parameters are fp32, laid out as the reference's
+(``wq`` (D, H, Dh), ...), with the layers unstacked into ``blocks``; the
+state dict's names are ``embed.tok``, ``final_norm.scale``,
+``unembed.w`` (untied only) and ``blocks.<i>.<ln1|attn|ln2|mlp>.<name>``
+(``convert.lm_params_from_reference`` builds one from the reference's
+tree).  ``loss`` waits for the training slice.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple, Union
+
+import torch
+from torch import nn
+
+from ..configs.base import ArchConfig
+from ..core.frontier import resolve_device
+from ..kernels.flash_attention.ops import IMPLS
+from . import specs as S
+from . import transformer as T
+from .kvcache import Caches, init_cache
+
+
+class Model(nn.Module):
+    """A dense decoder LM on ``device`` (``"cuda"`` by default: without
+    CUDA the constructor raises unless ``device="cpu"`` is given).
+    ``impl`` picks the prefill attention path (``ops.IMPLS``; the
+    reference's default is ``"xla"``, the port's ``"fused"``, the CUDA
+    kernel).  A config that sets a field the port does not honour raises
+    ``NotImplementedError`` (``ArchConfig.check_ported``).  The
+    constructor initialises the parameters from a ``torch.Generator``
+    seeded 0 on the model's device."""
+
+    def __init__(self, cfg: ArchConfig, *, impl: str = "fused",
+                 device: Union[str, torch.device] = "cuda"):
+        super().__init__()
+        cfg.check_ported()
+        if impl not in IMPLS:
+            raise ValueError(f"attention impl {impl!r}: one of {IMPLS}")
+        self.cfg = cfg
+        self.impl = impl
+        self.device = resolve_device(device)
+        top = S.model_specs(cfg)
+        self.embed = S.param_tree(top["embed"], self.device)
+        self.final_norm = S.param_tree(top["final_norm"], self.device)
+        if not cfg.tie_embeddings:
+            self.unembed = S.param_tree(top["unembed"], self.device)
+        self.blocks = nn.ModuleList(
+            S.param_tree(S.block_specs(cfg, kind), self.device)
+            for kind in cfg.layer_kinds())
+        self.reset_parameters(
+            torch.Generator(device=self.device).manual_seed(0))
+
+    def param_count(self) -> int:
+        return sum(p.numel() for p in self.parameters())
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Fill every parameter from its spec (normal(0, 0.02), ones,
+        zeros) with ``generator``, which must live on the model's device,
+        in the state dict's order."""
+        for p in self.parameters():
+            S.init_(p, generator)
+
+    # -- serving --------------------------------------------------------------
+    def _tokens(self, tokens) -> torch.Tensor:
+        return torch.as_tensor(tokens, dtype=torch.long, device=self.device)
+
+    @torch.no_grad()
+    def forward(self, batch: Dict) -> torch.Tensor:
+        """Logits (B, T, V) in fp32 over the whole sequence."""
+        return T.forward(self.cfg, self, {"tokens": self._tokens(
+            batch["tokens"])}, impl=self.impl)
+
+    @torch.no_grad()
+    def prefill(self, batch: Dict) -> Tuple[torch.Tensor, Caches]:
+        """(last-position logits (B, V), caches) of ``batch["tokens"]``."""
+        return T.prefill(self.cfg, self, {"tokens": self._tokens(
+            batch["tokens"])}, impl=self.impl)
+
+    @torch.no_grad()
+    def decode(self, caches: Caches, tokens, pos: int,
+               ) -> Tuple[torch.Tensor, Caches]:
+        """One token (B, 1) at absolute position ``pos``: (logits (B, V),
+        caches, updated in place)."""
+        return T.decode_step(self.cfg, self, caches, self._tokens(tokens),
+                             pos, impl=self.impl)
+
+    def init_cache(self, batch: int, seq: int) -> Caches:
+        return init_cache(self.cfg, batch, seq, self.device)

@@ -114,6 +114,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     from repro_torch.kernels.emit import cuda as emit_cuda
     from repro_torch.kernels.expand import cuda as expand_cuda
     from repro_torch.kernels.fold import cuda as fold_cuda
+    from repro_torch.kernels.flash_attention import cuda as flash_cuda
     from repro_torch.kernels.leapfrog import cuda as bound_cuda
     C, n, m = 8, 3, 2
     i32 = torch.int32
@@ -128,7 +129,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     def counts():
         return (expand_cuda.launches, fold_cuda.launches,
                 fold_cuda.splice_launches, fold_cuda.merged_launches,
-                emit_cuda.launches, bound_cuda.launches)
+                emit_cuda.launches, bound_cuda.launches, flash_cuda.launches)
 
     before = counts()
     calls = [
@@ -140,7 +141,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         lambda: fold_cuda.merged(F, F.valid, F.orig, F, F.valid, F.orig,
                                  F.orig, slab, d0=1, d1=2),
         lambda: emit_cuda.pack(F.assign, F.valid),
-        lambda: bound_cuda.bound(col, col, col, col, strict=True)]
+        lambda: bound_cuda.bound(col, col, col, col, strict=True),
+        lambda: flash_cuda.flash_attention(*[torch.zeros(1, 4, 2, 16)] * 3)]
     for call in calls:
         with pytest.raises(ValueError, match="kernel runs on"):
             call()
@@ -164,3 +166,22 @@ def test_serve_defaults_to_cuda():
         res = srv.count(cycle_query(4))
     assert res.count > 0 and res.device == "cpu"
 
+
+
+def test_lm_defaults_to_cuda():
+    """The LM model runs on the card by default, like the join's entry
+    points: without CUDA, ``Model`` raises (so ``greedy_generate`` has
+    nothing to run) unless ``device="cpu"`` is given; then prefill,
+    decode and the generated tokens stay on the CPU."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model
+    from repro_torch.train.serve_step import greedy_generate
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is available here: the default runs on the card")
+    cfg = get_arch("qwen2.5-3b-smoke")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        greedy_generate(Model(cfg), {"tokens": np.zeros((1, 4), int)}, 2)
+    model = Model(cfg, device="cpu")
+    out = greedy_generate(model, {"tokens": np.zeros((1, 4), int)}, 2)
+    assert out.shape == (1, 2) and out.device.type == "cpu"
+    assert all(p.device.type == "cpu" for p in model.parameters())

@@ -2,8 +2,12 @@
 card (``cuda`` marker: these skip where CUDA is missing; run them on a
 GPU machine with ``python -m pytest -m cuda tests/test_torch_cuda.py``).
 
-Everything compared is an integer, so the tolerance is none: the valid
-prefix and the scalar outputs must be equal bit for bit."""
+The join's outputs are integers, so their tolerance is none: the valid
+prefix and the scalar outputs must be equal bit for bit.  Flash
+attention's tolerance is the reference sweep's (``tests/test_kernels.py``):
+2e-5 in fp32 and 2e-2 in bf16, absolute and relative, since the kernel
+sums in another order than the plain version and a bf16 output may round
+to a neighbouring value."""
 import numpy as np
 import pytest
 import torch
@@ -17,6 +21,8 @@ from repro_torch.core.frontier import Frontier
 from repro_torch.kernels.emit import cuda as emit_cuda, plain as emit_plain
 from repro_torch.kernels.expand import cuda as expand_cuda
 from repro_torch.kernels.expand import plain as expand_plain
+from repro_torch.kernels.flash_attention import cuda as flash_cuda
+from repro_torch.kernels.flash_attention import plain as flash_plain
 from repro_torch.kernels.fold import cuda as fold_cuda, plain as fold_plain
 from repro_torch.kernels.leapfrog import cuda as bound_cuda
 from repro_torch.kernels.leapfrog import plain as bound_plain
@@ -382,3 +388,97 @@ def test_chain_leapfrog_engine_on_the_card_matches_cpu(dev, qname, q, which):
             "bound_calls_torch"]
         assert g.counters["bound_calls_torch"] == 0
 
+
+
+FLASH_CASES = [
+    # b, t, s, h, hkv, dh, causal, window, q_offset: the reference sweep
+    (1, 8, 8, 4, 2, 16, True, None, 0),
+    (2, 16, 16, 4, 4, 32, True, None, 0),
+    (1, 8, 24, 4, 1, 16, True, None, 16),
+    (2, 32, 32, 6, 2, 16, True, 8, 0),
+    (1, 16, 16, 4, 2, 16, False, None, 0),
+    (2, 1, 40, 8, 2, 64, True, None, 39),
+    (1, 24, 24, 2, 2, 128, True, 16, 0),
+    # qwen2.5-3b's prefill, a ragged length, a chunked prefill, stablelm's
+    # head dim, a window spanning several tiles, Dh = 256
+    (4, 2048, 2048, 16, 2, 128, True, None, 0),
+    (1, 1000, 1000, 16, 2, 128, True, None, 0),
+    (1, 1024, 2048, 16, 2, 128, True, None, 1024),
+    (1, 300, 300, 32, 8, 160, True, None, 0),
+    (1, 300, 300, 8, 2, 64, True, 100, 0),
+    (1, 100, 130, 4, 1, 256, False, None, 0),
+]
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _flash_inputs(case, dtype, dev):
+    rng = np.random.default_rng(list(case[:6]) + [case[8]])
+    b, t, s, h, hkv, dh = case[:6]
+    return tuple(torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+                 .to(dev, dtype)
+                 for shape in ((b, t, h, dh), (b, s, hkv, dh), (b, s, hkv, dh)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernel_matches_plain(dev, case, dtype):
+    q, k, v = _flash_inputs(case, dtype, dev)
+    kw = dict(causal=case[6], window=case[7], q_offset=case[8])
+    before = flash_cuda.launches
+    got = flash_cuda.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_cuda.launches == before + 1
+    want = flash_plain.flash_attention(q, k, v, **kw)
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(dev):
+    q, k, v = _flash_inputs((1, 8, 8, 4, 2, 16, True, None, 0),
+                            torch.float32, dev)
+    before = flash_cuda.launches
+    with pytest.raises(ValueError, match="kernel takes"):
+        flash_cuda.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="kernel takes"):
+        flash_cuda.flash_attention(q, k.bfloat16(), v)
+    wide = torch.zeros(1, 8, 4, 96, device=dev)
+    kv = torch.zeros(1, 8, 2, 96, device=dev)
+    with pytest.raises(ValueError, match="head dim 96"):
+        flash_cuda.flash_attention(wide, kv, kv)
+    with pytest.raises(ValueError, match="not contiguous"):
+        flash_cuda.flash_attention(q.transpose(1, 2).contiguous()
+                                   .transpose(1, 2), k, v)
+    assert flash_cuda.launches == before
+
+
+def test_lm_on_the_card_matches_cpu(dev):
+    """qwen2.5-3b at smoke size in fp32: the card's prefill (the kernel,
+    one launch a layer), decode and greedy tokens equal the CPU model's
+    (plain attention) on the same weights, within 1e-4."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model
+    from repro_torch.models.kvcache import pad_caches
+    from repro_torch.train.serve_step import greedy_generate
+    cfg = dataclasses.replace(get_arch("qwen2.5-3b-smoke"),
+                              dtype_compute="float32")
+    cpu = Model(cfg, device="cpu")
+    gpu = Model(cfg, device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 12))
+    before = flash_cuda.launches
+    lg, caches = gpu.prefill({"tokens": toks[:, :6]})
+    assert flash_cuda.launches == before + cfg.n_layers
+    want, want_c = cpu.prefill({"tokens": toks[:, :6]})
+    torch.testing.assert_close(lg.cpu(), want, rtol=1e-4, atol=1e-4)
+    caches = pad_caches(cfg, caches, 6)
+    want_c = pad_caches(cfg, want_c, 6)
+    for i in range(6, 12):
+        lg, caches = gpu.decode(caches, toks[:, i:i + 1], i)
+        want, want_c = cpu.decode(want_c, toks[:, i:i + 1], i)
+        torch.testing.assert_close(lg.cpu(), want, rtol=1e-4, atol=1e-4)
+    assert flash_cuda.launches == before + cfg.n_layers
+    np.testing.assert_array_equal(
+        greedy_generate(gpu, {"tokens": toks}, 5).numpy(),
+        greedy_generate(cpu, {"tokens": toks}, 5).numpy())
