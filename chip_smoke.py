@@ -429,36 +429,37 @@ def renamed(q):
 # ---------------------------------------------------------------------------
 
 
-def expand_inputs(eng, d: int, rng, dev):
-    """A chunk for EXPAND(d) of ``eng``: 3/4 of the rows valid, each
-    guard window 0-2 runs of the guard level, each other atom's window
-    one sibling run of its level (sorted, as the trie gives it)."""
+def expand_inputs(eng, d: int, rng, dev, cap: int = C):
+    """A chunk of ``cap`` rows for EXPAND(d) of ``eng``: 3/4 of the rows
+    valid, each guard window 0-2 runs of the guard level, each other
+    atom's window one sibling run of its level (sorted, as the trie gives
+    it)."""
     args = eng.expand_kernel_args(d)
     m, n = eng.m, eng.n
-    lo = np.zeros((C, m), np.int32)
-    hi = np.tile(np.asarray(eng.sizes, np.int32), (C, 1))
+    lo = np.zeros((cap, m), np.int32)
+    hi = np.tile(np.asarray(eng.sizes, np.int32), (cap, 1))
     parts = dict(eng.at_depth[d])
     for ai, lvl in parts.items():
         size = eng.sizes[ai]
         if ai == args["g_ai"]:
             rs = eng.levels[ai][lvl].runstarts_np
             ends = np.append(rs, size)
-            r = rng.integers(0, len(rs), C)
-            w = rng.integers(0, 3, C)
+            r = rng.integers(0, len(rs), cap)
+            w = rng.integers(0, 3, cap)
             lo[:, ai] = rs[r]
             hi[:, ai] = ends[np.minimum(r + w, len(rs))]
         elif lvl > 0:
             rs = eng.levels[ai][lvl - 1].runstarts_np
             ends = np.append(rs, size)
-            r = rng.integers(0, len(rs), C)
+            r = rng.integers(0, len(rs), cap)
             lo[:, ai] = rs[r]
             hi[:, ai] = ends[r + 1]
     F = Frontier(
-        assign=torch.from_numpy(rng.integers(0, 1 << 12, (C, n))
+        assign=torch.from_numpy(rng.integers(0, 1 << 12, (cap, n))
                                 .astype(np.int32)),
-        factor=torch.from_numpy(rng.integers(1, 6, C).astype(np.int64)),
-        valid=torch.from_numpy(rng.random(C) < 0.75),
-        orig=torch.from_numpy(np.sort(rng.integers(0, C, C))
+        factor=torch.from_numpy(rng.integers(1, 6, cap).astype(np.int64)),
+        valid=torch.from_numpy(rng.random(cap) < 0.75),
+        orig=torch.from_numpy(np.sort(rng.integers(0, cap, cap))
                               .astype(np.int32)),
         lo=torch.from_numpy(lo), hi=torch.from_numpy(hi))
     F = Frontier(*(t.to(dev) for t in F))
@@ -566,36 +567,55 @@ def bound_work(lo, hi, n: int) -> tuple:
     return 16 * start.size + 4 * windows, ops
 
 
-def kernels_vs_plain(db, dev):
-    """Phase 3: each kernel against its plain version at C = 2^16."""
-    rng = np.random.default_rng(SEED)
+def expand_case(db, rng, dev, cap: int):
+    """Phase 3's EXPAND input: the 4-cycle's engine on ``db``, its
+    variable order, and a chunk of ``cap`` rows (expand_inputs) for its
+    EXPAND at the depth with the most membership atoms."""
     td, order = engine.plan_query(cycle_query(4), db)
     eng = CachedTrieJoin(cycle_query(4), td, order, db, capacity=C,
                          device=dev)
-    rows = {}
-    seeded = {}
-
-    # EXPAND at the depth with the most membership atoms
     d = max(reversed(range(eng.n)), key=lambda x: len(eng.at_depth[x]))
-    F, g_col, g_rs, others, kw = expand_inputs(eng, d, rng, dev)
+    return eng, order, expand_inputs(eng, d, rng, dev, cap)
+
+
+def expand_row(inputs, plain_reps: int = 25) -> dict:
+    """Phase 3's EXPAND row: the kernel bit for bit against its plain
+    version on ``inputs``, its times and its bound."""
+    F, g_col, g_rs, others, kw = inputs
     (Fc, nc) = expand_cuda.expand(F, g_col, g_rs, others, **kw)
     (Fp, np_) = expand_plain.expand_step(F, g_col, g_rs, others, **kw)
     torch.cuda.synchronize()
-    check(int(nc) == int(np_), f"expand needed {int(nc)} != {int(np_)}")
-    check(torch.equal(Fc.valid, Fp.valid), "expand valid masks differ")
+    cap = F.assign.shape[0]
+    check(int(nc) == int(np_), f"expand at C={cap}: needed {int(nc)} != "
+          f"{int(np_)}")
+    check(torch.equal(Fc.valid, Fp.valid),
+          f"expand at C={cap}: valid masks differ")
     k = int(Fp.valid.sum())
     err = frontier_max_err(Fc, Fp, k)
-    check(err == 0, f"expand differs on the valid prefix (err {err})")
+    check(err == 0, f"expand at C={cap} differs on the valid prefix (err "
+          f"{err})")
+    del Fc, Fp
     moved, ops = expand_work(F, g_col, g_rs, others, kw)
-    rows["expand"] = dict(
+    return dict(
         max_abs_err=err,
         ms=time_ms(lambda: expand_cuda.expand(F, g_col, g_rs, others, **kw)),
         busy_ms=busy_ms(lambda: expand_cuda.expand(F, g_col, g_rs, others,
                                                    **kw)),
         plain_ms=time_ms(lambda: expand_plain.expand_step(
-            F, g_col, g_rs, others, **kw)),
+            F, g_col, g_rs, others, **kw), reps=plain_reps,
+            warmup=min(3, plain_reps)),
         **bound(moved, ops), library_ms=None,
-        note=f"d={d} needed={int(np_)} survivors={k}")
+        note=f"C={cap} d={kw['d']} needed={int(np_)} survivors={k}")
+
+
+def kernels_vs_plain(db, db2, dev):
+    """Phase 3: each kernel against its plain version at C = 2^16, and
+    EXPAND also at the static pass's C = 2^25 on the ca-GrQc-scale
+    graph (returned apart: the kernels line keeps one row a kernel)."""
+    rng = np.random.default_rng(SEED)
+    eng, order, inputs = expand_case(db, rng, dev, C)
+    rows = {"expand": expand_row(inputs)}
+    seeded = {}
 
     # FOLD, replay-only
     P, active, ror, E, d0, d1 = fold_inputs(eng, rng, dev)
@@ -676,7 +696,16 @@ def kernels_vs_plain(db, dev):
         # (torch.searchsorted takes one sorted row per query)
         library_ms=None,
         note=f"M={C} N={col.numel()} strict and non-strict bit-exact")
-    return rows, dict(n=eng.n, m=eng.m, order=order), seeded
+
+    # EXPAND at the static pass's capacity (plain timed over 3 calls: it
+    # takes hundreds of ms there)
+    *_, inputs = expand_case(db2, np.random.default_rng([SEED, C_STATIC]),
+                             dev, C_STATIC)
+    big = expand_row(inputs, plain_reps=3)
+    del inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows, dict(n=eng.n, m=eng.m, order=order), seeded, big
 
 
 class SpliceCapture:
@@ -1523,13 +1552,18 @@ def main() -> int:
     db2 = grqc_db()
 
     # 3. kernels against their plain versions on the card
-    rows, shape, seeded = kernels_vs_plain(db, dev)
+    rows, shape, seeded, big = kernels_vs_plain(db, db2, dev)
     print(f"[3 kernels] C={C} n={shape['n']} m={shape['m']} "
           f"order={shape['order']}: " + "; ".join(
               f"{k}: {v['ms']:.4f} ms, device busy {v['busy_ms']:.4f} ms "
               f"(plain {v['plain_ms']:.4f} ms, bound {v['bound_ms']:.6f} ms "
               f"by {v['bound_by']}, {v['note']})"
               for k, v in rows.items()), flush=True)
+    print(f"[3 kernels] expand at the static pass's capacity, ca-GrQc-scale "
+          f"graph, bit-exact: {big['ms']:.4f} ms, device busy "
+          f"{big['busy_ms']:.4f} ms (plain {big['plain_ms']:.4f} ms, bound "
+          f"{big['bound_ms']:.6f} ms by {big['bound_by']}, {big['note']})",
+          flush=True)
     print("[3 kernels] fold_merged on seeded inputs, bit-exact: " + "; ".join(
         f"{k}: {v['ms']:.4f} ms (plain {v['plain_ms']:.4f} ms), stats "
         f"{v['stats']}" for k, v in seeded.items()), flush=True)

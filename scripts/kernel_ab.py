@@ -1,0 +1,118 @@
+#!/usr/bin/env python3
+"""Time the flash-attention and EXPAND kernels of two checkouts in turns
+on one NVIDIA GPU.
+
+    python3 scripts/kernel_ab.py OTHER_TREE
+
+OTHER_TREE is another checkout of this repository, for example the
+parent commit unpacked with ``git archive`` into a git-ignored directory
+(``build/parent``).  The script starts one process a measurement, in the
+order other, this, this, other; each imports ``repro_torch`` from its own
+tree (building that tree's kernels into the tree's ``build/``) and times,
+on the same seeded inputs as ``chip_smoke.py``'s phases 3 and 14:
+
+* flash attention at qwen2.5-3b's prefill shape (B = 4, T = S = 2048,
+  H = 16, Hkv = 2, Dh = 128, causal, bf16);
+* EXPAND at C = 2^16 (phase 3's chunk on the wiki-Vote-scale graph) and at
+  C = 2^25 (the static pass's capacity, on the ca-GrQc-scale graph).
+
+Each time is the median of 25 calls by CUDA events, and the device busy
+time a call by torch.profiler, as ``chip_smoke.py`` takes them.  It
+prints one JSON line a process, the card's name and power limit, and
+last one JSON line with each tree's two readings.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+TIMEOUT_S = 900
+
+
+def measure(tree: Path, label: str) -> dict:
+    """One process's readings, with ``repro_torch`` imported from
+    ``tree`` (``chip_smoke.py``'s helpers then run on that package)."""
+    sys.path.insert(0, str(tree / "src"))
+    import numpy as np
+    import torch
+    import repro_torch
+    if tree not in Path(repro_torch.__file__).resolve().parents:
+        raise RuntimeError(f"repro_torch came from {repro_torch.__file__}, "
+                           f"not {tree}")
+    sys.path.insert(1, str(ROOT))
+    import chip_smoke as cs
+    from repro_torch.core.db import graph_db
+    from repro_torch.data.graphs import zipf_graph
+    from repro_torch.kernels import cudalib
+    from repro_torch.kernels.expand import cuda as expand_cuda
+    from repro_torch.kernels.flash_attention import cuda as flash_cuda
+
+    dev = torch.device("cuda")
+    cudalib.load()
+    out = {"tree": label, "path": str(tree)}
+
+    case = cs.FLASH_CASES[7]
+    b, t, s, h, hkv, dh, causal, window, q_offset = case
+    rng = np.random.default_rng(list(case[:6]) + [q_offset])
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+               .to(dev, torch.bfloat16) for shape in
+               ((b, t, h, dh), (b, s, hkv, dh), (b, s, hkv, dh)))
+
+    def flash():
+        flash_cuda.flash_attention(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset)
+
+    out["flash_ms"] = cs.time_ms(flash)
+    out["flash_busy_ms"] = cs.busy_ms(flash)
+    del q, k, v
+
+    db = graph_db(zipf_graph(cs.WIKI["nv"], cs.WIKI["ne"], cs.ZIPF_A,
+                             seed=cs.SEED))
+    for name, graph, rng, cap in (
+            ("expand_2^16", db, np.random.default_rng(cs.SEED), cs.C),
+            ("expand_2^25", cs.grqc_db(),
+             np.random.default_rng([cs.SEED, cs.C_STATIC]), cs.C_STATIC)):
+        *_, (F, g_col, g_rs, others, kw) = cs.expand_case(graph, rng, dev,
+                                                          cap)
+
+        def expand():
+            expand_cuda.expand(F, g_col, g_rs, others, **kw)
+
+        out[f"{name}_ms"] = cs.time_ms(expand)
+        out[f"{name}_busy_ms"] = cs.busy_ms(expand)
+        del F
+        torch.cuda.empty_cache()
+    return out
+
+
+def main() -> int:
+    other = Path(sys.argv[1]).resolve()
+    runs = []
+    for tree, label in ((other, "other"), (ROOT, "this"), (ROOT, "this"),
+                        (other, "other")):
+        r = subprocess.run([sys.executable, __file__, "--measure", str(tree),
+                            label], capture_output=True, text=True,
+                           timeout=TIMEOUT_S)
+        if r.returncode != 0:
+            print(r.stdout[-4000:], r.stderr[-4000:], file=sys.stderr)
+            return r.returncode
+        runs.append(json.loads(r.stdout.strip().splitlines()[-1]))
+        print(json.dumps(runs[-1]), flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    keys = [k for k in runs[0] if k.endswith("_ms")]
+    print(json.dumps({label: {k: [r[k] for r in runs if r["tree"] == label]
+                              for k in keys}
+                      for label in ("other", "this")}))
+    return 0
+
+
+if __name__ == "__main__":
+    if sys.argv[1:2] == ["--measure"]:
+        print(json.dumps(measure(Path(sys.argv[2]).resolve(), sys.argv[3])))
+        sys.exit(0)
+    sys.exit(main())

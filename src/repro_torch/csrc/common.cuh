@@ -1,11 +1,15 @@
 // Shared device pieces of the cached trie join's kernels: the bounded
-// binary search and a single-block scan.
+// binary search, a single-block scan, and the pieces of a single-pass
+// device-wide scan (decoupled look-back).
 //
 // The TPU kernels ran their plan and scan steps once, in the first step of
 // a sequential grid, into VMEM scratch that later steps read.  Hopper
-// blocks run concurrently, so here every such step is its own launch on
-// the same stream, and the scratch lives in device memory that the
-// wrapper allocates.
+// blocks run concurrently, so a scan across the whole chunk needs either
+// its own launch (block_scan: one block walks all n values, FOLD's and
+// EMIT's) or blocks that pass their sums on through device memory
+// (claim_tile / block_exclusive_sum / tile_prefix: any kernel that works
+// tile by tile embeds them, EXPAND's).  Scratch lives in device memory
+// that the wrapper allocates.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -48,6 +52,26 @@ __device__ __forceinline__ int bsearch(const Load& load, int n, int value,
     if (go && pred) {
       lo = mid + 1;
     } else if (go) {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// Binary search over positions [lo, hi) of a column of n values, with as
+// many trips as the window needs (the fixed-trip bsearch above takes as
+// many as the whole column needs).  On a sorted window inside [0, n) it
+// returns what bsearch returns; elsewhere it stays inside the column.
+template <bool kStrict, typename Load>
+__device__ __forceinline__ int bsearch_in(const Load& load, int n, int value,
+                                          int lo, int hi) {
+  if (n == 0) return lo;
+  while (lo < hi) {
+    const int mid = lo + ((hi - lo) >> 1);
+    const int x = load(clampi(mid, 0, n - 1));
+    if (kStrict ? (x < value) : (x <= value)) {
+      lo = mid + 1;
+    } else {
       hi = mid;
     }
   }
@@ -105,6 +129,142 @@ inline cudaError_t launch_scan(const T* in, int* out, int* total, int n,
   block_scan<T><<<1, kScanThreads, 0, stream>>>(in, out, total, n,
                                                 inclusive ? 1 : 0);
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Single-pass device-wide scan by decoupled look-back (Merrill and
+// Garland, 2016).  A kernel that embeds it works on tiles, each block of
+// kBlock threads one tile, each thread one value x:
+//
+//   const int tile = claim_tile(ticket);
+//   ... the thread's value x ...
+//   unsigned total;
+//   const unsigned in_tile = block_exclusive_sum<kBlock>(x, total);
+//   const unsigned before = tile_prefix(status, tile, total);
+//   // before + in_tile: the sum of every value before the thread's x
+//
+// The status words (one a tile) and the ticket are scratch that must be
+// zero when the kernel starts (the wrapper clears them with one
+// cudaMemsetAsync).  Sums are 32-bit and wrap, as an int32 cumsum does.
+//
+// Cost: a tile that has done its work waits, holding its SM slot, until
+// every tile between it and the nearest published prefix has published
+// its sum, and the prefixes pass down the line of tiles 32 a round trip.
+// Large tiles keep the line short: EXPAND's tiles of 1024 values make
+// 32,768 at 2^25 values.
+// ---------------------------------------------------------------------------
+
+// a status word: flag in the high 32 bits (0: nothing yet), sum below
+constexpr unsigned long long kTileAggregate = 1ull << 32;  // the tile's sum
+constexpr unsigned long long kTilePrefix = 2ull << 32;     // sum up to it
+
+__device__ __forceinline__ void st_release(unsigned long long* p,
+                                           unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;\n" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned long long ld_relaxed(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];\n"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// The tile this block scans.  Tickets go out in the order blocks start,
+// so every earlier tile belongs to a block that is already running and
+// will publish its sum: the look-back cannot wait on a block that the
+// card has not scheduled.  Call once a kernel, from every thread.
+__device__ __forceinline__ int claim_tile(int* ticket) {
+  __shared__ int tile;
+  if (threadIdx.x == 0) tile = atomicAdd(ticket, 1);
+  __syncthreads();
+  return tile;
+}
+
+// Exclusive sum of x over the kBlock threads of the block (at most
+// 1024), in thread order; *total* gets the block's sum.  Call once a
+// kernel, from every thread.
+template <int kBlock>
+__device__ __forceinline__ unsigned block_exclusive_sum(unsigned x,
+                                                        unsigned& total) {
+  constexpr int kWarps = kBlock / 32;
+  __shared__ unsigned warp_incl[kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned incl = x;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned y = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane == 31) warp_incl[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    unsigned w = lane < kWarps ? warp_incl[lane] : 0u;
+#pragma unroll
+    for (int o = 1; o < kWarps; o <<= 1) {
+      const unsigned y = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += y;
+    }
+    if (lane < kWarps) warp_incl[lane] = w;
+  }
+  __syncthreads();
+  total = warp_incl[kWarps - 1];
+  return (warp > 0 ? warp_incl[warp - 1] : 0u) + incl - x;
+}
+
+// The sum of every tile before `tile`, given this tile's sum.  Publishes
+// the sum as the tile's aggregate (a release store).  Then warp 0 reads
+// the status words of the 32 tiles before it in one coalesced load (lane
+// l the tile l + 1 before) and adds the sums from the nearest tile back to
+// the nearest one that holds its inclusive prefix, waiting only while a
+// tile nearer than that one holds no flag yet (rereading the empty
+// words); if the window holds no prefix it adds all 32 and steps a window
+// further back.  Last it fences (acquire) and publishes this tile's
+// inclusive prefix.  Call once a kernel, from every thread.
+__device__ __forceinline__ unsigned tile_prefix(unsigned long long* status,
+                                                int tile, unsigned total) {
+  __shared__ unsigned before;
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    unsigned excl = 0;
+    if (tile > 0) {
+      if (lane == 0) st_release(status + tile, kTileAggregate | total);
+      int pred = tile - 1 - lane;  // this lane's tile, nearest first
+      unsigned long long w =
+          pred >= 0 ? ld_relaxed(status + pred) : kTilePrefix;
+      for (;;) {
+        const unsigned long long flag = w & ~0xffffffffull;
+        const unsigned has_prefix =
+            __ballot_sync(0xffffffffu, flag == kTilePrefix);
+        const unsigned empty = __ballot_sync(0xffffffffu, flag == 0);
+        const int pre = has_prefix ? __ffs(has_prefix) - 1 : 32;
+        const int gap = empty ? __ffs(empty) - 1 : 32;
+        if (gap < pre) {  // a nearer tile has not published yet
+          if (flag == 0) w = ld_relaxed(status + pred);
+          continue;
+        }
+        unsigned x = lane <= pre ? static_cast<unsigned>(w) : 0u;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          x += __shfl_xor_sync(0xffffffffu, x, o);
+        excl += x;
+        if (pre < 32) break;
+        pred -= 32;
+        w = pred >= 0 ? ld_relaxed(status + pred) : kTilePrefix;
+      }
+      __threadfence();
+    }
+    if (lane == 0) {
+      st_release(status + tile, kTilePrefix | (excl + total));
+      before = excl;
+    }
+  }
+  __syncthreads();
+  return before;
 }
 
 }  // namespace ctj

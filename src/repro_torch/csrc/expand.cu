@@ -11,25 +11,45 @@
 // 92k-edge graph) and a full chunk out: about 9 MB, 2.7 us at
 // 3.35 TB/s.  A real chunk needs far less, since only valid rows are
 // planned and only survivors are written (chip_smoke.py counts the rows
-// its data needs).  The binary searches are a few dozen dependent loads
-// a slot; they hide behind other warps, not behind arithmetic.
+// its data needs): a fraction of a microsecond, below the few
+// microseconds that each launch costs.  So the launches and the passes
+// over device memory are what to cut.  The binary searches are chains of
+// dependent loads; they hide behind other warps, not behind arithmetic.
 //
-// Design.  The TPU kernel ran its plan, expand, scan and compact steps in
-// one sequential grid; on Hopper they are five launches on one stream:
-//   1. plan     — one thread per row: the guard run range [r0, r1) by
-//                 bounded search of lo/hi over the run starts, and cnt;
-//   2. scan     — exclusive scan of cnt: slot offsets and `needed`
-//                 (written straight into the output scalar);
-//   3. slots    — one thread per output slot: invert the offsets by an
-//                 upper-bound search, gather the candidate and its run,
-//                 two bounded searches per other atom, and stage the row
-//                 and its survivor flag in device scratch;
-//   4. scan     — inclusive scan of the survivor flags;
-//   5. compact  — one thread per staged slot scatters a survivor to its
-//                 rank (stable, since ranks grow with the slot) and writes
-//                 valid = slot < survivors for every output row.
-// Scratch is the wrapper's; nothing is allocated here.  A slot that cannot
-// survive writes only its flag, so staging traffic follows the survivors.
+// Before: five launches, plan, a scan of the counts, slots, a scan of the
+// survivor flags and compact.  Both scans were block_scan<<<1, 1024>>>: one
+// block walking all C values (about 39 us at C = 2^16, 5-20 ms at 2^25),
+// and every slot staged its whole row in device scratch for compact to
+// copy to its rank.
+//
+// Design.  Two launches, each a single pass that scans as it goes
+// (decoupled look-back, common.cuh), after one memset of the look-back
+// status words and tickets and one of o_valid.  Both work on tiles of
+// kTile = 1024 rows or slots, one a thread: fewer tiles than 256-row ones
+// (the look-back's line is 4x shorter), and one row a thread still fills
+// every SM at C = 2^16.  Searches take as many trips as their window
+// needs (bsearch_in, lower_bound_from), not as the whole column.
+//   1. plan  — the guard run range [r0, r1) of each valid row by bounded
+//              search of lo/hi over the run starts, cnt = r1 - r0, and
+//              its exclusive prefix, the slot offset off; each row also
+//              names itself as the source of every slot tile whose first
+//              slot its candidates fill (tile_src), and the last tile
+//              writes `needed` (the output scalar);
+//   2. slots — a slot's source row is found by an upper-bound search of
+//              off inside the window of rows that tile_src gives its tile
+//              (about a thousand rows, in L1, not all C); the candidate,
+//              its run and two bounded searches per other atom decide
+//              whether it survives; the survivor flags' exclusive prefix
+//              gives each survivor its rank, and the survivor writes its
+//              row there straight from its parent row (its searches done
+//              again: survivors are a few percent of the slots) and sets
+//              valid[rank].  Ranks grow with the slot, so the order is
+//              stable; they are dense, so valid is true exactly below the
+//              survivor count.
+// Tiles are claimed by an atomic ticket.  Scratch is the wrapper's
+// (kernels/expand/cuda.py::scratch_layout, int32 values): the status words
+// of the two scans (two values a tile), the two tickets, tile_src, then
+// r0, cnt and off (C each).  Nothing is allocated here.
 #include "common.cuh"
 
 namespace ctj {
@@ -44,109 +64,151 @@ struct OtherAtoms {
   int n;
 };
 
-__global__ void expand_plan(const int* __restrict__ lo,
-                            const int* __restrict__ hi,
-                            const bool* __restrict__ valid,
-                            const int* __restrict__ g_rs, int nruns, int C,
-                            int m, int g_ai, int* __restrict__ r0_out,
-                            int* __restrict__ cnt_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= C) return;
-  const ColLoad rs{g_rs};
-  const size_t row = static_cast<size_t>(i) * m + g_ai;
-  const int r0 = bsearch<true>(rs, nruns, lo[row], 0, nruns);
-  const int r1 = bsearch<true>(rs, nruns, hi[row], 0, nruns);
-  r0_out[i] = r0;
-  cnt_out[i] = valid[i] ? r1 - r0 : 0;
+constexpr int kTile = 1024;  // rows or slots a tile (a block), one a thread
+
+__host__ __device__ inline int tiles_for(int n) {
+  return (n + kTile - 1) / kTile;
 }
 
-__global__ void expand_slots(
-    const int* __restrict__ assign, const long long* __restrict__ factor,
-    const int* __restrict__ orig, const int* __restrict__ lo,
-    const int* __restrict__ hi, const int* __restrict__ g_col,
-    const int* __restrict__ g_rs, OtherAtoms others,
-    const int* __restrict__ r0, const int* __restrict__ cnt,
-    const int* __restrict__ off, const int* __restrict__ needed_p, int C,
-    int n, int m, int d, int g_ai, int nruns, int n_rows_g,
-    int* __restrict__ st_assign, long long* __restrict__ st_factor,
-    int* __restrict__ st_orig, int* __restrict__ st_lo,
-    int* __restrict__ st_hi, int* __restrict__ st_ok) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= C) return;
-  const int needed = *needed_p;
-  const int src =
-      clampi(bsearch<false>(ColLoad{off}, C, s, 0, C) - 1, 0, C - 1);
-  const int delta = s - off[src];
-  if (!(s < needed && delta < cnt[src] && nruns > 0)) {
-    st_ok[s] = 0;
-    return;
+// The first position p >= from of the sorted a[0, n) with a[p] >= value,
+// given that every position before `from` holds less: galloping steps of
+// 1, 2, 4, ... from `from`, then a binary search inside the last step.  A
+// guard window spans a few runs, so this takes a few loads where a search
+// of the whole run-start column takes its bit length.
+__device__ __forceinline__ int lower_bound_from(const int* __restrict__ a,
+                                                int n, int value, int from) {
+  int lo = from, hi = from;
+  for (int step = 1; hi < n && __ldg(a + hi) < value; step <<= 1) {
+    lo = hi + 1;
+    hi = from + step;
   }
-  const int k = clampi(r0[src] + delta, 0, nruns - 1);
-  const int pos = g_rs[k];
-  const int value = g_col[clampi(pos, 0, n_rows_g > 0 ? n_rows_g - 1 : 0)];
-  const int run_end = k + 1 < nruns ? g_rs[k + 1] : n_rows_g;
-  const int* plo = lo + static_cast<size_t>(src) * m;
-  const int* phi = hi + static_cast<size_t>(src) * m;
-  int* olo = st_lo + static_cast<size_t>(s) * m;
-  int* ohi = st_hi + static_cast<size_t>(s) * m;
-  for (int c = 0; c < m; ++c) {
-    olo[c] = plo[c];
-    ohi[c] = phi[c];
+  return bsearch_in<true>(ColLoad{a}, n, value, lo, hi < n ? hi : n);
+}
+
+__global__ void __launch_bounds__(kTile)
+expand_plan(const int* __restrict__ lo, const int* __restrict__ hi,
+            const bool* __restrict__ valid, const int* __restrict__ g_rs,
+            int nruns, int C, int m, int g_ai, int* __restrict__ r0_out,
+            int* __restrict__ cnt_out, int* __restrict__ off_out,
+            int* __restrict__ tile_src, int* __restrict__ needed,
+            unsigned long long* status, int* ticket) {
+  const int tile = claim_tile(ticket);
+  const int i = tile * kTile + threadIdx.x;
+  int r0 = 0, cnt = 0;
+  if (i < C && valid[i]) {
+    const ColLoad rs{g_rs};
+    const size_t row = static_cast<size_t>(i) * m + g_ai;
+    const int v0 = lo[row], v1 = hi[row];
+    r0 = bsearch<true>(rs, nruns, v0, 0, nruns);
+    cnt = (v1 >= v0 ? lower_bound_from(g_rs, nruns, v1, r0)
+                    : bsearch<true>(rs, nruns, v1, 0, nruns)) - r0;
   }
-  olo[g_ai] = pos;
-  ohi[g_ai] = run_end;
-  for (int t = 0; t < others.n; ++t) {
-    const int ai = others.ai[t];
-    const ColLoad col{others.col[t]};
-    const int a = bsearch<true>(col, others.len[t], value, plo[ai], phi[ai]);
-    const int b = bsearch<false>(col, others.len[t], value, a, phi[ai]);
-    if (!(a < b)) {
-      st_ok[s] = 0;
-      return;
+  unsigned total;
+  const unsigned in_tile = block_exclusive_sum<kTile>(cnt, total);
+  const unsigned before = tile_prefix(status, tile, total);
+  if (i < C) {
+    const int off = static_cast<int>(before + in_tile);
+    r0_out[i] = r0;
+    cnt_out[i] = cnt;
+    off_out[i] = off;
+    // the slot tiles whose first slot lies in [off, off + cnt)
+    if (cnt > 0 && off >= 0) {
+      const long long end = static_cast<long long>(off) + cnt;
+      for (long long t = (off + kTile - 1LL) / kTile;
+           t < tiles_for(C) && t * kTile < end; ++t)
+        tile_src[t] = i;
     }
-    olo[ai] = a;
-    ohi[ai] = b;
   }
-  const int* pa = assign + static_cast<size_t>(src) * n;
-  int* oa = st_assign + static_cast<size_t>(s) * n;
-  for (int c = 0; c < n; ++c) oa[c] = pa[c];
-  oa[d] = value;
-  st_factor[s] = factor[src];
-  st_orig[s] = orig[src];
-  st_ok[s] = 1;
+  if (tile == tiles_for(C) - 1 && threadIdx.x == 0)
+    *needed = static_cast<int>(before + total);
 }
 
-__global__ void expand_compact(
-    const int* __restrict__ st_assign, const long long* __restrict__ st_factor,
-    const int* __restrict__ st_orig, const int* __restrict__ st_lo,
-    const int* __restrict__ st_hi, const int* __restrict__ st_ok,
-    const int* __restrict__ csum, const int* __restrict__ total, int C,
-    int n, int m, int* __restrict__ o_assign,
-    long long* __restrict__ o_factor, bool* __restrict__ o_valid,
-    int* __restrict__ o_orig, int* __restrict__ o_lo,
-    int* __restrict__ o_hi) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= C) return;
-  o_valid[j] = j < *total;
-  if (!st_ok[j]) return;
-  const size_t dst = static_cast<size_t>(csum[j] - 1);
-  const size_t sj = static_cast<size_t>(j);
-  for (int c = 0; c < n; ++c) o_assign[dst * n + c] = st_assign[sj * n + c];
-  for (int c = 0; c < m; ++c) {
-    o_lo[dst * m + c] = st_lo[sj * m + c];
-    o_hi[dst * m + c] = st_hi[sj * m + c];
+__global__ void __launch_bounds__(kTile)
+expand_slots(const int* __restrict__ assign,
+             const long long* __restrict__ factor,
+             const int* __restrict__ orig, const int* __restrict__ lo,
+             const int* __restrict__ hi, const int* __restrict__ g_col,
+             const int* __restrict__ g_rs, OtherAtoms others,
+             const int* __restrict__ r0, const int* __restrict__ cnt,
+             const int* __restrict__ off, const int* __restrict__ tile_src,
+             const int* __restrict__ needed_p, int C, int n, int m, int d,
+             int g_ai, int nruns, int n_rows_g, unsigned long long* status,
+             int* ticket, int* __restrict__ o_assign,
+             long long* __restrict__ o_factor, bool* __restrict__ o_valid,
+             int* __restrict__ o_orig, int* __restrict__ o_lo,
+             int* __restrict__ o_hi) {
+  const int tile = claim_tile(ticket);
+  const int needed = *needed_p;
+  const int limit = needed < C ? needed : C;  // slots that hold a candidate
+  const int s0 = tile * kTile;
+  // the rows that feed this tile's slots: from the one that fills its
+  // first slot to the one that fills the next tile's
+  int w_lo = 0, w_hi = C;
+  if (s0 < limit) {
+    w_lo = clampi(tile_src[tile], 0, C - 1);
+    if (s0 + kTile < limit)
+      w_hi = clampi(tile_src[tile + 1], 0, C - 1) + 1;
   }
-  o_factor[dst] = st_factor[j];
-  o_orig[dst] = st_orig[j];
+
+  // slot s: does its candidate survive; if dst >= 0, write its row there
+  auto slot = [&](int s, long long dst) -> bool {
+    const int src =
+        clampi(bsearch_in<false>(ColLoad{off}, C, s, w_lo, w_hi) - 1, 0, C - 1);
+    const int delta = s - off[src];
+    if (!(delta < cnt[src] && nruns > 0)) return false;
+    const int k = clampi(r0[src] + delta, 0, nruns - 1);
+    const int pos = g_rs[k];
+    const int value = g_col[clampi(pos, 0, n_rows_g > 0 ? n_rows_g - 1 : 0)];
+    const int* plo = lo + static_cast<size_t>(src) * m;
+    const int* phi = hi + static_cast<size_t>(src) * m;
+    int* olo = dst >= 0 ? o_lo + dst * m : nullptr;
+    int* ohi = dst >= 0 ? o_hi + dst * m : nullptr;
+    if (dst >= 0) {
+      const int* pa = assign + static_cast<size_t>(src) * n;
+      int* oa = o_assign + dst * n;
+      for (int c = 0; c < n; ++c) oa[c] = c == d ? value : pa[c];
+      for (int c = 0; c < m; ++c) {
+        olo[c] = plo[c];
+        ohi[c] = phi[c];
+      }
+      olo[g_ai] = pos;
+      ohi[g_ai] = k + 1 < nruns ? g_rs[k + 1] : n_rows_g;
+      o_factor[dst] = factor[src];
+      o_orig[dst] = orig[src];
+      o_valid[dst] = true;
+    }
+    for (int t = 0; t < others.n; ++t) {
+      const int ai = others.ai[t];
+      const ColLoad col{others.col[t]};
+      const int a = bsearch_in<true>(col, others.len[t], value, plo[ai],
+                                     phi[ai]);
+      const int b = bsearch_in<false>(col, others.len[t], value, a, phi[ai]);
+      if (!(a < b)) return false;
+      if (dst >= 0) {
+        olo[ai] = a;
+        ohi[ai] = b;
+      }
+    }
+    return true;
+  };
+
+  const int sl = s0 + threadIdx.x;
+  const bool kept = sl < limit && slot(sl, -1);
+  unsigned total;
+  const unsigned in_tile = block_exclusive_sum<kTile>(kept ? 1u : 0u, total);
+  const unsigned before = tile_prefix(status, tile, total);
+  if (kept) slot(sl, static_cast<long long>(before) + in_tile);
 }
 
 }  // namespace ctj
 
 // other_cols / other_lens / other_ais are HOST arrays of n_others entries
 // (device column addresses, their lengths, their atom indices).  Scratch
-// layout (int32, C * (6 + n + 2m) + 1 values): r0, cnt, off, ok, csum
-// (C each), staged assign (C*n), orig (C), lo (C*m), hi (C*m), survivor
-// total (1); st_factor is C int64 values.  Returns the first CUDA error.
+// (int32 values, scratch_len of them; 8-byte aligned), as
+// kernels/expand/cuda.py::scratch_layout lays it out, with tiles =
+// ceil(C / 1024): the status words of the plan's scan and of the slots'
+// scan (2 * tiles values each), the two tickets (2), tile_src (tiles),
+// then r0, cnt and off (C each).  Returns the first CUDA error.
 extern "C" int ctj_expand(
     const void* assign, const void* factor, const void* valid,
     const void* orig, const void* lo, const void* hi, const void* g_col,
@@ -154,9 +216,14 @@ extern "C" int ctj_expand(
     const void* other_ais, int n_others, int C, int n, int m, int d,
     int g_ai, int nruns, int n_rows_g, void* o_assign, void* o_factor,
     void* o_valid, void* o_orig, void* o_lo, void* o_hi, void* o_needed,
-    void* scratch, void* st_factor, void* stream_ptr) {
+    void* scratch, long long scratch_len, void* stream_ptr) {
   using namespace ctj;
   if (n_others < 0 || n_others > kMaxOthers || C <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long tiles = tiles_for(C);
+  const long long zeroed = 4 * tiles + 2;  // both scans' words, tickets
+  if (scratch_len < zeroed + tiles + 3LL * C) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
@@ -168,39 +235,32 @@ extern "C" int ctj_expand(
     others.ai[t] = static_cast<const int*>(other_ais)[t];
   }
   int* sc = static_cast<int*>(scratch);
-  const size_t c = static_cast<size_t>(C);
-  int* r0 = sc;
-  int* cnt = r0 + c;
-  int* off = cnt + c;
-  int* ok = off + c;
-  int* csum = ok + c;
-  int* st_assign = csum + c;
-  int* st_orig = st_assign + c * n;
-  int* st_lo = st_orig + c;
-  int* st_hi = st_lo + c * m;
-  int* n_ok = st_hi + c * m;
-  int* needed = static_cast<int*>(o_needed);
-  long long* st_f = static_cast<long long*>(st_factor);
-  const int grid = blocks_for(C);
+  unsigned long long* plan_status = reinterpret_cast<unsigned long long*>(sc);
+  unsigned long long* slot_status = plan_status + tiles;
+  int* tickets = sc + 4 * tiles;
+  int* tile_src = sc + zeroed;
+  int* r0 = tile_src + tiles;
+  int* cnt = r0 + C;
+  int* off = cnt + C;
 
-  expand_plan<<<grid, kThreads, 0, stream>>>(
+  CTJ_CHECK(cudaMemsetAsync(sc, 0, sizeof(int) * zeroed, stream));
+  CTJ_CHECK(cudaMemsetAsync(o_valid, 0, sizeof(bool) * C, stream));
+  const int grid = static_cast<int>(tiles);
+  expand_plan<<<grid, kTile, 0, stream>>>(
       static_cast<const int*>(lo), static_cast<const int*>(hi),
       static_cast<const bool*>(valid), static_cast<const int*>(g_rs), nruns,
-      C, m, g_ai, r0, cnt);
+      C, m, g_ai, r0, cnt, off, tile_src, static_cast<int*>(o_needed),
+      plan_status, tickets);
   CTJ_CHECK(cudaGetLastError());
-  CTJ_CHECK(launch_scan<int>(cnt, off, needed, C, false, stream));
-  expand_slots<<<grid, kThreads, 0, stream>>>(
+  expand_slots<<<grid, kTile, 0, stream>>>(
       static_cast<const int*>(assign), static_cast<const long long*>(factor),
       static_cast<const int*>(orig), static_cast<const int*>(lo),
       static_cast<const int*>(hi), static_cast<const int*>(g_col),
-      static_cast<const int*>(g_rs), others, r0, cnt, off, needed, C, n, m,
-      d, g_ai, nruns, n_rows_g, st_assign, st_f, st_orig, st_lo, st_hi, ok);
-  CTJ_CHECK(cudaGetLastError());
-  CTJ_CHECK(launch_scan<int>(ok, csum, n_ok, C, true, stream));
-  expand_compact<<<grid, kThreads, 0, stream>>>(
-      st_assign, st_f, st_orig, st_lo, st_hi, ok, csum, n_ok, C, n, m,
-      static_cast<int*>(o_assign), static_cast<long long*>(o_factor),
-      static_cast<bool*>(o_valid), static_cast<int*>(o_orig),
-      static_cast<int*>(o_lo), static_cast<int*>(o_hi));
+      static_cast<const int*>(g_rs), others, r0, cnt, off, tile_src,
+      static_cast<const int*>(o_needed), C, n, m, d, g_ai, nruns, n_rows_g,
+      slot_status, tickets + 1, static_cast<int*>(o_assign),
+      static_cast<long long*>(o_factor), static_cast<bool*>(o_valid),
+      static_cast<int*>(o_orig), static_cast<int*>(o_lo),
+      static_cast<int*>(o_hi));
   return static_cast<int>(cudaGetLastError());
 }

@@ -36,13 +36,14 @@ SOURCES = ("expand.cu", "fold.cu", "emit.cu", "leapfrog.cu",
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
 # argument lists of the C entry points (csrc/*.cu): pointers and the
 # stream as c_void_p (a plain int would be cut to 32 bits), sizes as
-# c_int, a float scale as c_float
+# c_int (a scratch length as c_longlong), a float scale as c_float
 _SIGNATURES = {
     "ctj_expand": [_P] * 8 + [_P, _P, _P, _I] + [_I] * 7 + [_P] * 7
-                  + [_P, _P, _P],
+                  + [_P, _L, _P],
     "ctj_fold_replay": [_P] * 5 + [_P, _P] + [_P] * 4 + [_I] * 5 + [_P] * 7
                        + [_P, _P],
     "ctj_fold_splice": [_P] * 5 + [_P] * 4 + [_I] * 6 + [_P] * 7

@@ -2,25 +2,50 @@
 
 Replaces the reference's fused Pallas kernel
 (``repro/kernels/expand/fused.py::build``).  The wrapper checks the
-chunk, allocates outputs and scratch with ``torch.empty``, and launches
-on PyTorch's current stream; ``needed`` stays on the device.  The kernel
-takes at most 16 membership atoms (``kMaxOthers`` in ``csrc/expand.cu``);
-more make the launch return CUDA error 1 (invalid value), and the wrapper
-raises.  It has no plain fallback: a failed launch raises.  ``launches`` counts the calls
-that launched the kernel.
+chunk, allocates outputs and scratch with ``torch.empty`` (the scratch's
+layout is :func:`scratch_layout`), and launches on PyTorch's current
+stream: two memsets and two kernels, each a single pass that scans as
+it goes (decoupled look-back); ``needed`` stays on the device.  The
+kernel takes at most 16 membership atoms (``kMaxOthers`` in
+``csrc/expand.cu``); more make the launch return CUDA error 1 (invalid
+value), and the wrapper raises.  It has no plain fallback: a failed
+launch raises.  ``launches`` counts the calls that launched the kernel.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 
 from .. import cudalib
 
-__all__ = ["expand", "launches"]
+__all__ = ["expand", "launches", "scratch_layout", "TILE"]
 
 launches = 0
+TILE = 1024  # rows or slots a tile of both kernels (kTile in csrc/expand.cu)
+
+
+def scratch_layout(C: int, n: int, m: int) -> Dict[str, Tuple[int, int]]:
+    """The kernel's scratch, as ``{region: (offset, length)}`` in int32
+    values, in order: the status words of the plan's and the slots'
+    single-pass scans (one 64-bit word a tile, so two values, at even
+    offsets), the two scans' tickets (these three regions are cleared by
+    the kernel's memset), ``tile_src`` (a row for each tile of slots),
+    and the plan's ``r0``, ``cnt`` and ``off`` (C each).  ``"total"`` is
+    the whole length.  No row is staged, so nothing grows with ``n`` or
+    ``m``."""
+    del n, m
+    tiles = -(-C // TILE)
+    lengths = (("plan_status", 2 * tiles), ("slot_status", 2 * tiles),
+               ("tickets", 2), ("tile_src", tiles), ("r0", C), ("cnt", C),
+               ("off", C))
+    out, at = {}, 0
+    for name, length in lengths:
+        out[name] = (at, length)
+        at += length
+    out["total"] = (0, at)
+    return out
 
 
 def expand(F, g_col: torch.Tensor, g_rs: torch.Tensor,
@@ -51,10 +76,8 @@ def expand(F, g_col: torch.Tensor, g_rs: torch.Tensor,
              orig=torch.empty_like(F.orig),
              lo=torch.empty_like(F.lo), hi=torch.empty_like(F.hi))
     needed = torch.empty(1, dtype=torch.int32, device=dev)
-    # r0, cnt, off, ok, csum, staged assign/orig/lo/hi, survivor total
-    scratch = torch.empty(C * (6 + n + 2 * m) + 1, dtype=torch.int32,
-                          device=dev)
-    st_factor = torch.empty(C, dtype=torch.int64, device=dev)
+    scratch = torch.empty(scratch_layout(C, n, m)["total"][1],
+                          dtype=torch.int32, device=dev)
     lib = cudalib.load()
     with torch.cuda.device(dev):
         err = lib.ctj_expand(
@@ -64,7 +87,7 @@ def expand(F, g_col: torch.Tensor, g_rs: torch.Tensor,
             C, n, m, d, g_ai, int(g_rs.shape[0]), int(n_rows_g),
             *(o[f].data_ptr() for f in
               ("assign", "factor", "valid", "orig", "lo", "hi")),
-            needed.data_ptr(), scratch.data_ptr(), st_factor.data_ptr(),
+            needed.data_ptr(), scratch.data_ptr(), scratch.numel(),
             cudalib.stream_ptr(F.assign))
     cudalib.check(err, "ctj_expand")
     launches += 1

@@ -5,10 +5,11 @@ Replaces the reference's Pallas kernel
 (``repro/kernels/flash_attention/flash_attention.py::flash_attention_pallas``).
 The kernel takes contiguous bf16 or fp32 q (B, T, H, Dh) and k, v
 (B, S, Hkv, Dh) of one dtype, with Dh one of :data:`HEAD_DIMS` and
-H % Hkv == 0; the wrapper raises on anything else (a non-contiguous
-input included: the caller makes it contiguous, nothing is copied
-here), allocates the output with ``torch.empty`` and launches on
-PyTorch's current stream.  It has no plain fallback: a failed launch
+H % Hkv == 0, and in bf16 each at a 16-byte aligned address (the
+kernel copies rows in 16-byte pieces); the wrapper raises on anything
+else (a non-contiguous input included: the caller makes it contiguous,
+nothing is copied here), allocates the output with ``torch.empty`` and
+launches on PyTorch's current stream.  It has no plain fallback: a failed launch
 raises.  ``launches`` counts the calls that launched the kernel.
 """
 from __future__ import annotations
@@ -58,6 +59,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ptrs = (P(q, "q", dev, q.dtype, (b, t, h, dh)),
             P(k, "k", dev, q.dtype, (b, s, hkv, dh)),
             P(v, "v", dev, q.dtype, (b, s, hkv, dh)))
+    if q.dtype == torch.bfloat16 and any(p % 16 for p in ptrs):
+        raise ValueError("q, k, v: bf16 kernel takes 16-byte aligned "
+                         "addresses")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

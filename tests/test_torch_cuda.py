@@ -72,6 +72,90 @@ def test_expand_kernel_matches_plain_level_by_level(dev, q, C):
         F = Fp
 
 
+EXPAND_KINDS = ("no-valid", "all-survive", "none-survive", "overflow")
+
+
+def _expand_case(C, kind, dev):
+    """A synthetic EXPAND(2) of a chunk of C rows, n = 3 columns, m = 3
+    atoms: the guard (atom 0) has 4096 runs of 1-3 rows, candidate run k
+    holding value 2k; each valid row's guard window spans one run (three
+    for "overflow", so that `needed` = 3C > C); atoms 1 and 2 are searched
+    over their whole sorted column, which holds every candidate value
+    ("all-survive"), none of them ("none-survive", odd values only) or a
+    random half ("overflow").  "no-valid" has no valid row."""
+    rng = np.random.default_rng([C, EXPAND_KINDS.index(kind)])
+    nruns = 4096
+    rs = np.concatenate([[0], np.cumsum(rng.integers(1, 4, nruns - 1))])
+    n_rows_g = int(rs[-1]) + int(rng.integers(1, 4))
+    g_col = np.zeros(n_rows_g, np.int64)
+    g_col[rs] = 2 * np.arange(nruns)
+    width = 3 if kind == "overflow" else 1
+    r = rng.integers(0, nruns - width + 1, C)
+    ends = np.append(rs, n_rows_g)
+    values = 2 * np.arange(nruns)
+    if kind == "none-survive":
+        values = values + 1
+    elif kind == "overflow":
+        values = np.sort(rng.choice(values, nruns // 2, replace=False))
+    others = [torch.from_numpy(values.astype(np.int32)).to(dev)
+              for _ in range(2)]
+    lo = np.zeros((C, 3), np.int32)
+    hi = np.full((C, 3), values.size, np.int32)
+    lo[:, 0], hi[:, 0] = rs[r], ends[r + width]
+    F = Frontier(
+        assign=torch.from_numpy(rng.integers(0, 99, (C, 3)).astype(np.int32)),
+        factor=torch.from_numpy(rng.integers(1, 9, C).astype(np.int64)),
+        valid=torch.full((C,), kind != "no-valid"),
+        orig=torch.arange(C, dtype=torch.int32),
+        lo=torch.from_numpy(lo), hi=torch.from_numpy(hi))
+    F = Frontier(*(t.to(dev) for t in F))
+    kw = dict(d=2, g_ai=0, other_ais=(1, 2), n_rows_g=n_rows_g)
+    return (F, torch.from_numpy(g_col.astype(np.int32)).to(dev),
+            torch.from_numpy(rs.astype(np.int32)).to(dev), others, kw)
+
+
+@pytest.mark.parametrize("kind", EXPAND_KINDS)
+@pytest.mark.parametrize("C", [1, 1000, 1 << 16, 1 << 25])
+def test_expand_kernel_matches_plain_at_every_scale(dev, C, kind):
+    """The single-pass EXPAND bit for bit against its plain version from
+    one row to the static pass's 2^25, with no valid row, every slot a
+    survivor, no survivor, and more candidates than slots."""
+    F, g_col, g_rs, others, kw = _expand_case(C, kind, dev)
+    Fc, nc = expand_cuda.expand(F, g_col, g_rs, others, **kw)
+    Fp, np_ = expand_plain.expand_step(F, g_col, g_rs, others, **kw)
+    torch.cuda.synchronize()
+    assert int(nc) == int(np_)
+    _same_prefix(Fc, Fp)
+    k = int(Fp.valid.sum())
+    want = {"no-valid": (0, 0), "all-survive": (C, C), "none-survive": (C, 0)}
+    if kind in want:
+        assert (int(np_), k) == want[kind]
+    else:
+        assert int(np_) == 3 * C and 0 < k <= C
+
+
+def test_expand_launches_no_block_scan(dev):
+    """``ctj_expand`` runs at most three kernels a call (two, besides its
+    memsets), none of them the single-block scan, by the kernel names
+    torch.profiler records."""
+    from torch.profiler import ProfilerActivity, profile
+    F, g_col, g_rs, others, kw = _expand_case(1 << 16, "overflow", dev)
+    expand_cuda.expand(F, g_col, g_rs, others, **kw)
+    torch.cuda.synchronize()
+    calls = 3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            expand_cuda.expand(F, g_col, g_rs, others, **kw)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [n for n in names if not n.startswith(("Memset", "Memcpy"))]
+    assert kernels, f"the profiler recorded no kernel: {names}"
+    assert len(kernels) <= 3 * calls, kernels
+    assert not any("block_scan" in n for n in kernels), kernels
+    assert all("expand" in n for n in kernels), kernels
+
+
 @pytest.mark.parametrize("C,seed", [(1 << 8, 0), (1 << 12, 1), (1 << 16, 2)])
 def test_fold_and_emit_kernels_match_plain(dev, C, seed):
     rng = np.random.default_rng(seed)
@@ -430,6 +514,23 @@ def test_flash_kernel_matches_plain(dev, case, dtype):
     assert flash_cuda.launches == before + 1
     want = flash_plain.flash_attention(q, k, v, **kw)
     assert got.dtype == dtype and got.shape == q.shape
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 40])
+@pytest.mark.parametrize("dh", flash_cuda.HEAD_DIMS)
+def test_flash_kernel_at_every_head_dim(dev, dh, window, dtype):
+    """Every head dim the kernel takes, on a ragged shape: T = 77 (no
+    whole 64-row tile), G = 3 query heads a KV head (T·G = 231, odd), a
+    chunked prefill (q_offset 20) over S = 97 keys (no whole 64- or
+    32-key tile), causal, with and without a window."""
+    case = (2, 77, 97, 3, 1, dh, True, window, 20)
+    q, k, v = _flash_inputs(case, dtype, dev)
+    kw = dict(causal=True, window=window, q_offset=20)
+    got = flash_cuda.flash_attention(q, k, v, **kw)
+    want = flash_plain.flash_attention(q, k, v, **kw)
     tol = FLASH_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 

@@ -11,6 +11,7 @@ absolute and relative, since each path sums in its own order and bf16
 outputs may round to neighbouring values.
 """
 import functools
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -100,3 +101,74 @@ def test_impl_names():
     q = torch.zeros(1, 2, 2, 16)
     with pytest.raises(ValueError, match="attention impl"):
         ops.flash_attention(q, q, q, impl="pallas")
+
+
+def _tensor_core_model(q, k, v, *, causal, window, q_offset):
+    """The arithmetic of the CUDA kernel's bf16 path
+    (``csrc/flash_attention.cu::flash_fwd_tc``), written out on the CPU:
+    CTAs of 128 flattened (position, query head) rows of one KV head's
+    group (64 at Dh >= 160), kv tiles of 64 keys (32 at Dh = 256) from
+    the first key some row of the CTA sees, q, k and v rounded to bf16, Q·Kᵀ summed in fp32,
+    scores in base 2, -1e30 where masked, p rounded to bf16 for the P·V
+    product only, l summed from the fp32 p.  Returns the fp32 output
+    before its rounding to bf16."""
+    b, t, h, dh = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    keys = 32 if dh > 160 else 64
+    cta = 128 if dh <= 128 else 64
+    qf, kf, vf = (x.to(torch.bfloat16).float() for x in (q, k, v))
+    scale = math.log2(math.e) / math.sqrt(dh)
+    out = torch.zeros(b, t, h, dh)
+    for f0 in range(0, t * g, cta):
+        f = torch.arange(f0, min(f0 + cta, t * g))
+        pos, head = f // g, f % g
+        qpos = q_offset + pos
+        k_end = min(s, int(qpos.max()) + 1) if causal else s
+        k_begin = max(0, int(qpos.min()) - window + 1) if window else 0
+        for bb in range(b):
+            for hk in range(hkv):
+                rows = qf[bb, pos, hk * g + head]
+                m = torch.full((len(f),), -1e30)
+                l = torch.zeros(len(f))
+                acc = torch.zeros(len(f), dh)
+                for k0 in range(k_begin, k_end, keys):
+                    kpos = torch.arange(k0, k0 + keys)
+                    inb = kpos < s
+                    kt = torch.zeros(keys, dh)
+                    vt = torch.zeros(keys, dh)
+                    kt[inb] = kf[bb, kpos[inb], hk]
+                    vt[inb] = vf[bb, kpos[inb], hk]
+                    sc = (rows @ kt.T) * scale
+                    ok = inb[None, :].expand(len(f), keys)
+                    if causal:
+                        ok = ok & (kpos[None, :] <= qpos[:, None])
+                    if window:
+                        ok = ok & (kpos[None, :] > qpos[:, None] - window)
+                    sc = torch.where(ok, sc, -1e30)
+                    mx = torch.maximum(m, sc.amax(1))
+                    alpha = torch.exp2(m - mx)
+                    p = torch.exp2(sc - mx[:, None])
+                    l = l * alpha + p.sum(1)
+                    acc = acc * alpha[:, None] + \
+                        p.to(torch.bfloat16).float() @ vt
+                    m = mx
+                out[bb, pos, hk * g + head] = acc / l.clamp(min=1e-30)[:, None]
+    return out
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_tensor_core_numerics_fit_the_tolerance(case):
+    """The bf16 kernel's one numerical change from the reference, p
+    rounded to bf16 before P·V, keeps it within the bf16 tolerance of the
+    plain version on every case; and the model does differ from it (the
+    fp32 outputs before rounding), so the check is not vacuous."""
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16) for x in _inputs(case))
+    model = _tensor_core_model(q, k, v, **_masks(case))
+    exact = plain.flash_attention(q.float(), k.float(), v.float(),
+                                  **_masks(case))
+    assert float((model - exact).abs().max()) > 0
+    want = plain.flash_attention(q, k, v, **_masks(case)).float()
+    tol = TOL["bfloat16"]
+    torch.testing.assert_close(model.to(torch.bfloat16).float(), want,
+                               rtol=tol, atol=tol)

@@ -149,6 +149,32 @@ def test_expand_registry_dispatches_cpu_to_plain():
     _assert_chunks_equal(Ft, Fx, "registry")
 
 
+@pytest.mark.parametrize("n,m", [(2, 2), (5, 3), (8, 8)])
+@pytest.mark.parametrize("C", [1, 1000, 1 << 16, 1 << 25])
+def test_expand_scratch_layout(C, n, m):
+    """The CUDA EXPAND's scratch (``kernels/expand/cuda.py``): one 64-bit
+    status word a tile of 1024 rows or slots for each of its two
+    single-pass scans, at even int32 offsets (8-byte aligned), two
+    tickets, a source row for each tile of slots, then r0, cnt and off;
+    no staged rows, so nothing grows with n or m.  Computed without
+    CUDA."""
+    from repro_torch.kernels.expand import cuda as t_expand_cuda
+    lay = t_expand_cuda.scratch_layout(C, n, m)
+    tiles = -(-C // 1024)
+    assert t_expand_cuda.TILE == 1024
+    assert tiles * 1024 >= C > (tiles - 1) * 1024
+    assert lay["plan_status"] == (0, 2 * tiles)
+    assert lay["slot_status"] == (2 * tiles, 2 * tiles)
+    assert lay["tickets"] == (4 * tiles, 2)
+    assert lay["tile_src"] == (4 * tiles + 2, tiles)
+    at = 5 * tiles + 2
+    for name in ("r0", "cnt", "off"):
+        assert lay[name] == (at, C), name
+        at += C
+    assert lay["total"] == (0, at) == (0, 5 * tiles + 2 + 3 * C)
+    assert lay == t_expand_cuda.scratch_layout(C, 1, 1)
+
+
 # ---------------------------------------------------------------------------
 # FOLD, replay-only arity
 # ---------------------------------------------------------------------------
