@@ -222,10 +222,15 @@ def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def busy_ms(fn, reps: int = 25) -> float:
-    """Device busy time of one call: the summed time of the device ops
-    that ``reps`` calls ran under torch.profiler, over ``reps`` (the gaps
-    in which the device waits for the host are left out)."""
+def busy_ops(fn, reps: int = 25) -> dict:
+    """Device busy ms of one call by device op, from ``reps`` calls run
+    under torch.profiler (the gaps in which the device waits for the host
+    are left out): each op's mean time a record, times the records a
+    call, ceil(records / reps).  Late in a long script the profiler kept
+    only some of a run's device records (flash attention read 0.0428 ms
+    busy there, 0.2663 in a fresh process); a mean a record and a count
+    rounded up to whole calls stay right while fewer than ``reps``
+    records of an op are lost."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -233,8 +238,17 @@ def busy_ms(fn, reps: int = 25) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total
-               for e in prof.key_averages()) / 1e3 / reps
+    return {e.key: e.self_device_time_total / 1e3 / e.count
+            * -(-e.count // reps)
+            for e in prof.key_averages() if e.self_device_time_total > 0}
+
+
+def busy(fn, reps: int = 25) -> dict:
+    """``busy_ms``, the device busy time of one call (its device ops'
+    summed time), and ``busy_ops``, that time split by device op, from
+    one profiled run."""
+    ops = busy_ops(fn, reps)
+    return dict(busy_ms=sum(ops.values()), busy_ops=ops)
 
 
 def row_bytes(n: int, m: int) -> int:
@@ -315,8 +329,10 @@ def fold_work(P, active, ror, E, d0: int, d1: int) -> tuple:
     rep = np.clip(host(ror), 0, C - 1)
     ev = host(E.valid)
     ekey = np.where(ev, np.clip(host(E.orig), 0, C - 1), C)
-    lb = np.searchsorted(ekey, rep, side="left")
-    ub = np.searchsorted(ekey, rep, side="right")
+    # each representative's exit range in the sorted keys, by counting
+    ecnt = np.bincount(ekey, minlength=C + 1)[:C]
+    lb = (np.cumsum(ecnt) - ecnt)[rep]
+    ub = lb + ecnt[rep]
     pcnt = np.where(act, ub - lb, 0)
     roff = np.cumsum(pcnt) - pcnt
     take = np.clip(np.minimum(pcnt, C - roff), 0, None)
@@ -468,10 +484,11 @@ def expand_inputs(eng, d: int, rng, dev, cap: int = C):
     return F, args["g_col"], args["g_rs"], args["other_cols"], kw
 
 
-def fold_inputs(eng, rng, dev):
-    """Parent and sorted exit chunks for the plan's first FOLD bracket."""
+def fold_inputs(eng, rng, dev, cap: int = C):
+    """Parent and sorted exit chunks of ``cap`` rows for the plan's first
+    FOLD bracket."""
     op = next(o for o in eng.schedule.ops if o.kind == FOLD_CHILD)
-    n, m = eng.n, eng.m
+    n, m, C = eng.n, eng.m, cap
     reps, n_exits = C // 4, C // 4
 
     def chunk(valid, orig):
@@ -498,11 +515,12 @@ def fold_inputs(eng, rng, dev):
     return P, active.to(dev), ror.to(dev), E, op.sub_first, op.sub_last
 
 
-def merged_inputs(eng, rng, dev, plen_max: int):
+def merged_inputs(eng, rng, dev, plen_max: int, cap: int = C):
     """fold_inputs plus payload hits on the parents that do not replay
     (the executor's ``active = valid & ~hit``), each with a block of 1 to
     ``plen_max`` rows at a random offset of a 2^17-row slab."""
-    P, active, ror, E, d0, d1 = fold_inputs(eng, rng, dev)
+    P, active, ror, E, d0, d1 = fold_inputs(eng, rng, dev, cap)
+    C = cap
     w = d1 - d0 + 1
     hit = P.valid & ~active
     plen = torch.from_numpy(rng.integers(1, plen_max + 1, C)
@@ -567,15 +585,25 @@ def bound_work(lo, hi, n: int) -> tuple:
     return 16 * start.size + 4 * windows, ops
 
 
+def cycle_engine(db, dev):
+    """The 4-cycle's engine on ``db`` (the plan phase 3's inputs follow)
+    and its variable order."""
+    td, order = engine.plan_query(cycle_query(4), db)
+    return CachedTrieJoin(cycle_query(4), td, order, db, capacity=C,
+                          device=dev), order
+
+
+def expand_depth(eng) -> int:
+    """The depth whose EXPAND has the most membership atoms."""
+    return max(reversed(range(eng.n)), key=lambda x: len(eng.at_depth[x]))
+
+
 def expand_case(db, rng, dev, cap: int):
     """Phase 3's EXPAND input: the 4-cycle's engine on ``db``, its
     variable order, and a chunk of ``cap`` rows (expand_inputs) for its
     EXPAND at the depth with the most membership atoms."""
-    td, order = engine.plan_query(cycle_query(4), db)
-    eng = CachedTrieJoin(cycle_query(4), td, order, db, capacity=C,
-                         device=dev)
-    d = max(reversed(range(eng.n)), key=lambda x: len(eng.at_depth[x]))
-    return eng, order, expand_inputs(eng, d, rng, dev, cap)
+    eng, order = cycle_engine(db, dev)
+    return eng, order, expand_inputs(eng, expand_depth(eng), rng, dev, cap)
 
 
 def expand_row(inputs, plain_reps: int = 25) -> dict:
@@ -599,8 +627,7 @@ def expand_row(inputs, plain_reps: int = 25) -> dict:
     return dict(
         max_abs_err=err,
         ms=time_ms(lambda: expand_cuda.expand(F, g_col, g_rs, others, **kw)),
-        busy_ms=busy_ms(lambda: expand_cuda.expand(F, g_col, g_rs, others,
-                                                   **kw)),
+        **busy(lambda: expand_cuda.expand(F, g_col, g_rs, others, **kw)),
         plain_ms=time_ms(lambda: expand_plain.expand_step(
             F, g_col, g_rs, others, **kw), reps=plain_reps,
             warmup=min(3, plain_reps)),
@@ -608,36 +635,144 @@ def expand_row(inputs, plain_reps: int = 25) -> dict:
         note=f"C={cap} d={kw['d']} needed={int(np_)} survivors={k}")
 
 
-def kernels_vs_plain(db, db2, dev):
-    """Phase 3: each kernel against its plain version at C = 2^16, and
-    EXPAND also at the static pass's C = 2^25 on the ca-GrQc-scale
-    graph (returned apart: the kernels line keeps one row a kernel)."""
+def fold_row(P, active, ror, E, d0: int, d1: int,
+             plain_reps: int = 25) -> dict:
+    """Phase 3's FOLD replay row: the kernel bit for bit against its
+    plain version, its times and its bound."""
+    cap = P.assign.shape[0]
+    (Oc, sc) = fold_cuda.replay(P, active, ror, E, d0=d0, d1=d1)
+    (Op, sp_) = fold_plain.replay(P, active, ror, E, d0=d0, d1=d1)
+    torch.cuda.synchronize()
+    check(torch.equal(sc, sp_), f"fold at C={cap}: stats {sc.tolist()} != "
+          f"{sp_.tolist()}")
+    check(torch.equal(Oc.valid, Op.valid),
+          f"fold at C={cap}: valid masks differ")
+    k = int(Op.valid.sum())
+    err = frontier_max_err(Oc, Op, k)
+    check(err == 0, f"fold at C={cap} differs on the valid prefix (err "
+          f"{err})")
+    del Oc, Op
+    moved, ops = fold_work(P, active, ror, E, d0, d1)
+    return dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: fold_cuda.replay(P, active, ror, E, d0=d0,
+                                            d1=d1)),
+        **busy(lambda: fold_cuda.replay(P, active, ror, E, d0=d0, d1=d1)),
+        plain_ms=time_ms(lambda: fold_plain.replay(P, active, ror, E,
+                                                   d0=d0, d1=d1),
+                         reps=plain_reps, warmup=min(3, plain_reps)),
+        **bound(moved, ops), library_ms=None,
+        note=f"C={cap} span=[{d0},{d1}] needed={int(sp_[0])}")
+
+
+def emit_inputs(n: int, rng, dev, cap: int = C):
+    """A chunk of ``cap`` rows of n columns for EMIT, half of them valid."""
+    assign = torch.from_numpy(rng.integers(0, 1 << 12, (cap, n))
+                              .astype(np.int32)).to(dev)
+    valid = torch.from_numpy(rng.random(cap) < 0.5).to(dev)
+    return assign, valid
+
+
+def emit_row(assign, valid, plain_reps: int = 25) -> dict:
+    """Phase 3's EMIT row: the kernel bit for bit against its plain
+    version, its times, its bound and one PyTorch call's time."""
+    cap, n = assign.shape
+    (pc, kc) = emit_cuda.pack(assign, valid)
+    (pp, kp) = emit_plain.pack(assign, valid)
+    torch.cuda.synchronize()
+    check(int(kc) == int(kp), f"emit at C={cap}: k {int(kc)} != {int(kp)}")
+    k = int(kp)
+    err = int((pc[:k].long() - pp[:k].long()).abs().max()) if k else 0
+    check(err == 0, f"emit at C={cap} differs on the packed prefix (err "
+          f"{err})")
+    del pc, pp
+    return dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: emit_cuda.pack(assign, valid)),
+        **busy(lambda: emit_cuda.pack(assign, valid)),
+        plain_ms=time_ms(lambda: emit_plain.pack(assign, valid),
+                         reps=plain_reps, warmup=min(3, plain_reps)),
+        # the valid flags and the k valid rows in, the k rows and k out;
+        # one scan of the valid flags
+        **bound(cap + 2 * 4 * n * k + 4, cap),
+        # one PyTorch call computing the same rows: a boolean-mask gather
+        library_ms=time_ms(lambda: assign[valid]),
+        note=f"C={cap} k={k}")
+
+
+def merged_row(args, d0: int, d1: int, what: str,
+               plain_reps: int = 25) -> dict:
+    """A FOLD merged row: the kernel bit for bit against its plain
+    version on ``args``, its times and its bound."""
+    err, st = merged_check(args, d0, d1, what)
+    P, active, ror, E, hit, poff, plen, slab = args
+    moved, ops = merged_work(P, active, ror, E, hit, plen, d0, d1)
+    return dict(
+        max_abs_err=err, stats=st,
+        ms=time_ms(lambda: fold_cuda.merged(*args, d0=d0, d1=d1)),
+        **busy(lambda: fold_cuda.merged(*args, d0=d0, d1=d1)),
+        plain_ms=time_ms(lambda: fold_plain.merged(*args, d0=d0, d1=d1),
+                         reps=plain_reps, warmup=min(3, plain_reps)),
+        **bound(moved, ops), library_ms=None,
+        note=(f"C={P.assign.shape[0]} span=[{d0},{d1}] needed={st[0]} "
+              f"n_spliced={st[1]} hits={int(hit.sum())}"))
+
+
+# the kernels phase 3 also holds at the static pass's capacity, each on
+# its own seeded inputs (scripts/kernel_ab.py draws the same ones;
+# EXPAND's seed is the one its 2^25 row had before the others joined)
+STATIC_SCALE = ("expand", "fold_replay", "fold_merged", "emit")
+
+
+def kernel_inputs(name: str, eng, dev, cap: int):
+    """Seeded inputs of ``cap`` rows for kernel ``name`` on ``eng``'s
+    plan: EXPAND's chunk at the depth with the most membership atoms,
+    FOLD replay's parents and sorted exits, FOLD merged's with payload
+    hits of up to 16 rows (more rows than the chunk holds), EMIT's chunk
+    of eng.n columns."""
+    if name == "expand":
+        rng = np.random.default_rng([SEED, cap])
+        return expand_inputs(eng, expand_depth(eng), rng, dev, cap)
+    rng = np.random.default_rng([SEED, cap, STATIC_SCALE.index(name)])
+    if name == "fold_replay":
+        return fold_inputs(eng, rng, dev, cap)
+    if name == "fold_merged":
+        return merged_inputs(eng, rng, dev, 16, cap)
+    return emit_inputs(eng.n, rng, dev, cap)
+
+
+def kernel_row(name: str, inputs, plain_reps: int = 3) -> dict:
+    """``name``'s row on ``kernel_inputs``: bit for bit against its plain
+    version, its times and its bound (the plain version timed over
+    ``plain_reps`` calls: at 2^25 rows it takes hundreds of ms), with its
+    device busy time split by device op in the note."""
+    if name == "expand":
+        row = expand_row(inputs, plain_reps=plain_reps)
+    elif name == "fold_replay":
+        row = fold_row(*inputs, plain_reps=plain_reps)
+    elif name == "fold_merged":
+        args, d0, d1 = inputs
+        row = merged_row(args, d0, d1, f"merged at C="
+                         f"{args[0].assign.shape[0]}", plain_reps)
+    else:
+        row = emit_row(*inputs, plain_reps=plain_reps)
+    row["note"] += "; busy by op: " + ", ".join(
+        f"{k.split('(')[0].replace('void ', '').strip()} {v:.4f} ms"
+        for k, v in sorted(row["busy_ops"].items(), key=lambda kv: -kv[1]))
+    return row
+
+
+def kernels_vs_plain(db, dev):
+    """Phase 3: each kernel against its plain version at C = 2^16 (FOLD
+    merged also on seeded inputs, returned apart: the kernels line keeps
+    one row a kernel)."""
     rng = np.random.default_rng(SEED)
     eng, order, inputs = expand_case(db, rng, dev, C)
     rows = {"expand": expand_row(inputs)}
     seeded = {}
 
     # FOLD, replay-only
-    P, active, ror, E, d0, d1 = fold_inputs(eng, rng, dev)
-    (Oc, sc) = fold_cuda.replay(P, active, ror, E, d0=d0, d1=d1)
-    (Op, sp_) = fold_plain.replay(P, active, ror, E, d0=d0, d1=d1)
-    torch.cuda.synchronize()
-    check(torch.equal(sc, sp_), f"fold stats {sc.tolist()} != {sp_.tolist()}")
-    check(torch.equal(Oc.valid, Op.valid), "fold valid masks differ")
-    k = int(Op.valid.sum())
-    err = frontier_max_err(Oc, Op, k)
-    check(err == 0, f"fold differs on the valid prefix (err {err})")
-    moved, ops = fold_work(P, active, ror, E, d0, d1)
-    rows["fold_replay"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: fold_cuda.replay(P, active, ror, E, d0=d0,
-                                            d1=d1)),
-        busy_ms=busy_ms(lambda: fold_cuda.replay(P, active, ror, E, d0=d0,
-                                                 d1=d1)),
-        plain_ms=time_ms(lambda: fold_plain.replay(P, active, ror, E,
-                                                   d0=d0, d1=d1)),
-        **bound(moved, ops), library_ms=None,
-        note=f"span=[{d0},{d1}] needed={int(sp_[0])}")
+    rows["fold_replay"] = fold_row(*fold_inputs(eng, rng, dev))
 
     # FOLD, merged: seeded inputs that replay and splice, one of them with
     # more rows than the chunk holds (its row comes from the static pass)
@@ -653,27 +788,7 @@ def kernels_vs_plain(db, db2, dev):
                                                        d1=d1)))
 
     # EMIT
-    assign = torch.from_numpy(rng.integers(0, 1 << 12, (C, eng.n))
-                              .astype(np.int32)).to(dev)
-    valid = torch.from_numpy(rng.random(C) < 0.5).to(dev)
-    (pc, kc) = emit_cuda.pack(assign, valid)
-    (pp, kp) = emit_plain.pack(assign, valid)
-    torch.cuda.synchronize()
-    check(int(kc) == int(kp), f"emit k {int(kc)} != {int(kp)}")
-    k = int(kp)
-    err = int((pc[:k].long() - pp[:k].long()).abs().max()) if k else 0
-    check(err == 0, f"emit differs on the packed prefix (err {err})")
-    rows["emit"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: emit_cuda.pack(assign, valid)),
-        busy_ms=busy_ms(lambda: emit_cuda.pack(assign, valid)),
-        plain_ms=time_ms(lambda: emit_plain.pack(assign, valid)),
-        # the valid flags and the k valid rows in, the k rows and k out;
-        # one scan of the valid flags
-        **bound(C + 2 * 4 * eng.n * k + 4, C),
-        # one PyTorch call computing the same rows: a boolean-mask gather
-        library_ms=time_ms(lambda: assign[valid]),
-        note=f"k={k}")
+    rows["emit"] = emit_row(*emit_inputs(eng.n, rng, dev))
 
     # the leapfrog bound: C queries, each window a run of a trie level
     col, v, lo, hi = bound_inputs(eng, rng, dev)
@@ -687,8 +802,7 @@ def kernels_vs_plain(db, db2, dev):
     rows["bound"] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: bound_cuda.bound(col, v, lo, hi, strict=True)),
-        busy_ms=busy_ms(lambda: bound_cuda.bound(col, v, lo, hi,
-                                                 strict=True)),
+        **busy(lambda: bound_cuda.bound(col, v, lo, hi, strict=True)),
         plain_ms=time_ms(lambda: bound_plain.bound(col, v, lo, hi,
                                                    strict=True)),
         **bound(*bound_work(lo, hi, col.numel())),
@@ -697,15 +811,22 @@ def kernels_vs_plain(db, db2, dev):
         library_ms=None,
         note=f"M={C} N={col.numel()} strict and non-strict bit-exact")
 
-    # EXPAND at the static pass's capacity (plain timed over 3 calls: it
-    # takes hundreds of ms there)
-    *_, inputs = expand_case(db2, np.random.default_rng([SEED, C_STATIC]),
-                             dev, C_STATIC)
-    big = expand_row(inputs, plain_reps=3)
-    del inputs
-    gc.collect()
-    torch.cuda.empty_cache()
-    return rows, dict(n=eng.n, m=eng.m, order=order), seeded, big
+    return rows, dict(n=eng.n, m=eng.m, order=order), seeded
+
+
+def static_scale_rows(db2, dev) -> dict:
+    """Phase 3 at the static pass's capacity: EXPAND, FOLD replay, FOLD
+    merged and EMIT at C = 2^25 on the ca-GrQc-scale graph's plan, one at
+    a time (each chunk is GBs)."""
+    eng, _ = cycle_engine(db2, dev)
+    big = {}
+    for name in STATIC_SCALE:
+        inputs = kernel_inputs(name, eng, dev, C_STATIC)
+        big[name] = kernel_row(name, inputs)
+        del inputs
+        gc.collect()
+        torch.cuda.empty_cache()
+    return big
 
 
 class SpliceCapture:
@@ -769,17 +890,7 @@ def merged_vs_plain(capture: MergedCapture) -> dict:
     """Phase 3, fold_merged: the kernel against its plain version on the
     captured static-pass inputs (C = C_STATIC)."""
     args, d0, d1 = capture.best
-    err, st = merged_check(args, d0, d1, "merged (static pass)")
-    P, active, ror, E, hit, poff, plen, slab = args
-    moved, ops = merged_work(P, active, ror, E, hit, plen, d0, d1)
-    return dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: fold_cuda.merged(*args, d0=d0, d1=d1)),
-        busy_ms=busy_ms(lambda: fold_cuda.merged(*args, d0=d0, d1=d1)),
-        plain_ms=time_ms(lambda: fold_plain.merged(*args, d0=d0, d1=d1)),
-        **bound(moved, ops), library_ms=None,
-        note=(f"C={P.assign.shape[0]} span=[{d0},{d1}] needed={st[0]} "
-              f"n_spliced={st[1]} hits={int(hit.sum())}"))
+    return merged_row(args, d0, d1, "merged (static pass)")
 
 
 def splice_vs_plain(capture: SpliceCapture) -> dict:
@@ -801,8 +912,8 @@ def splice_vs_plain(capture: SpliceCapture) -> dict:
         max_abs_err=err,
         ms=time_ms(lambda: fold_cuda.splice(P, hit, poff, plen, slab,
                                             d0=d0, d1=d1)),
-        busy_ms=busy_ms(lambda: fold_cuda.splice(P, hit, poff, plen, slab,
-                                                 d0=d0, d1=d1)),
+        **busy(lambda: fold_cuda.splice(P, hit, poff, plen, slab, d0=d0,
+                                        d1=d1)),
         plain_ms=time_ms(lambda: fold_plain.splice(P, hit, poff, plen, slab,
                                                    d0=d0, d1=d1)),
         **bound(moved, ops), library_ms=None,
@@ -835,8 +946,9 @@ def check_rows(rows, order, q, db, want: int, what: str) -> None:
 def profile_line(run) -> str:
     """Run ``run()`` once under torch.profiler: wall time, device busy
     time and share, and the device ops (kernels, copies) that took the
-    most time.  Only device activity is traced: each device op is then
-    counted once, and the trace stays small enough to summarise fast."""
+    most time; fails if a single-block scan (``block_scan``) ran.  Only
+    device activity is traced: each device op is then counted once, and
+    the trace stays small enough to summarise fast."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -846,6 +958,8 @@ def profile_line(run) -> str:
         wall = time.perf_counter() - t0
     ops = [(e.key, e.self_device_time_total / 1e6, e.count)
            for e in prof.key_averages() if e.self_device_time_total > 0]
+    scans = [k for k, _, _ in ops if "block_scan" in k]
+    check(not scans, f"a single-block scan ran on the traced path: {scans}")
     busy = sum(s for _, s, _ in ops)
     if not ops:
         return f"wall {wall:.3f} s (traced); device time not measured"
@@ -1339,7 +1453,7 @@ def flash_phase(dev) -> dict:
     row = dict(
         max_abs_err=err,
         ms=time_ms(lambda: flash_cuda.flash_attention(q, k, v, **kw)),
-        busy_ms=busy_ms(lambda: flash_cuda.flash_attention(q, k, v, **kw)),
+        **busy(lambda: flash_cuda.flash_attention(q, k, v, **kw)),
         plain_ms=time_ms(lambda: flash_plain.flash_attention(q, k, v, **kw)),
         library_ms=time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
                                         enable_gqa=True)),
@@ -1552,25 +1666,29 @@ def main() -> int:
     db2 = grqc_db()
 
     # 3. kernels against their plain versions on the card
-    rows, shape, seeded, big = kernels_vs_plain(db, db2, dev)
+    rows, shape, seeded = kernels_vs_plain(db, dev)
     print(f"[3 kernels] C={C} n={shape['n']} m={shape['m']} "
           f"order={shape['order']}: " + "; ".join(
               f"{k}: {v['ms']:.4f} ms, device busy {v['busy_ms']:.4f} ms "
               f"(plain {v['plain_ms']:.4f} ms, bound {v['bound_ms']:.6f} ms "
               f"by {v['bound_by']}, {v['note']})"
               for k, v in rows.items()), flush=True)
-    print(f"[3 kernels] expand at the static pass's capacity, ca-GrQc-scale "
-          f"graph, bit-exact: {big['ms']:.4f} ms, device busy "
-          f"{big['busy_ms']:.4f} ms (plain {big['plain_ms']:.4f} ms, bound "
-          f"{big['bound_ms']:.6f} ms by {big['bound_by']}, {big['note']})",
-          flush=True)
     print("[3 kernels] fold_merged on seeded inputs, bit-exact: " + "; ".join(
         f"{k}: {v['ms']:.4f} ms (plain {v['plain_ms']:.4f} ms), stats "
         f"{v['stats']}" for k, v in seeded.items()), flush=True)
     # 14, part 1: the flash kernel against its plain version, here beside
-    #    the other kernels' checks (a traced run of long launches late in
-    #    the script kept none of their records in the profiler)
+    #    the other kernels' checks and before the long launches at 2^25
+    #    rows (profiled late in the script, or after those, its launches
+    #    lost most of their device records)
     rows["flash_attention"] = flash_phase(dev)
+    # 3, at the static pass's capacity
+    big = static_scale_rows(db2, dev)
+    print("[3 kernels] at the static pass's capacity, ca-GrQc-scale "
+          "graph's plan, bit-exact: " + "; ".join(
+              f"{k}: {v['ms']:.4f} ms, device busy {v['busy_ms']:.4f} ms "
+              f"(plain {v['plain_ms']:.4f} ms, bound {v['bound_ms']:.6f} ms "
+              f"by {v['bound_by']}, library {v['library_ms']} ms, "
+              f"{v['note']})" for k, v in big.items()), flush=True)
 
     # 4. count on the wiki-Vote-scale graph (main path)
     q = cycle_query(4)

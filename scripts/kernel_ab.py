@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the flash-attention and EXPAND kernels of two checkouts in turns
-on one NVIDIA GPU.
+"""Time the flash-attention, EXPAND, FOLD (replay-only and merged) and
+EMIT kernels of two checkouts in turns on one NVIDIA GPU.
 
     python3 scripts/kernel_ab.py OTHER_TREE
 
@@ -9,12 +9,16 @@ parent commit unpacked with ``git archive`` into a git-ignored directory
 (``build/parent``).  The script starts one process a measurement, in the
 order other, this, this, other; each imports ``repro_torch`` from its own
 tree (building that tree's kernels into the tree's ``build/``) and times,
-on the same seeded inputs as ``chip_smoke.py``'s phases 3 and 14:
+on seeded inputs drawn by this tree's ``chip_smoke.py`` (the same in
+every process):
 
 * flash attention at qwen2.5-3b's prefill shape (B = 4, T = S = 2048,
-  H = 16, Hkv = 2, Dh = 128, causal, bf16);
-* EXPAND at C = 2^16 (phase 3's chunk on the wiki-Vote-scale graph) and at
-  C = 2^25 (the static pass's capacity, on the ca-GrQc-scale graph).
+  H = 16, Hkv = 2, Dh = 128, causal, bf16), phase 14's case;
+* EXPAND, FOLD replay-only, FOLD merged (payload blocks of up to 16 rows:
+  more rows than the chunk holds) and EMIT, each on
+  ``chip_smoke.kernel_inputs``: at C = 2^16 on the 4-cycle's plan of the
+  wiki-Vote-scale graph, and at C = 2^25 (the static pass's capacity) on
+  its plan of the ca-GrQc-scale graph, phase 3's inputs at that size.
 
 Each time is the median of 25 calls by CUDA events, and the device busy
 time a call by torch.profiler, as ``chip_smoke.py`` takes them.  It
@@ -47,8 +51,10 @@ def measure(tree: Path, label: str) -> dict:
     from repro_torch.core.db import graph_db
     from repro_torch.data.graphs import zipf_graph
     from repro_torch.kernels import cudalib
+    from repro_torch.kernels.emit import cuda as emit_cuda
     from repro_torch.kernels.expand import cuda as expand_cuda
     from repro_torch.kernels.flash_attention import cuda as flash_cuda
+    from repro_torch.kernels.fold import cuda as fold_cuda
 
     dev = torch.device("cuda")
     cudalib.load()
@@ -66,25 +72,35 @@ def measure(tree: Path, label: str) -> dict:
                                    q_offset=q_offset)
 
     out["flash_ms"] = cs.time_ms(flash)
-    out["flash_busy_ms"] = cs.busy_ms(flash)
+    out["flash_busy_ms"] = cs.busy(flash)["busy_ms"]
     del q, k, v
 
     db = graph_db(zipf_graph(cs.WIKI["nv"], cs.WIKI["ne"], cs.ZIPF_A,
                              seed=cs.SEED))
-    for name, graph, rng, cap in (
-            ("expand_2^16", db, np.random.default_rng(cs.SEED), cs.C),
-            ("expand_2^25", cs.grqc_db(),
-             np.random.default_rng([cs.SEED, cs.C_STATIC]), cs.C_STATIC)):
-        *_, (F, g_col, g_rs, others, kw) = cs.expand_case(graph, rng, dev,
-                                                          cap)
 
-        def expand():
-            expand_cuda.expand(F, g_col, g_rs, others, **kw)
+    def call(name, inputs):
+        if name == "expand":
+            F, g_col, g_rs, others, kw = inputs
+            return lambda: expand_cuda.expand(F, g_col, g_rs, others, **kw)
+        if name == "fold_replay":
+            P, active, ror, E, d0, d1 = inputs
+            return lambda: fold_cuda.replay(P, active, ror, E, d0=d0, d1=d1)
+        if name == "fold_merged":
+            args, d0, d1 = inputs
+            return lambda: fold_cuda.merged(*args, d0=d0, d1=d1)
+        assign, valid = inputs
+        return lambda: emit_cuda.pack(assign, valid)
 
-        out[f"{name}_ms"] = cs.time_ms(expand)
-        out[f"{name}_busy_ms"] = cs.busy_ms(expand)
-        del F
-        torch.cuda.empty_cache()
+    for graph, cap, size in ((db, cs.C, "2^16"),
+                             (cs.grqc_db(), cs.C_STATIC, "2^25")):
+        eng, _ = cs.cycle_engine(graph, dev)
+        for name in cs.STATIC_SCALE:
+            inputs = cs.kernel_inputs(name, eng, dev, cap)
+            fn = call(name, inputs)
+            out[f"{name}_{size}_ms"] = cs.time_ms(fn)
+            out[f"{name}_{size}_busy_ms"] = cs.busy(fn)["busy_ms"]
+            del inputs, fn
+            torch.cuda.empty_cache()
     return out
 
 

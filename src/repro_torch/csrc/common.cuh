@@ -1,26 +1,30 @@
 // Shared device pieces of the cached trie join's kernels: the bounded
-// binary search, a single-block scan, and the pieces of a single-pass
-// device-wide scan (decoupled look-back).
+// binary searches and the pieces of a single-pass device-wide scan
+// (decoupled look-back).
 //
 // The TPU kernels ran their plan and scan steps once, in the first step of
 // a sequential grid, into VMEM scratch that later steps read.  Hopper
-// blocks run concurrently, so a scan across the whole chunk needs either
-// its own launch (block_scan: one block walks all n values, FOLD's and
-// EMIT's) or blocks that pass their sums on through device memory
-// (claim_tile / block_exclusive_sum / tile_prefix: any kernel that works
-// tile by tile embeds them, EXPAND's).  Scratch lives in device memory
-// that the wrapper allocates.
+// blocks run concurrently, so a scan across the whole chunk is done by
+// blocks that pass their sums on through device memory: claim_tile /
+// block_exclusive_sum / tile_prefix (or tile_prefix_pair, two scans at
+// once), embedded in any kernel that works tile by tile (EXPAND's plan
+// and slots, FOLD's plans, EMIT).  Scratch lives in device memory that
+// the wrapper allocates.
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace ctj {
 
-constexpr int kThreads = 256;       // threads per block of the row launches
-constexpr int kScanThreads = 1024;  // the single block of the scan
+constexpr int kThreads = 256;  // threads per block of the row launches
+constexpr int kTile = 1024;    // values a scan tile (a block), one a thread
 
 __host__ __device__ inline int blocks_for(int n) {
   return (n + kThreads - 1) / kThreads;
+}
+
+__host__ __device__ inline int tiles_for(int n) {
+  return (n + kTile - 1) / kTile;
 }
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
@@ -78,57 +82,22 @@ __device__ __forceinline__ int bsearch_in(const Load& load, int n, int value,
   return lo;
 }
 
-// Scan of n values in one block of kScanThreads threads: out[i] is the
-// sum of in[0..i] (inclusive) or of in[0..i) (exclusive), *total the sum
-// of all n.  Tiles of kScanThreads values are read coalesced and scanned
-// with warp shuffles; a running carry links the tiles.  Sums are int32 and
-// wrap as the plain version's int32 cumsum does.
-template <typename T>
-__global__ void __launch_bounds__(kScanThreads)
-block_scan(const T* __restrict__ in, int* __restrict__ out,
-           int* __restrict__ total, int n, int inclusive) {
-  __shared__ int warp_incl[kScanThreads / 32];
-  __shared__ int carry;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (threadIdx.x == 0) carry = 0;
-  __syncthreads();
-  for (int base = 0; base < n; base += kScanThreads) {
-    const int i = base + threadIdx.x;
-    const int v = i < n ? static_cast<int>(in[i]) : 0;
-    int x = v;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, x, o);
-      if (lane >= o) x += y;
-    }
-    if (lane == 31) warp_incl[warp] = x;
-    __syncthreads();
-    if (warp == 0) {
-      int w = warp_incl[lane];
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, w, o);
-        if (lane >= o) w += y;
-      }
-      warp_incl[lane] = w;
-    }
-    __syncthreads();
-    const int incl = carry + x + (warp > 0 ? warp_incl[warp - 1] : 0);
-    if (i < n) out[i] = inclusive ? incl : incl - v;
-    __syncthreads();  // every thread has read carry before it moves on
-    if (threadIdx.x == kScanThreads - 1) carry = incl;
-    __syncthreads();
+// The first position p >= from of the sorted column [0, n) whose value is
+// not < value (kStrict; not <= value otherwise), given that no position
+// before `from` is: galloping steps of 1, 2, 4, ... from `from`, then a
+// binary search inside the last step.  A range a few values long takes a
+// few loads where a search of the whole column takes its bit length.
+template <bool kStrict, typename Load>
+__device__ __forceinline__ int search_from(const Load& load, int n, int value,
+                                           int from) {
+  int lo = from, hi = from;
+  for (int step = 1; hi < n; step <<= 1) {
+    const int x = load(hi);
+    if (!(kStrict ? (x < value) : (x <= value))) break;
+    lo = hi + 1;
+    hi = from + step;
   }
-  if (threadIdx.x == 0) *total = carry;
-}
-
-template <typename T>
-inline cudaError_t launch_scan(const T* in, int* out, int* total, int n,
-                               bool inclusive, cudaStream_t stream) {
-  block_scan<T><<<1, kScanThreads, 0, stream>>>(in, out, total, n,
-                                                inclusive ? 1 : 0);
-  return cudaGetLastError();
+  return bsearch_in<kStrict>(load, n, value, lo, hi < n ? hi : n);
 }
 
 // ---------------------------------------------------------------------------
@@ -150,7 +119,7 @@ inline cudaError_t launch_scan(const T* in, int* out, int* total, int n,
 // Cost: a tile that has done its work waits, holding its SM slot, until
 // every tile between it and the nearest published prefix has published
 // its sum, and the prefixes pass down the line of tiles 32 a round trip.
-// Large tiles keep the line short: EXPAND's tiles of 1024 values make
+// Large tiles keep the line short: tiles of kTile = 1024 values make
 // 32,768 at 2^25 values.
 // ---------------------------------------------------------------------------
 
@@ -186,8 +155,9 @@ __device__ __forceinline__ int claim_tile(int* ticket) {
 }
 
 // Exclusive sum of x over the kBlock threads of the block (at most
-// 1024), in thread order; *total* gets the block's sum.  Call once a
-// kernel, from every thread.
+// 1024), in thread order; *total* gets the block's sum.  Call it from
+// every thread; a second call must come after a __syncthreads that
+// follows the first (tile_prefix's will do).
 template <int kBlock>
 __device__ __forceinline__ unsigned block_exclusive_sum(unsigned x,
                                                         unsigned& total) {
@@ -216,55 +186,110 @@ __device__ __forceinline__ unsigned block_exclusive_sum(unsigned x,
   return (warp > 0 ? warp_incl[warp - 1] : 0u) + incl - x;
 }
 
-// The sum of every tile before `tile`, given this tile's sum.  Publishes
-// the sum as the tile's aggregate (a release store).  Then warp 0 reads
-// the status words of the 32 tiles before it in one coalesced load (lane
-// l the tile l + 1 before) and adds the sums from the nearest tile back to
-// the nearest one that holds its inclusive prefix, waiting only while a
-// tile nearer than that one holds no flag yet (rereading the empty
-// words); if the window holds no prefix it adds all 32 and steps a window
-// further back.  Last it fences (acquire) and publishes this tile's
-// inclusive prefix.  Call once a kernel, from every thread.
+// The look-back of one whole warp: the sum of every tile before `tile`,
+// given this tile's sum, in every lane.  Publishes the sum as the tile's
+// aggregate (a release store).  Then it reads the status words of the 32
+// tiles before it in one coalesced load (lane l the tile l + 1 before) and
+// adds the sums from the nearest tile back to the nearest one that holds
+// its inclusive prefix, waiting only while a tile nearer than that one
+// holds no flag yet (rereading the empty words); if the window holds no
+// prefix it adds all 32 and steps a window further back.  Last it fences
+// (acquire) and publishes this tile's inclusive prefix.
+__device__ __forceinline__ unsigned warp_lookback(unsigned long long* status,
+                                                  int tile, unsigned total) {
+  const int lane = threadIdx.x & 31;
+  unsigned excl = 0;
+  if (tile > 0) {
+    if (lane == 0) st_release(status + tile, kTileAggregate | total);
+    int pred = tile - 1 - lane;  // this lane's tile, nearest first
+    unsigned long long w = pred >= 0 ? ld_relaxed(status + pred) : kTilePrefix;
+    for (;;) {
+      const unsigned long long flag = w & ~0xffffffffull;
+      const unsigned has_prefix =
+          __ballot_sync(0xffffffffu, flag == kTilePrefix);
+      const unsigned empty = __ballot_sync(0xffffffffu, flag == 0);
+      const int pre = has_prefix ? __ffs(has_prefix) - 1 : 32;
+      const int gap = empty ? __ffs(empty) - 1 : 32;
+      if (gap < pre) {  // a nearer tile has not published yet
+        if (flag == 0) w = ld_relaxed(status + pred);
+        continue;
+      }
+      unsigned x = lane <= pre ? static_cast<unsigned>(w) : 0u;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+      excl += x;
+      if (pre < 32) break;
+      pred -= 32;
+      w = pred >= 0 ? ld_relaxed(status + pred) : kTilePrefix;
+    }
+    __threadfence();
+  }
+  if (lane == 0) st_release(status + tile, kTilePrefix | (excl + total));
+  return excl;
+}
+
+// The sum of every tile before `tile`, given this tile's sum: warp 0
+// looks back (warp_lookback) and passes the result to the block.  Call
+// once a kernel, from every thread.
 __device__ __forceinline__ unsigned tile_prefix(unsigned long long* status,
                                                 int tile, unsigned total) {
   __shared__ unsigned before;
   if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    unsigned excl = 0;
-    if (tile > 0) {
-      if (lane == 0) st_release(status + tile, kTileAggregate | total);
-      int pred = tile - 1 - lane;  // this lane's tile, nearest first
-      unsigned long long w =
-          pred >= 0 ? ld_relaxed(status + pred) : kTilePrefix;
-      for (;;) {
-        const unsigned long long flag = w & ~0xffffffffull;
-        const unsigned has_prefix =
-            __ballot_sync(0xffffffffu, flag == kTilePrefix);
-        const unsigned empty = __ballot_sync(0xffffffffu, flag == 0);
-        const int pre = has_prefix ? __ffs(has_prefix) - 1 : 32;
-        const int gap = empty ? __ffs(empty) - 1 : 32;
-        if (gap < pre) {  // a nearer tile has not published yet
-          if (flag == 0) w = ld_relaxed(status + pred);
-          continue;
-        }
-        unsigned x = lane <= pre ? static_cast<unsigned>(w) : 0u;
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1)
-          x += __shfl_xor_sync(0xffffffffu, x, o);
-        excl += x;
-        if (pre < 32) break;
-        pred -= 32;
-        w = pred >= 0 ? ld_relaxed(status + pred) : kTilePrefix;
-      }
-      __threadfence();
-    }
-    if (lane == 0) {
-      st_release(status + tile, kTilePrefix | (excl + total));
-      before = excl;
-    }
+    const unsigned excl = warp_lookback(status, tile, total);
+    if (threadIdx.x == 0) before = excl;
   }
   __syncthreads();
   return before;
+}
+
+// Two scans over the same tiles at once: warp 0 looks back over status0
+// with total0, warp 1 over status1 with total1, side by side.  Returns
+// the first scan's prefix; before1 gets the second's.  Call once a
+// kernel, from every thread of a block of at least 64.
+__device__ __forceinline__ unsigned tile_prefix_pair(
+    unsigned long long* status0, unsigned long long* status1, int tile,
+    unsigned total0, unsigned total1, unsigned& before1) {
+  __shared__ unsigned before[2];
+  const int warp = threadIdx.x >> 5;
+  if (warp < 2) {
+    const unsigned excl = warp_lookback(warp == 0 ? status0 : status1, tile,
+                                        warp == 0 ? total0 : total1);
+    if ((threadIdx.x & 31) == 0) before[warp] = excl;
+  }
+  __syncthreads();
+  before1 = before[1];
+  return before[0];
+}
+
+// The slot tiles t < tiles_for(C) whose first slot t * kTile lies in
+// [off, off + cnt) name `row` as their source (tile_src[t] = row): a row
+// covering many tiles writes each of them.  Together with the offsets
+// this lets a slot find its row by a search inside its tile's window.
+__device__ __forceinline__ void mark_tiles(int* __restrict__ tile_src,
+                                           int row, int off, int cnt, int C) {
+  if (cnt <= 0 || off < 0) return;
+  const long long end = static_cast<long long>(off) + cnt;
+  for (long long t = (off + kTile - 1LL) / kTile;
+       t < tiles_for(C) && t * kTile < end; ++t)
+    tile_src[t] = row;
+}
+
+// The row whose offset range covers slot s (the last row with off <= s),
+// for s < limit, the slots that hold a row: an upper-bound search of s in
+// off[0, C) inside the window of rows that tile_src gives s's tile, from
+// the row that covers its first slot to the one that covers the next
+// tile's.  Rows of count 0 share the next row's offset, so the search
+// steps past them.
+__device__ __forceinline__ int slot_row(const int* __restrict__ off,
+                                        const int* __restrict__ tile_src,
+                                        int s, int limit, int C) {
+  const int t = s / kTile;
+  const int w_lo = clampi(tile_src[t], 0, C - 1);
+  const int w_hi = (t + 1) * kTile < limit
+                       ? clampi(tile_src[t + 1], 0, C - 1) + 1
+                       : C;
+  return clampi(bsearch_in<false>(ColLoad{off}, C, s, w_lo, w_hi) - 1, 0,
+                C - 1);
 }
 
 }  // namespace ctj

@@ -17,8 +17,8 @@
 // dependent loads; they hide behind other warps, not behind arithmetic.
 //
 // Before: five launches, plan, a scan of the counts, slots, a scan of the
-// survivor flags and compact.  Both scans were block_scan<<<1, 1024>>>: one
-// block walking all C values (about 39 us at C = 2^16, 5-20 ms at 2^25),
+// survivor flags and compact.  Both scans ran in a single block of 1024
+// threads walking all C values (about 39 us at C = 2^16, 5-20 ms at 2^25),
 // and every slot staged its whole row in device scratch for compact to
 // copy to its rank.
 //
@@ -28,7 +28,7 @@
 // kTile = 1024 rows or slots, one a thread: fewer tiles than 256-row ones
 // (the look-back's line is 4x shorter), and one row a thread still fills
 // every SM at C = 2^16.  Searches take as many trips as their window
-// needs (bsearch_in, lower_bound_from), not as the whole column.
+// needs (bsearch_in, search_from), not as the whole column.
 //   1. plan  — the guard run range [r0, r1) of each valid row by bounded
 //              search of lo/hi over the run starts, cnt = r1 - r0, and
 //              its exclusive prefix, the slot offset off; each row also
@@ -64,27 +64,6 @@ struct OtherAtoms {
   int n;
 };
 
-constexpr int kTile = 1024;  // rows or slots a tile (a block), one a thread
-
-__host__ __device__ inline int tiles_for(int n) {
-  return (n + kTile - 1) / kTile;
-}
-
-// The first position p >= from of the sorted a[0, n) with a[p] >= value,
-// given that every position before `from` holds less: galloping steps of
-// 1, 2, 4, ... from `from`, then a binary search inside the last step.  A
-// guard window spans a few runs, so this takes a few loads where a search
-// of the whole run-start column takes its bit length.
-__device__ __forceinline__ int lower_bound_from(const int* __restrict__ a,
-                                                int n, int value, int from) {
-  int lo = from, hi = from;
-  for (int step = 1; hi < n && __ldg(a + hi) < value; step <<= 1) {
-    lo = hi + 1;
-    hi = from + step;
-  }
-  return bsearch_in<true>(ColLoad{a}, n, value, lo, hi < n ? hi : n);
-}
-
 __global__ void __launch_bounds__(kTile)
 expand_plan(const int* __restrict__ lo, const int* __restrict__ hi,
             const bool* __restrict__ valid, const int* __restrict__ g_rs,
@@ -100,7 +79,7 @@ expand_plan(const int* __restrict__ lo, const int* __restrict__ hi,
     const size_t row = static_cast<size_t>(i) * m + g_ai;
     const int v0 = lo[row], v1 = hi[row];
     r0 = bsearch<true>(rs, nruns, v0, 0, nruns);
-    cnt = (v1 >= v0 ? lower_bound_from(g_rs, nruns, v1, r0)
+    cnt = (v1 >= v0 ? search_from<true>(rs, nruns, v1, r0)
                     : bsearch<true>(rs, nruns, v1, 0, nruns)) - r0;
   }
   unsigned total;
@@ -111,13 +90,7 @@ expand_plan(const int* __restrict__ lo, const int* __restrict__ hi,
     r0_out[i] = r0;
     cnt_out[i] = cnt;
     off_out[i] = off;
-    // the slot tiles whose first slot lies in [off, off + cnt)
-    if (cnt > 0 && off >= 0) {
-      const long long end = static_cast<long long>(off) + cnt;
-      for (long long t = (off + kTile - 1LL) / kTile;
-           t < tiles_for(C) && t * kTile < end; ++t)
-        tile_src[t] = i;
-    }
+    mark_tiles(tile_src, i, off, cnt, C);
   }
   if (tile == tiles_for(C) - 1 && threadIdx.x == 0)
     *needed = static_cast<int>(before + total);

@@ -1,106 +1,81 @@
 // FOLD, in its three arities (replay-only, splice-only and merged): one
-// bracket close in evaluation mode.  The file holds one copy of each
-// gather (replay_row, splice_row) and three entry points.
-//
-// ---- Replay-only (ctj_fold_replay) ----------------------------------------
+// bracket close in evaluation mode.  The file holds one copy of each plan
+// row and each gather (replay_plan_row, replay_row, splice_row) and three
+// entry points, each a plan launch that scans as it goes and a slots
+// launch.
 //
 // Replaces: src/repro/kernels/fold/fused.py, function build (kernel body
-// _make_kernel), its replay-only arity — the fused Pallas FOLD of the TPU
-// engine.  For every active parent row i and every valid exit row e whose
-// orig is rep_of_row[i], one output row: the parent's assignment with
-// columns [d0, d1] taken from the exit row, factor = parent x exit.
+// _make_kernel) — the fused Pallas FOLD of the TPU engine, one
+// pallas_call in three arities:
+//   * replay-only (ctj_fold_replay; with_replay=True, with_splice=False):
+//     for every active parent row i and every valid exit row e whose orig
+//     is rep_of_row[i], one output row: the parent's assignment with
+//     columns [d0, d1] taken from the exit row, factor = parent x exit;
+//     stats = [needed, 0, min(needed, C)];
+//   * splice-only (ctj_fold_splice; with_replay=False, with_splice=True):
+//     each parent row i with a tier-2 payload hit contributes plen[i]
+//     output rows: the parent's assignment with columns [d0, d1] taken
+//     from slab rows poff[i] .. poff[i] + plen[i] - 1 (its cached block),
+//     in parent-row order; factor, orig, lo and hi are the parent's;
+//     stats = [0, n_spliced, min(n_spliced, C)];
+//   * merged (ctj_fold_merged; both, which only the static executor
+//     calls): [replay | splice], the replay rows truncated to
+//     n1 = min(needed, C), then the splice rows in slots
+//     n1 .. min(n1 + n_spliced, C) - 1; stats = [needed, n_spliced,
+//     min(needed, C) + min(n_spliced, C)], the last figure uncapped so
+//     that the executor can flag an overflow.
+// The replay and merged arities require the exit chunk valid-prefix
+// compacted with nondecreasing orig (the executor's sorted-exits
+// invariant), so a representative's exits are one range found by search:
+// no histogram or sort is needed.
 //
 // What bounds it on an H100: memory and launch latency.  At the main
-// path's chunk (C = 65536, n = 4, m = 4) a call moves at most the parent
-// chunk (60 bytes a row), active and rep_of_row (5), the exit chunk's
-// assign, factor, valid and orig (29), a full output chunk (61) and the
-// stats: 155 bytes a row, about 10.2 MB, 3.0 us at 3.35 TB/s.  A real
-// fold needs only the parents that replay, the exits they replay and
-// min(needed, C) output rows (chip_smoke.py counts those).
+// path's chunk (C = 65536, n = 4, m = 4) a replay call moves at most the
+// parent chunk (60 bytes a row), active and rep_of_row (5), the exit
+// chunk's assign, factor, valid and orig (29), a full output chunk (61)
+// and the stats: 155 bytes a row, about 10.2 MB, 3.0 us at 3.35 TB/s; a
+// real fold needs only the parents that replay, the exits they replay and
+// min(needed, C) output rows (chip_smoke.py counts those): about 1 us.  At
+// the static pass's C = 2^25 the merged arity moves at most 0.5-2 GB,
+// 0.15-0.6 ms.
 //
-// Design.  The TPU kernel computed its plan into VMEM scratch in the first
-// step of a sequential grid; here the steps are three launches:
-//   1. plan  — one thread per parent row: its representative's exit range
-//              by two bounded searches over the exit keys
-//              ekey = valid ? clip(orig) : C (the exits are valid-prefix
-//              compacted with nondecreasing orig — the executor's
-//              sorted-exits invariant — so no histogram or sort is
-//              needed), and pcnt = active ? range length : 0;
-//   2. scan  — exclusive scan of pcnt: replay offsets and `needed`;
-//   3. slots — one thread per output slot: invert the offsets by an
-//              upper-bound search, gather the parent and the exit row,
-//              write the row; slot 0 also writes stats.
-// The offsets partition [0, needed), so the survivors are a prefix by
-// construction and no compaction pass is needed.
+// Before: each arity ran a plan launch, one single-block scan a region
+// (one block of 1024 threads walking all C values at about 0.6 ns a
+// value, 39 us at C = 2^16 and 20-27 ms at 2^25) and a slots
+// launch in which every slot inverted the offsets by a fixed-trip search
+// over all C of them.  The scans were most of every call: 39 of 58.6 us of
+// device time for replay at 2^16, two of them about 50 of 50.75 ms for
+// merged at 2^25.
 //
-// ---- Splice-only (ctj_fold_splice) ----------------------------------------
-//
-// Replaces: the same Pallas kernel's splice-only arity
-// (src/repro/kernels/fold/fused.py, build with with_replay=False,
-// with_splice=True; splice region of _make_kernel).  Each parent row i
-// with a tier-2 payload hit contributes plen[i] output rows: the parent's
-// assignment with columns [d0, d1] taken from slab rows poff[i] ..
-// poff[i] + plen[i] - 1 (its cached factorized block), in parent-row
-// order; factor, orig, lo and hi are the parent's.  Slots below
-// min(n_spliced, C) are valid; stats = [0, n_spliced, min(n_spliced, C)].
-//
-// What bounds it on an H100: memory and launch latency, as for replay.
-// A call must read the hit flags and block pointers of every parent, the
-// parent row of every parent that hits, the n_spliced slab rows, and
-// write min(n_spliced, C) output rows: at C = 65536, n = m = 4 and a full
-// chunk of output that is at most ~10 MB, about 3 us at 3.35 TB/s; each
-// output slot also runs one bounded search over the C offsets.
-//
-// Design.  The Pallas kernel computed scnt/soff into VMEM scratch in its
-// first grid step; here those steps are their own launches:
-//   1. plan  — one thread per parent row: scnt = hit ? plen : 0;
-//   2. scan  — exclusive scan of scnt (block_scan): soff and n_spliced;
-//   3. slots — one thread per output slot: the parent by an upper-bound
-//              search of the slot in soff, minus 1; the slab row
-//              poff[src] + slot - soff[src], clipped to [0, nslab - 2] as
-//              the Pallas kernel clips it (the last slab row is the
-//              store's scratch row, never read); slot 0 writes stats.
-// The offsets partition [0, n_spliced), so the valid rows are a prefix
-// and no compaction is needed.  Blocks are contiguous in the slab, so no
-// per-representative sort is needed either.
-// ---- Merged (ctj_fold_merged) ---------------------------------------------
-//
-// Replaces: the same Pallas kernel's two-region arity
-// (src/repro/kernels/fold/fused.py, build with with_replay=True,
-// with_splice=True: the `with_replay and with_splice` branch of
-// _make_kernel), which only the static executor calls.  Output layout
-// [replay | splice]: the replay rows of the miss parents first, truncated
-// to n1 = min(needed, C), then the splice rows of the hit parents in slots
-// n1 .. min(n1 + n_spliced, C) - 1.  stats = [needed, n_spliced,
-// min(needed, C) + min(n_spliced, C)], the last figure uncapped so that
-// the executor can flag an overflow.
-//
-// What bounds it on an H100: bytes.  It must read the parent plan (active,
-// rep_of_row, hit, plen: 10 bytes a parent), the exits' valid flags and
-// orig, the parent row of every parent that fills an output row, the exit
-// or slab row each output row takes, and write min(n1 + n2, C) output rows
-// (61 bytes each at n = m = 4) and the valid flags.  At the static path's
-// capacities (C = 2^23 to 2^25) that is 0.5-2 GB at most, 0.15-0.6 ms at
-// 3.35 TB/s; but the two exclusive scans run in one block each
-// (block_scan, about 0.6 ns a value), 5-20 ms apiece, and they set the
-// kernel's time.
-//
-// Design.  The Pallas kernel computed both plans into VMEM scratch in grid
-// step 0 and read them in later steps; Hopper runs blocks concurrently, so
-// the steps are four launches on one stream:
-//   1. plan  — one thread per parent row writes both plans: the replay
-//              plan (its representative's exit range by two bounded
-//              searches over the sorted exit keys, pcnt) and the splice
-//              plan (scnt = hit ? plen : 0);
-//   2. scan  — exclusive scan of pcnt: roff and `needed`;
-//   3. scan  — exclusive scan of scnt: soff and n_spliced;
-//   4. slots — one thread per output slot reads n1 from the first scan's
-//              total in device memory (no host round trip): slots below n1
-//              take the replay gather at pair s, the rest the splice
-//              gather at pair u = s - n1; slot 0 writes stats.
-// Both regions are prefixes of their own offsets, so the valid rows are a
-// prefix with no compaction.  The scans are the repo's single-block scan,
-// kept simple here: a multi-block scan is the way to make this fast.
+// Design.  Two launches after one memset (of the look-back's status words
+// and ticket):
+//   1. plan  — tiles of kTile = 1024 parent rows claimed by ticket, one
+//              row a thread.  A row's count: the exit range [lb, ub) of
+//              its representative (lb by a fixed-trip bounded search of
+//              the exit keys ekey = valid ? clip(orig) : C, ub by
+//              galloping from lb: a range is a few exits long), pcnt =
+//              active ? ub - lb : 0; and/or scnt = hit ? plen : 0.  The
+//              counts' exclusive prefix (block_exclusive_sum plus
+//              tile_prefix, decoupled look-back; the merged arity runs
+//              both scans side by side, tile_prefix_pair) gives the
+//              offsets roff / soff.  Each row names itself as the source
+//              of every slot tile whose first slot its range covers
+//              (mark_tiles: a row covering many tiles writes each of
+//              them, so skew is fine), and the last tile writes stats.
+//   2. slots — one thread an output slot, in blocks of kThreads (the
+//              slots scan nothing, so their block size is free of the
+//              plan's tile).  A slot reads the totals from stats (no host
+//              round trip), writes valid, and a slot below the valid count
+//              finds its parent by an upper-bound search of the offsets
+//              inside its tile's window of rows (slot_row: about a
+//              thousand rows, in L1, not all C) and gathers its row.  In
+//              the merged arity slots below n1 take replay pair s, the
+//              rest splice row u = s - n1, whose window comes from the
+//              splice tiles (tile_src over the u space): n1 need not be
+//              tile-aligned.
+// The offsets partition [0, needed) and [0, n_spliced), so the valid rows
+// are a prefix by construction and no compaction pass is needed.  Sums
+// are 32-bit and wrap as the plain version's int32 cumsum does.
 #include "common.cuh"
 
 namespace ctj {
@@ -111,7 +86,7 @@ struct ExitKey {
   const int* orig;
   int C;
   __device__ __forceinline__ int operator()(int i) const {
-    return valid[i] ? clampi(orig[i], 0, C - 1) : C;
+    return valid[i] ? clampi(__ldg(orig + i), 0, C - 1) : C;
   }
 };
 
@@ -134,12 +109,21 @@ struct Out {
   int* hi;
 };
 
+// What the replay plan reads: the parents' flags and representatives and
+// the exits' sort keys.
+struct ReplayIn {
+  const bool* active;
+  const int* rep_of_row;
+  ExitKey key;
+};
+
 // What the replay gather reads: the exit rows and the replay plan.
 struct Replay {
   const int* e_assign;
   const long long* e_factor;
-  const int* plb;   // first exit of each parent's representative
-  const int* roff;  // exclusive scan of the pair counts
+  const int* plb;       // first exit of each parent's representative
+  const int* roff;      // exclusive scan of the pair counts
+  const int* tile_src;  // the parent covering each slot tile's first slot
 };
 
 // What the splice gather reads: the block pointers, the slab and the
@@ -147,7 +131,8 @@ struct Replay {
 struct Splice {
   const int* poff;
   const int* slab;
-  const int* soff;  // exclusive scan of the spliced row counts
+  const int* soff;      // exclusive scan of the spliced row counts
+  const int* tile_src;  // the parent covering each splice tile's first row
   int nslab;
 };
 
@@ -155,27 +140,25 @@ struct Shape {
   int C, n, m, d0, d1;
 };
 
-// Replay plan of parent row i: its representative's exit range [lb, ub)
-// (the exits are sorted by representative) and the pairs it replays.
-__device__ __forceinline__ void replay_plan_row(
-    int i, const bool* __restrict__ active,
-    const int* __restrict__ rep_of_row, const ExitKey& key, int C,
-    int* __restrict__ plb, int* __restrict__ pcnt) {
-  const int rep = clampi(rep_of_row[i], 0, C - 1);
-  const int lb = bsearch<true>(key, C, rep, 0, C);
-  const int ub = bsearch<false>(key, C, rep, 0, C);
-  plb[i] = lb;
-  pcnt[i] = active[i] ? ub - lb : 0;
+// Replay plan of parent row i: the pairs it replays, and in *lb the first
+// exit of its representative (the exits are sorted by representative, so
+// its exits are the range [lb, ub)).  An inactive row replays nothing and
+// searches nothing.
+__device__ __forceinline__ int replay_plan_row(int i, const ReplayIn& in,
+                                               int C, int* lb) {
+  *lb = 0;
+  if (!in.active[i]) return 0;
+  const int rep = clampi(in.rep_of_row[i], 0, C - 1);
+  *lb = bsearch<true>(in.key, C, rep, 0, C);
+  return search_from<false>(in.key, C, rep, *lb) - *lb;
 }
 
-// Output slot s takes replay pair r: the parent by an upper-bound search
-// of r in roff, minus 1, and that parent's (r - roff[src])-th exit.
-__device__ __forceinline__ void replay_row(int s, int r, const Shape& sh,
-                                           const Parent& p, const Replay& rp,
-                                           const Out& o) {
+// Output slot s takes replay pair r of parent src (found by slot_row):
+// the parent's row with its (r - roff[src])-th exit.
+__device__ __forceinline__ void replay_row(int s, int r, int src,
+                                           const Shape& sh, const Parent& p,
+                                           const Replay& rp, const Out& o) {
   const int C = sh.C, n = sh.n, m = sh.m;
-  const int src =
-      clampi(bsearch<false>(ColLoad{rp.roff}, C, r, 0, C) - 1, 0, C - 1);
   const int eidx = clampi(rp.plb[src] + (r - rp.roff[src]), 0, C - 1);
   const size_t so = static_cast<size_t>(s);
   const size_t ps = static_cast<size_t>(src);
@@ -193,16 +176,14 @@ __device__ __forceinline__ void replay_row(int s, int r, const Shape& sh,
   o.orig[s] = p.orig[src];
 }
 
-// Output slot s takes splice row u: the parent by an upper-bound search
-// of u in soff, minus 1, and slab row poff[src] + u - soff[src], clipped
-// to [0, nslab - 2] as the Pallas kernel clips it (the last slab row is
-// the store's scratch row, never read).
-__device__ __forceinline__ void splice_row(int s, int u, const Shape& sh,
-                                           const Parent& p, const Splice& sp,
-                                           const Out& o) {
-  const int C = sh.C, n = sh.n, m = sh.m;
-  const int src =
-      clampi(bsearch<false>(ColLoad{sp.soff}, C, u, 0, C) - 1, 0, C - 1);
+// Output slot s takes splice row u of parent src (found by slot_row):
+// slab row poff[src] + u - soff[src], clipped to [0, nslab - 2] as the
+// Pallas kernel clips it (the last slab row is the store's scratch row,
+// never read).
+__device__ __forceinline__ void splice_row(int s, int u, int src,
+                                           const Shape& sh, const Parent& p,
+                                           const Splice& sp, const Out& o) {
+  const int n = sh.n, m = sh.m;
   const int w = sh.d1 - sh.d0 + 1;
   const int sidx = clampi(sp.poff[src] + (u - sp.soff[src]), 0,
                           sp.nslab - 2);
@@ -222,97 +203,134 @@ __device__ __forceinline__ void splice_row(int s, int u, const Shape& sh,
   o.orig[s] = p.orig[src];
 }
 
-__global__ void fold_plan(const bool* __restrict__ active,
-                          const int* __restrict__ rep_of_row,
-                          const bool* __restrict__ e_valid,
-                          const int* __restrict__ e_orig, int C,
-                          int* __restrict__ plb, int* __restrict__ pcnt) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= C) return;
-  replay_plan_row(i, active, rep_of_row, ExitKey{e_valid, e_orig, C}, C,
-                  plb, pcnt);
-}
-
-__global__ void fold_slots(Shape sh, Parent p, Replay rp,
-                           const int* __restrict__ needed_p, Out o,
-                           long long* __restrict__ stats) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= sh.C) return;
-  const int needed = *needed_p;
-  const int n_valid = needed < sh.C ? needed : sh.C;
-  if (s == 0) {
+__global__ void __launch_bounds__(kTile)
+fold_plan(ReplayIn in, int C, int* __restrict__ plb, int* __restrict__ roff,
+          int* __restrict__ tile_src, long long* __restrict__ stats,
+          unsigned long long* status, int* ticket) {
+  const int tile = claim_tile(ticket);
+  const int i = tile * kTile + threadIdx.x;
+  int lb = 0, cnt = 0;
+  if (i < C) cnt = replay_plan_row(i, in, C, &lb);
+  unsigned total;
+  const unsigned in_tile = block_exclusive_sum<kTile>(cnt, total);
+  const unsigned before = tile_prefix(status, tile, total);
+  if (i < C) {
+    const int off = static_cast<int>(before + in_tile);
+    plb[i] = lb;
+    roff[i] = off;
+    mark_tiles(tile_src, i, off, cnt, C);
+  }
+  if (tile == tiles_for(C) - 1 && threadIdx.x == 0) {
+    const int needed = static_cast<int>(before + total);
     stats[0] = needed;
     stats[1] = 0;
-    stats[2] = n_valid;
+    stats[2] = needed < C ? needed : C;
   }
-  o.valid[s] = s < n_valid;
-  if (s >= n_valid) return;
-  replay_row(s, s, sh, p, rp, o);
 }
 
-__global__ void splice_plan(const bool* __restrict__ hit,
-                            const int* __restrict__ plen, int C,
-                            int* __restrict__ scnt) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= C) return;
-  scnt[i] = hit[i] ? plen[i] : 0;
-}
-
-__global__ void splice_slots(Shape sh, Parent p, Splice sp,
-                             const int* __restrict__ n_spl_p, Out o,
-                             long long* __restrict__ stats) {
+__global__ void fold_slots(Shape sh, Parent p, Replay rp, Out o,
+                           const long long* __restrict__ stats) {
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= sh.C) return;
-  const int n_spl = *n_spl_p;
-  const int n_valid = n_spl < sh.C ? n_spl : sh.C;
-  if (s == 0) {
-    stats[0] = 0;
-    stats[1] = n_spl;
-    stats[2] = n_valid;
-  }
+  const int n_valid = static_cast<int>(stats[2]);
   o.valid[s] = s < n_valid;
   if (s >= n_valid) return;
-  splice_row(s, s, sh, p, sp, o);
+  replay_row(s, s, slot_row(rp.roff, rp.tile_src, s, n_valid, sh.C), sh, p,
+             rp, o);
 }
 
-__global__ void merged_plan(const bool* __restrict__ active,
-                            const int* __restrict__ rep_of_row,
-                            const bool* __restrict__ e_valid,
-                            const int* __restrict__ e_orig,
-                            const bool* __restrict__ hit,
-                            const int* __restrict__ plen, int C,
-                            int* __restrict__ plb, int* __restrict__ pcnt,
-                            int* __restrict__ scnt) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= C) return;
-  replay_plan_row(i, active, rep_of_row, ExitKey{e_valid, e_orig, C}, C,
-                  plb, pcnt);
-  scnt[i] = hit[i] ? plen[i] : 0;
+__global__ void __launch_bounds__(kTile)
+splice_plan(const bool* __restrict__ hit, const int* __restrict__ plen,
+            int C, int* __restrict__ soff, int* __restrict__ tile_src,
+            long long* __restrict__ stats, unsigned long long* status,
+            int* ticket) {
+  const int tile = claim_tile(ticket);
+  const int i = tile * kTile + threadIdx.x;
+  const int cnt = i < C && hit[i] ? plen[i] : 0;
+  unsigned total;
+  const unsigned in_tile = block_exclusive_sum<kTile>(cnt, total);
+  const unsigned before = tile_prefix(status, tile, total);
+  if (i < C) {
+    const int off = static_cast<int>(before + in_tile);
+    soff[i] = off;
+    mark_tiles(tile_src, i, off, cnt, C);
+  }
+  if (tile == tiles_for(C) - 1 && threadIdx.x == 0) {
+    const int n_spl = static_cast<int>(before + total);
+    stats[0] = 0;
+    stats[1] = n_spl;
+    stats[2] = n_spl < C ? n_spl : C;
+  }
 }
 
-__global__ void merged_slots(Shape sh, Parent p, Replay rp, Splice sp,
-                             const int* __restrict__ needed_p,
-                             const int* __restrict__ n_spl_p, Out o,
-                             long long* __restrict__ stats) {
+__global__ void splice_slots(Shape sh, Parent p, Splice sp, Out o,
+                             const long long* __restrict__ stats) {
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  const int C = sh.C;
-  if (s >= C) return;
-  const int needed = *needed_p;
-  const int n_spl = *n_spl_p;
-  const int n1 = needed < C ? needed : C;
-  const int n2 = n_spl < C ? n_spl : C;
-  const int n_valid = n1 + n2 < C ? n1 + n2 : C;  // n1 + n2 <= 2C < 2^31
-  if (s == 0) {
+  if (s >= sh.C) return;
+  const int n_valid = static_cast<int>(stats[2]);
+  o.valid[s] = s < n_valid;
+  if (s >= n_valid) return;
+  splice_row(s, s, slot_row(sp.soff, sp.tile_src, s, n_valid, sh.C), sh, p,
+             sp, o);
+}
+
+__global__ void __launch_bounds__(kTile)
+merged_plan(ReplayIn in, const bool* __restrict__ hit,
+            const int* __restrict__ plen, int C, int* __restrict__ plb,
+            int* __restrict__ roff, int* __restrict__ soff,
+            int* __restrict__ r_tile_src, int* __restrict__ s_tile_src,
+            long long* __restrict__ stats, unsigned long long* r_status,
+            unsigned long long* s_status, int* ticket) {
+  const int tile = claim_tile(ticket);
+  const int i = tile * kTile + threadIdx.x;
+  int lb = 0, pcnt = 0, scnt = 0;
+  if (i < C) {
+    pcnt = replay_plan_row(i, in, C, &lb);
+    scnt = hit[i] ? plen[i] : 0;
+  }
+  unsigned r_total, s_total, s_before;
+  const unsigned r_in = block_exclusive_sum<kTile>(pcnt, r_total);
+  __syncthreads();  // every thread has read the first sum's shared words
+  const unsigned s_in = block_exclusive_sum<kTile>(scnt, s_total);
+  const unsigned r_before =
+      tile_prefix_pair(r_status, s_status, tile, r_total, s_total, s_before);
+  if (i < C) {
+    const int r_off = static_cast<int>(r_before + r_in);
+    const int s_off = static_cast<int>(s_before + s_in);
+    plb[i] = lb;
+    roff[i] = r_off;
+    soff[i] = s_off;
+    mark_tiles(r_tile_src, i, r_off, pcnt, C);
+    mark_tiles(s_tile_src, i, s_off, scnt, C);
+  }
+  if (tile == tiles_for(C) - 1 && threadIdx.x == 0) {
+    const int needed = static_cast<int>(r_before + r_total);
+    const int n_spl = static_cast<int>(s_before + s_total);
+    const int n1 = needed < C ? needed : C;
+    const int n2 = n_spl < C ? n_spl : C;
     stats[0] = needed;
     stats[1] = n_spl;
     stats[2] = static_cast<long long>(n1) + n2;
   }
+}
+
+__global__ void merged_slots(Shape sh, Parent p, Replay rp, Splice sp, Out o,
+                             const long long* __restrict__ stats) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  const int C = sh.C;
+  if (s >= C) return;
+  const int needed = static_cast<int>(stats[0]);
+  const int n1 = needed < C ? needed : C;
+  const long long both = stats[2];
+  const int n_valid = both < C ? static_cast<int>(both) : C;
   o.valid[s] = s < n_valid;
   if (s >= n_valid) return;
   if (s < n1) {
-    replay_row(s, s, sh, p, rp, o);
+    replay_row(s, s, slot_row(rp.roff, rp.tile_src, s, n1, C), sh, p, rp, o);
   } else {
-    splice_row(s, s - n1, sh, p, sp, o);
+    const int u = s - n1;
+    splice_row(s, u, slot_row(sp.soff, sp.tile_src, u, n_valid - n1, C), sh,
+               p, sp, o);
   }
 }
 
@@ -336,10 +354,21 @@ ctj::Out out_of(void* assign, void* factor, void* valid, void* orig,
                   static_cast<int*>(lo), static_cast<int*>(hi)};
 }
 
+ctj::ReplayIn replay_in(const void* active, const void* rep_of_row,
+                        const void* e_valid, const void* e_orig, int C) {
+  return ctj::ReplayIn{
+      static_cast<const bool*>(active), static_cast<const int*>(rep_of_row),
+      ctj::ExitKey{static_cast<const bool*>(e_valid),
+                   static_cast<const int*>(e_orig), C}};
+}
+
 }  // namespace
 
-// Scratch layout (int32, 3C + 1 values): plb, pcnt, roff (C each),
-// needed (1).  Returns the first CUDA error.
+// Scratch (int32 values, scratch_len of them; 8-byte aligned), as
+// kernels/fold/cuda.py::scratch_layout(C, "replay") lays it out, with
+// tiles = ceil(C / 1024): the look-back's status words (2 * tiles
+// values) and ticket (1), both cleared here, then tile_src (tiles), plb
+// and roff (C each).  Returns the first CUDA error.
 extern "C" int ctj_fold_replay(
     const void* p_assign, const void* p_factor, const void* p_orig,
     const void* p_lo, const void* p_hi, const void* active,
@@ -347,75 +376,81 @@ extern "C" int ctj_fold_replay(
     const void* e_valid, const void* e_orig, int C, int n, int m, int d0,
     int d1, void* o_assign, void* o_factor, void* o_valid, void* o_orig,
     void* o_lo, void* o_hi, void* o_stats, void* scratch,
-    void* stream_ptr) {
+    long long scratch_len, void* stream_ptr) {
   using namespace ctj;
-  if (C <= 0 || d0 < 0 || d1 < d0 || d1 >= n) {
+  const long long tiles = tiles_for(C);
+  const long long zeroed = 2 * tiles + 1;
+  if (C <= 0 || d0 < 0 || d1 < d0 || d1 >= n ||
+      scratch_len < zeroed + tiles + 2LL * C) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const size_t c = static_cast<size_t>(C);
-  int* plb = static_cast<int*>(scratch);
-  int* pcnt = plb + c;
-  int* roff = pcnt + c;
-  int* needed = roff + c;
-  const int grid = blocks_for(C);
+  int* sc = static_cast<int*>(scratch);
+  int* tile_src = sc + zeroed;
+  int* plb = tile_src + tiles;
+  int* roff = plb + C;
+  long long* stats = static_cast<long long*>(o_stats);
 
-  fold_plan<<<grid, kThreads, 0, stream>>>(
-      static_cast<const bool*>(active), static_cast<const int*>(rep_of_row),
-      static_cast<const bool*>(e_valid), static_cast<const int*>(e_orig), C,
-      plb, pcnt);
+  CTJ_CHECK(cudaMemsetAsync(sc, 0, sizeof(int) * zeroed, stream));
+  fold_plan<<<static_cast<int>(tiles), kTile, 0, stream>>>(
+      replay_in(active, rep_of_row, e_valid, e_orig, C), C, plb, roff,
+      tile_src, stats, reinterpret_cast<unsigned long long*>(sc),
+      sc + 2 * tiles);
   CTJ_CHECK(cudaGetLastError());
-  CTJ_CHECK(launch_scan<int>(pcnt, roff, needed, C, false, stream));
-  fold_slots<<<grid, kThreads, 0, stream>>>(
+  fold_slots<<<blocks_for(C), kThreads, 0, stream>>>(
       Shape{C, n, m, d0, d1},
       parent_of(p_assign, p_factor, p_orig, p_lo, p_hi),
       Replay{static_cast<const int*>(e_assign),
-             static_cast<const long long*>(e_factor), plb, roff},
-      needed, out_of(o_assign, o_factor, o_valid, o_orig, o_lo, o_hi),
-      static_cast<long long*>(o_stats));
+             static_cast<const long long*>(e_factor), plb, roff, tile_src},
+      out_of(o_assign, o_factor, o_valid, o_orig, o_lo, o_hi), stats);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Splice-only FOLD.  slab is (nslab, d1 - d0 + 1) int32, its last row the
-// store's scratch row.  Scratch layout (int32, 2C + 1 values): scnt, soff
-// (C each), n_spliced (1).  Returns the first CUDA error.
+// store's scratch row.  Scratch as scratch_layout(C, "splice"): the
+// status words (2 * tiles) and ticket (1), cleared here, then tile_src
+// (tiles) and soff (C).  Returns the first CUDA error.
 extern "C" int ctj_fold_splice(
     const void* p_assign, const void* p_factor, const void* p_orig,
     const void* p_lo, const void* p_hi, const void* hit, const void* poff,
     const void* plen, const void* slab, int C, int n, int m, int d0, int d1,
     int nslab, void* o_assign, void* o_factor, void* o_valid, void* o_orig,
     void* o_lo, void* o_hi, void* o_stats, void* scratch,
-    void* stream_ptr) {
+    long long scratch_len, void* stream_ptr) {
   using namespace ctj;
-  if (C <= 0 || d0 < 0 || d1 < d0 || d1 >= n || nslab < 2) {
+  const long long tiles = tiles_for(C);
+  const long long zeroed = 2 * tiles + 1;
+  if (C <= 0 || d0 < 0 || d1 < d0 || d1 >= n || nslab < 2 ||
+      scratch_len < zeroed + tiles + C) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const size_t c = static_cast<size_t>(C);
-  int* scnt = static_cast<int*>(scratch);
-  int* soff = scnt + c;
-  int* n_spl = soff + c;
-  const int grid = blocks_for(C);
+  int* sc = static_cast<int*>(scratch);
+  int* tile_src = sc + zeroed;
+  int* soff = tile_src + tiles;
+  long long* stats = static_cast<long long*>(o_stats);
 
-  splice_plan<<<grid, kThreads, 0, stream>>>(
-      static_cast<const bool*>(hit), static_cast<const int*>(plen), C, scnt);
+  CTJ_CHECK(cudaMemsetAsync(sc, 0, sizeof(int) * zeroed, stream));
+  splice_plan<<<static_cast<int>(tiles), kTile, 0, stream>>>(
+      static_cast<const bool*>(hit), static_cast<const int*>(plen), C, soff,
+      tile_src, stats, reinterpret_cast<unsigned long long*>(sc),
+      sc + 2 * tiles);
   CTJ_CHECK(cudaGetLastError());
-  CTJ_CHECK(launch_scan<int>(scnt, soff, n_spl, C, false, stream));
-  splice_slots<<<grid, kThreads, 0, stream>>>(
+  splice_slots<<<blocks_for(C), kThreads, 0, stream>>>(
       Shape{C, n, m, d0, d1},
       parent_of(p_assign, p_factor, p_orig, p_lo, p_hi),
       Splice{static_cast<const int*>(poff), static_cast<const int*>(slab),
-             soff, nslab},
-      n_spl, out_of(o_assign, o_factor, o_valid, o_orig, o_lo, o_hi),
-      static_cast<long long*>(o_stats));
+             soff, tile_src, nslab},
+      out_of(o_assign, o_factor, o_valid, o_orig, o_lo, o_hi), stats);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Merged FOLD [replay | splice].  The exits must be valid-prefix compacted
 // with nondecreasing orig, as for ctj_fold_replay; slab as for
-// ctj_fold_splice.  Scratch layout (int32, 5C + 2 values): plb, pcnt,
-// roff, scnt, soff (C each), needed, n_spliced (1 each).  Returns the
-// first CUDA error.
+// ctj_fold_splice.  Scratch as scratch_layout(C, "merged"): the replay
+// and the splice scan's status words (2 * tiles each) and the ticket (1),
+// cleared here, then the replay and the splice tile_src (tiles each),
+// plb, roff and soff (C each).  Returns the first CUDA error.
 extern "C" int ctj_fold_merged(
     const void* p_assign, const void* p_factor, const void* p_orig,
     const void* p_lo, const void* p_hi, const void* active,
@@ -424,38 +459,39 @@ extern "C" int ctj_fold_merged(
     const void* poff, const void* plen, const void* slab, int C, int n,
     int m, int d0, int d1, int nslab, void* o_assign, void* o_factor,
     void* o_valid, void* o_orig, void* o_lo, void* o_hi, void* o_stats,
-    void* scratch, void* stream_ptr) {
+    void* scratch, long long scratch_len, void* stream_ptr) {
   using namespace ctj;
-  if (C <= 0 || d0 < 0 || d1 < d0 || d1 >= n || nslab < 2) {
+  const long long tiles = tiles_for(C);
+  const long long zeroed = 4 * tiles + 1;
+  if (C <= 0 || d0 < 0 || d1 < d0 || d1 >= n || nslab < 2 ||
+      scratch_len < zeroed + 2 * tiles + 3LL * C) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const size_t c = static_cast<size_t>(C);
-  int* plb = static_cast<int*>(scratch);
-  int* pcnt = plb + c;
-  int* roff = pcnt + c;
-  int* scnt = roff + c;
-  int* soff = scnt + c;
-  int* needed = soff + c;
-  int* n_spl = needed + 1;
-  const int grid = blocks_for(C);
+  int* sc = static_cast<int*>(scratch);
+  unsigned long long* r_status = reinterpret_cast<unsigned long long*>(sc);
+  unsigned long long* s_status = r_status + tiles;
+  int* r_tile_src = sc + zeroed;
+  int* s_tile_src = r_tile_src + tiles;
+  int* plb = s_tile_src + tiles;
+  int* roff = plb + C;
+  int* soff = roff + C;
+  long long* stats = static_cast<long long*>(o_stats);
 
-  merged_plan<<<grid, kThreads, 0, stream>>>(
-      static_cast<const bool*>(active), static_cast<const int*>(rep_of_row),
-      static_cast<const bool*>(e_valid), static_cast<const int*>(e_orig),
+  CTJ_CHECK(cudaMemsetAsync(sc, 0, sizeof(int) * zeroed, stream));
+  merged_plan<<<static_cast<int>(tiles), kTile, 0, stream>>>(
+      replay_in(active, rep_of_row, e_valid, e_orig, C),
       static_cast<const bool*>(hit), static_cast<const int*>(plen), C, plb,
-      pcnt, scnt);
+      roff, soff, r_tile_src, s_tile_src, stats, r_status, s_status,
+      sc + 4 * tiles);
   CTJ_CHECK(cudaGetLastError());
-  CTJ_CHECK(launch_scan<int>(pcnt, roff, needed, C, false, stream));
-  CTJ_CHECK(launch_scan<int>(scnt, soff, n_spl, C, false, stream));
-  merged_slots<<<grid, kThreads, 0, stream>>>(
+  merged_slots<<<blocks_for(C), kThreads, 0, stream>>>(
       Shape{C, n, m, d0, d1},
       parent_of(p_assign, p_factor, p_orig, p_lo, p_hi),
       Replay{static_cast<const int*>(e_assign),
-             static_cast<const long long*>(e_factor), plb, roff},
+             static_cast<const long long*>(e_factor), plb, roff, r_tile_src},
       Splice{static_cast<const int*>(poff), static_cast<const int*>(slab),
-             soff, nslab},
-      needed, n_spl, out_of(o_assign, o_factor, o_valid, o_orig, o_lo, o_hi),
-      static_cast<long long*>(o_stats));
+             soff, s_tile_src, nslab},
+      out_of(o_assign, o_factor, o_valid, o_orig, o_lo, o_hi), stats);
   return static_cast<int>(cudaGetLastError());
 }

@@ -45,12 +45,12 @@ _SIGNATURES = {
     "ctj_expand": [_P] * 8 + [_P, _P, _P, _I] + [_I] * 7 + [_P] * 7
                   + [_P, _L, _P],
     "ctj_fold_replay": [_P] * 5 + [_P, _P] + [_P] * 4 + [_I] * 5 + [_P] * 7
-                       + [_P, _P],
+                       + [_P, _L, _P],
     "ctj_fold_splice": [_P] * 5 + [_P] * 4 + [_I] * 6 + [_P] * 7
-                       + [_P, _P],
+                       + [_P, _L, _P],
     "ctj_fold_merged": [_P] * 5 + [_P, _P] + [_P] * 4 + [_P] * 4 + [_I] * 6
-                       + [_P] * 7 + [_P, _P],
-    "ctj_emit": [_P, _P, _I, _I, _P, _P, _P, _P],
+                       + [_P] * 7 + [_P, _L, _P],
+    "ctj_emit": [_P, _P, _I, _I, _P, _P, _P, _L, _P],
     "ctj_bound": [_P] * 4 + [_I] * 3 + [_P, _P],
     "ctj_flash_attention": [_P] * 4 + [_I] * 10 + [_F, _P],
 }

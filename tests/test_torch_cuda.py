@@ -156,10 +156,66 @@ def test_expand_launches_no_block_scan(dev):
     assert all("expand" in n for n in kernels), kernels
 
 
-@pytest.mark.parametrize("C,seed", [(1 << 8, 0), (1 << 12, 1), (1 << 16, 2)])
-def test_fold_and_emit_kernels_match_plain(dev, C, seed):
-    rng = np.random.default_rng(seed)
-    n, m, reps = 5, 3, max(2, C // 8)
+def _fold_emit_call(entry, dev):
+    """A call of one FOLD or EMIT entry point at C = 2^16 on seeded
+    inputs: (the call, its kernels a call besides memsets, a fragment
+    every kernel's name holds)."""
+    C = 1 << 16
+    if entry == "emit":
+        P, active, _, _ = _fold_case(C, "mixed", dev)
+        return (lambda: emit_cuda.pack(P.assign, active)), 1, "emit"
+    if entry == "replay":
+        P, active, ror, E = _fold_case(C, "mixed", dev)
+        return (lambda: fold_cuda.replay(P, active, ror, E, d0=1, d1=3),
+                2, "fold")
+    if entry == "splice":
+        P, hit, poff, plen, slab = _splice_inputs(C, C, dev)
+        return (lambda: fold_cuda.splice(P, hit, poff, plen, slab, d0=1,
+                                         d1=3), 2, "splice")
+    args = _merged_inputs(C, C, dev, "truncated")
+    return (lambda: fold_cuda.merged(*args, d0=1, d1=3)), 2, "merged"
+
+
+@pytest.mark.parametrize("entry", ["replay", "splice", "merged", "emit"])
+def test_fold_and_emit_launch_no_block_scan(dev, entry):
+    """Each FOLD entry point runs at most two kernels a call and
+    ``ctj_emit`` one, besides their memsets, none of them the single-block
+    scan, by the kernel names torch.profiler records."""
+    from torch.profiler import ProfilerActivity, profile
+    call, per_call, fragment = _fold_emit_call(entry, dev)
+    call()
+    torch.cuda.synchronize()
+    calls = 3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [n for n in names if not n.startswith(("Memset", "Memcpy"))]
+    assert kernels, f"the profiler recorded no kernel: {names}"
+    assert len(kernels) <= per_call * calls, kernels
+    assert not any("block_scan" in n for n in kernels), kernels
+    assert all(fragment in n for n in kernels), kernels
+
+
+FOLD_KINDS = ("mixed", "no-active", "all-valid", "skew")
+
+
+def _fold_case(C, kind, dev, n=5, m=3):
+    """Parent and exit chunks of C rows for a replay-only FOLD, the exits
+    sorted by representative (the sorted-exits invariant), and the
+    active mask.  ``mixed``: half the parents valid, 70% of those active,
+    reps = C / 8 representatives with a quarter of the rows as exits;
+    ``no-active``: the same with no active parent; ``all-valid``: every
+    parent valid and active, every exit row valid, one exit a
+    representative (needed = C, every output slot valid); ``skew``: one
+    active parent whose representative holds three quarters of the
+    exits, so that its replay range covers many 1024-slot tiles, beside
+    a few parents that replay a few rows."""
+    rng = np.random.default_rng([C, FOLD_KINDS.index(kind)])
+    reps = max(2, C // 8)
+    ar = np.arange(C)
 
     def chunk(valid, orig):
         return Frontier(
@@ -169,24 +225,59 @@ def test_fold_and_emit_kernels_match_plain(dev, C, seed):
             torch.from_numpy(rng.integers(0, 99, (C, m)).astype(np.int32)),
             torch.from_numpy(rng.integers(0, 99, (C, m)).astype(np.int32)))
 
-    ar = np.arange(C)
-    P = chunk(ar < C // 2, ar)
-    eorig = np.full(C, reps - 1)
-    eorig[:C // 4] = np.sort(rng.integers(0, reps, C // 4))
-    E = chunk(ar < C // 4, eorig)
-    active = torch.from_numpy((ar < C // 2) & (rng.random(C) < 0.7))
-    ror = torch.from_numpy(rng.integers(0, reps, C).astype(np.int32))
-    P = Frontier(*(t.to(dev) for t in P))
-    E = Frontier(*(t.to(dev) for t in E))
-    active, ror = active.to(dev), ror.to(dev)
+    if kind == "all-valid":
+        P, E = chunk(ar >= 0, ar), chunk(ar >= 0, ar)
+        active = ar >= 0
+        ror = rng.permutation(C)
+    elif kind == "skew":
+        big = (3 * C) // 4
+        eorig = np.concatenate([np.zeros(big, np.int64),
+                                np.sort(rng.integers(1, reps, C - big))])
+        P, E = chunk(ar < C // 2, ar), chunk(ar >= 0, eorig)
+        active = (ar < C // 2) & (rng.random(C) < 0.05)
+        ror = rng.integers(1, reps, C)
+        active[C // 3] = True
+        ror[C // 3] = 0
+    else:
+        eorig = np.full(C, reps - 1)
+        eorig[:C // 4] = np.sort(rng.integers(0, reps, C // 4))
+        P, E = chunk(ar < C // 2, ar), chunk(ar < C // 4, eorig)
+        active = (ar < C // 2) & (rng.random(C) < 0.7) & (kind == "mixed")
+        ror = rng.integers(0, reps, C)
+    return (Frontier(*(t.to(dev) for t in P)),
+            torch.from_numpy(active).to(dev),
+            torch.from_numpy(ror.astype(np.int32)).to(dev),
+            Frontier(*(t.to(dev) for t in E)))
+
+
+@pytest.mark.parametrize("kind", FOLD_KINDS)
+@pytest.mark.parametrize("C", [1, 1 << 8, 1000, 1025, 1 << 12, 1 << 16,
+                               1 << 20])
+def test_fold_and_emit_kernels_match_plain(dev, C, kind):
+    """The replay-only FOLD and EMIT bit for bit against their plain
+    versions from one row to 2^20 (tiles of 1024: one, a ragged last
+    tile, many), with no active parent, every row valid, and one parent
+    whose replay range spans many tiles; EMIT packs the active mask."""
+    P, active, ror, E = _fold_case(C, kind, dev)
     Oc, sc = fold_cuda.replay(P, active, ror, E, d0=1, d1=3)
     Op, sp = fold_plain.replay(P, active, ror, E, d0=1, d1=3)
+    torch.cuda.synchronize()
     assert torch.equal(sc, sp)
     _same_prefix(Oc, Op)
+    needed = int(sp[0])
+    if kind == "no-active":
+        assert needed == 0
+    if kind == "all-valid":
+        assert needed == C and bool(Op.valid.all())
+    if kind == "skew" and C >= 1 << 12:
+        assert needed >= (3 * C) // 4 > 2 * 1024
     pc, kc = emit_cuda.pack(P.assign, active)
     pp, kp = emit_plain.pack(P.assign, active)
-    assert int(kc) == int(kp)
+    torch.cuda.synchronize()
+    assert int(kc) == int(kp) == int(active.sum())
     assert torch.equal(pc[:int(kp)], pp[:int(kp)])
+    if kind == "all-valid":
+        assert int(kp) == C
 
 
 def _hub_db():
@@ -234,15 +325,32 @@ def test_engine_on_the_card_matches_cpu(dev, qname, q, which):
         assert c.counters["expand_calls_cuda"] == 0
 
 
-def _splice_inputs(C, seed, dev, n=5, m=3, w=3, slab_rows=1 << 17):
+SPLICE_KINDS = ("overflow", "skew", "no-hit")
+
+
+def _splice_inputs(C, seed, dev, n=5, m=3, w=3, slab_rows=1 << 17,
+                   kind="overflow"):
     """A parent chunk and payload hits whose blocks are contiguous slab
-    runs (the last slab row is the store's scratch row), with about 1.25 C
-    spliced rows in all (so the output is truncated to C)."""
+    runs (the last slab row is the store's scratch row).  ``overflow``:
+    about 1.25 C spliced rows in all, at least two (so the output is
+    truncated to C); ``skew``: a hit every 16th row and one parent whose
+    block fills half the chunk, or the whole slab where that is shorter
+    (many 1024-slot tiles); ``no-hit``."""
     rng = np.random.default_rng(seed)
     hit = rng.random(C) < 0.5
     plen = np.where(hit, rng.integers(1, 5, C), 0).astype(np.int32)
     poff = np.where(hit, rng.integers(0, slab_rows - 8, C),
                     0).astype(np.int32)
+    if kind == "overflow":
+        hit[0], plen[0] = True, max(plen[0], 2)
+    elif kind == "skew":
+        hit &= np.arange(C) % 16 == 0
+        hit[C // 2] = True
+        plen[C // 2] = max(1, min(C // 2, slab_rows - 8))
+        poff[C // 2] = 0
+        plen[~hit], poff[~hit] = 0, 0
+    else:
+        hit[:], plen[:], poff[:] = False, 0, 0
     P = Frontier(
         torch.from_numpy(rng.integers(0, 99, (C, n)).astype(np.int32)),
         torch.from_numpy(rng.integers(1, 9, C).astype(np.int64)),
@@ -256,16 +364,23 @@ def _splice_inputs(C, seed, dev, n=5, m=3, w=3, slab_rows=1 << 17):
             torch.from_numpy(plen).to(dev), torch.from_numpy(slab).to(dev))
 
 
-@pytest.mark.parametrize("C,seed", [(1 << 12, 0), (1 << 16, 1)])
-def test_splice_kernel_matches_plain(dev, C, seed):
-    P, hit, poff, plen, slab = _splice_inputs(C, seed, dev)
+@pytest.mark.parametrize("kind", SPLICE_KINDS)
+@pytest.mark.parametrize("C", [1, 1000, 1025, 1 << 12, 1 << 16, 1 << 20])
+def test_splice_kernel_matches_plain(dev, C, kind):
+    P, hit, poff, plen, slab = _splice_inputs(C, C, dev, kind=kind)
     before = fold_cuda.splice_launches
     Oc, sc = fold_cuda.splice(P, hit, poff, plen, slab, d0=1, d1=3)
     Op, sp = fold_plain.splice(P, hit, poff, plen, slab, d0=1, d1=3)
     torch.cuda.synchronize()
     assert fold_cuda.splice_launches == before + 1
     assert torch.equal(sc, sp)
-    assert int(sp[1]) > C, "the case must overflow the chunk"
+    n_spl = int(sp[1])
+    if kind == "overflow":
+        assert n_spl > C, "the case must overflow the chunk"
+    elif kind == "skew":  # the big block, cut to the slab's length
+        assert max(1, min(C // 2, (1 << 17) - 8)) <= n_spl <= C
+    else:
+        assert n_spl == 0 and not bool(Oc.valid.any())
     _same_prefix(Oc, Op)
     with pytest.raises(ValueError):  # a slab of the wrong width
         fold_cuda.splice(P, hit, poff, plen, slab[:, :2], d0=1, d1=3)
@@ -311,10 +426,11 @@ def _merged_inputs(C, seed, dev, case, n=5, m=3, w=3, slab_rows=1 << 17):
     parents that replay and hit parents with contiguous slab blocks.
     ``case``: ``fits`` (replay and splice fill about 0.75 C together),
     ``truncated`` (the replay fills half the chunk and the splice is cut
-    short), ``no-replay`` or ``no-splice``."""
+    short), ``replay-overflow`` (every exit valid: the replay alone needs
+    about 2 C rows), ``no-replay`` or ``no-splice``."""
     rng = np.random.default_rng(seed)
     n_reps = C // 8
-    n_exits = C // 8 if case != "truncated" else C // 4
+    n_exits = {"truncated": C // 4, "replay-overflow": C}.get(case, C // 8)
     P = _splice_inputs(C, seed, "cpu", n=n, m=m, w=w, slab_rows=16)[0]
     hit = P.valid.numpy() & (rng.random(C) < 0.5)
     active = P.valid.numpy() & ~hit
@@ -341,10 +457,18 @@ def _merged_inputs(C, seed, dev, case, n=5, m=3, w=3, slab_rows=1 << 17):
             Frontier(*(x.to(dev) for x in E)), hit, poff, plen, slab)
 
 
-@pytest.mark.parametrize("case", ["fits", "truncated", "no-replay",
-                                  "no-splice"])
-@pytest.mark.parametrize("C,seed", [(1 << 12, 3), (1 << 16, 4)])
+MERGED_CASES = ("fits", "truncated", "replay-overflow", "no-replay",
+                "no-splice")
+
+
+@pytest.mark.parametrize("case", MERGED_CASES)
+@pytest.mark.parametrize("C,seed", [(1000, 5), (1025, 6), (1 << 12, 3),
+                                    (1 << 16, 4), (1 << 20, 7)])
 def test_merged_kernel_matches_plain(dev, C, seed, case):
+    """The merged FOLD bit for bit against its plain version, its splice
+    region starting at n1 = min(needed, C) (no tile boundary), with
+    ``stats[2] = min(needed, C) + min(n_spliced, C)`` uncapped when the
+    two overflow the chunk."""
     args = _merged_inputs(C, seed, dev, case)
     before = fold_cuda.merged_launches
     Oc, sc = fold_cuda.merged(*args, d0=1, d1=3)
@@ -355,8 +479,10 @@ def test_merged_kernel_matches_plain(dev, C, seed, case):
     needed, n_spl = int(sp[0]), int(sp[1])
     assert (needed > 0) == (case != "no-replay")
     assert (n_spl > 0) == (case != "no-splice")
-    assert (needed + n_spl > C) == (case == "truncated")
-    assert needed <= C
+    assert (needed + n_spl > C) == (case in ("truncated", "replay-overflow"))
+    assert (needed > C) == (case == "replay-overflow")
+    assert int(sp[2]) == min(needed, C) + min(n_spl, C)
+    assert (int(sp[2]) > C) == (needed + n_spl > C)
     _same_prefix(Oc, Op)
     with pytest.raises(ValueError):  # a slab of the wrong width
         fold_cuda.merged(*args[:7], args[7][:, :2], d0=1, d1=3)

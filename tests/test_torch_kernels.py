@@ -337,6 +337,47 @@ def test_fold_registry_checks_shapes():
            torch.from_numpy(ror).long(), _to_torch(E))
 
 
+@pytest.mark.parametrize("arity", ["replay", "splice", "merged"])
+@pytest.mark.parametrize("C", [1, 1000, 1025, 1 << 16, 1 << 25])
+def test_fold_scratch_layout(C, arity):
+    """The CUDA FOLD's scratch (``kernels/fold/cuda.py``), one layout an
+    arity: one 64-bit status word a tile of 1024 parent rows for each
+    single-pass scan of its plan (the merged arity scans replay and
+    splice counts side by side), at even int32 offsets (8-byte aligned)
+    from 0, then the ticket (these are what the memset clears), a source
+    row for each tile of output slots an offset array, then plb and the
+    offsets (C each).  Computed without CUDA."""
+    from repro_torch.kernels.fold import cuda as t_fold_cuda
+    lay = t_fold_cuda.scratch_layout(C, arity)
+    tiles = -(-C // 1024)
+    assert t_fold_cuda.TILE == 1024
+    assert tiles * 1024 >= C > (tiles - 1) * 1024
+    scans = {"replay": ["replay"], "splice": ["splice"],
+             "merged": ["replay", "splice"]}[arity]
+    at = 0
+    for side in scans:
+        assert lay[f"{side}_status"] == (at, 2 * tiles), side
+        assert at % 2 == 0
+        at += 2 * tiles
+    assert lay["ticket"] == (at, 1)
+    zeroed = at + 1
+    at = zeroed
+    for side in scans:
+        assert lay[f"{side}_tile_src"] == (at, tiles), side
+        at += tiles
+    arrays = {"replay": ["plb", "roff"], "splice": ["soff"],
+              "merged": ["plb", "roff", "soff"]}[arity]
+    for name in arrays:
+        assert lay[name] == (at, C), name
+        at += C
+    assert lay["total"] == (0, at)
+    assert at == len(scans) * 3 * tiles + 1 + len(arrays) * C
+    assert set(lay) == {f"{x}_status" for x in scans} | {
+        f"{x}_tile_src" for x in scans} | set(arrays) | {"ticket", "total"}
+    with pytest.raises(ValueError, match="arity"):
+        t_fold_cuda.scratch_layout(C, "both")
+
+
 # ---------------------------------------------------------------------------
 # EMIT
 # ---------------------------------------------------------------------------
@@ -360,6 +401,21 @@ def test_emit_plain_matches_reference(C, density, seed):
     np.testing.assert_array_equal(pt[:k].numpy(), want)
     np.testing.assert_array_equal(pt[:k].numpy(), np.asarray(px)[:k])
     np.testing.assert_array_equal(pt[:k].numpy(), np.asarray(pp)[:k])
+
+
+@pytest.mark.parametrize("C", [1, 1000, 1025, 1 << 16, 1 << 25])
+def test_emit_scratch_layout(C):
+    """The CUDA EMIT's scratch (``kernels/emit/cuda.py``): one 64-bit
+    status word a tile of 1024 rows from offset 0 (8-byte aligned), then
+    the ticket, and nothing else: no scan array grows with C.  Computed
+    without CUDA."""
+    from repro_torch.kernels.emit import cuda as t_emit_cuda
+    lay = t_emit_cuda.scratch_layout(C)
+    tiles = -(-C // 1024)
+    assert t_emit_cuda.TILE == 1024
+    assert tiles * 1024 >= C > (tiles - 1) * 1024
+    assert lay == {"status": (0, 2 * tiles), "ticket": (2 * tiles, 1),
+                   "total": (0, 2 * tiles + 1)}
 
 
 # ---------------------------------------------------------------------------
