@@ -13,9 +13,11 @@ the static executor (``StaticCLFTJ``: a count, and an evaluation cold and
 warm, each one fixed-capacity pass) and the distributed count and
 evaluation in four processes on the one card (a gloo process group; the
 script starts them as ``chip_smoke.py --dist-worker RANK WORLD DIR``),
-then the chain EXPAND with the leapfrog bound kernel
+then the chain EXPAND with the leapfrog membership kernel
 (``expand_kernel="chain", impl="leapfrog"``: a count at wiki-Vote scale,
-an evaluation at ca-GrQc scale) and the serving layer (``engine.serve``
+an evaluation at ca-GrQc scale; and the reference's public bounded search
+``registry.lower_bound`` / ``upper_bound`` with ``impl="leapfrog"``) and
+the serving layer (``engine.serve``
 with the ``GPU_SERVE`` preset: a plan-cache miss, an isomorphic hit that
 replays warm tables, a count, four concurrent streams, a snapshot that a
 fresh process, ``chip_smoke.py --serve-worker DIR``, loads and serves
@@ -68,7 +70,7 @@ from repro_torch.core.frontier import Frontier  # noqa: E402
 from repro_torch.core.hostsync import SyncCounter  # noqa: E402
 from repro_torch.core.schedule import FOLD_CHILD  # noqa: E402
 from repro_torch.data.graphs import zipf_graph  # noqa: E402
-from repro_torch.kernels import cudalib  # noqa: E402
+from repro_torch.kernels import cudalib, registry  # noqa: E402
 from repro_torch.kernels.emit import cuda as emit_cuda  # noqa: E402
 from repro_torch.kernels.emit import plain as emit_plain  # noqa: E402
 from repro_torch.kernels.expand import chain as expand_chain  # noqa: E402
@@ -119,7 +121,8 @@ DIST_WORLD = 4              # ranks of the distributed phase, on one card
 DIST_TIMEOUT_S = 900
 SERVE_WORKER_TIMEOUT_S = 300
 SERVE_STREAMS = 4           # concurrent streaming sessions of the serve phase
-# the leapfrog path: the chain EXPAND whose bounded searches launch ctj_bound
+# the leapfrog path: the chain EXPAND whose membership tests launch
+# ctj_bound_atoms
 CHAIN = dict(expand_kernel="chain", impl="leapfrog")
 # kernel name -> (wrapper module, its launch counter)
 WRAPPERS = {"expand": (expand_cuda, "launches"),
@@ -128,6 +131,7 @@ WRAPPERS = {"expand": (expand_cuda, "launches"),
             "fold_merged": (fold_cuda, "merged_launches"),
             "emit": (emit_cuda, "launches"),
             "bound": (bound_cuda, "launches"),
+            "bound_atoms": (bound_cuda, "atoms_launches"),
             "flash_attention": (flash_cuda, "launches")}
 SOURCES = {"expand": ("src/repro_torch/csrc/expand.cu",
                       "src/repro/kernels/expand/fused.py:193"),
@@ -141,13 +145,16 @@ SOURCES = {"expand": ("src/repro_torch/csrc/expand.cu",
                     "src/repro/kernels/emit/fused.py:70"),
            "bound": ("src/repro_torch/csrc/leapfrog.cu",
                      "src/repro/kernels/leapfrog/leapfrog.py:56"),
+           "bound_atoms": ("src/repro_torch/csrc/leapfrog.cu",
+                           "src/repro/kernels/leapfrog/leapfrog.py:56"),
            "flash_attention": (
                "src/repro_torch/csrc/flash_attention.cu",
                "src/repro/kernels/flash_attention/flash_attention.py:74")}
-# the kernels only the static executor launches, only the chain EXPAND,
-# and only the LM (none of them the join's main path)
+# the kernels only the static executor launches, only the leapfrog path
+# (the chain EXPAND's membership test, the public bounded search), and
+# only the LM (none of them the join's main path)
 STATIC_ONLY = ("fold_merged",)
-CHAIN_ONLY = ("bound",)
+CHAIN_ONLY = ("bound", "bound_atoms")
 LM_ONLY = ("flash_attention",)
 # phase 14: qwen2.5-3b at full width and depth, four prompts of 2048
 # tokens, 32 greedy tokens each
@@ -568,6 +575,11 @@ def bound_inputs(eng, rng, dev):
     return col, dev_i32(v), dev_i32(rs[r]), dev_i32(ends[r])
 
 
+def bit_lengths(a: np.ndarray) -> np.ndarray:
+    """Bit length of each non-negative value (0 for 0)."""
+    return np.where(a > 0, np.floor(np.log2(np.maximum(a, 1))) + 1, 0)
+
+
 def bound_work(lo, hi, n: int) -> tuple:
     """(bytes, operations) one bound call must spend on these queries.
     Bytes: each query's value, lo and hi in and its result out, and one
@@ -580,9 +592,118 @@ def bound_work(lo, hi, n: int) -> tuple:
     width = np.maximum(end - start, 0)
     keep = width > 0
     windows = np.unique(np.stack([start[keep], end[keep]]), axis=1).shape[1]
-    ops = int(np.where(keep, np.floor(np.log2(np.maximum(width, 1))) + 1,
-                       0).sum())
-    return 16 * start.size + 4 * windows, ops
+    return 16 * start.size + 4 * windows, int(bit_lengths(width).sum())
+
+
+def atoms_work(cols, ais, ok, lo2, hi2, out) -> tuple:
+    """(bytes, operations) one membership test must spend on these slots,
+    given the plain version's outputs ``out`` = (ok, lo2, hi2).  A slot is
+    searched in an atom while no earlier atom has rejected it (the
+    leapfrog rule).  Bytes: every slot's ok flag in, and out where an
+    atom rejects the slot; each live slot's value; each searched (slot,
+    atom)'s window in; the narrowed windows out of each slot that every
+    atom keeps (the only windows the chain reads); one column value of
+    every distinct non-empty window searched.  Operations: the lower
+    bound's search steps (the bit length of the window's width) and the
+    upper bound's (the bit length of the run found, plus one)."""
+    alive = host(ok).copy()
+    kept = int(host(out[0]).sum())
+    n_bytes = (alive.size + (int(alive.sum()) - kept) + 4 * int(alive.sum())
+               + 8 * len(ais) * kept)
+    ops, windows = 0, set()
+    for col, ai in zip(cols, ais):
+        idx = np.flatnonzero(alive)
+        n = col.numel()
+        start = np.maximum(host(lo2[idx, ai]).astype(np.int64), 0)
+        end = np.minimum(host(hi2[idx, ai]).astype(np.int64), n)
+        width = np.maximum(end - start, 0)
+        s = host(out[1][idx, ai]).astype(np.int64)
+        e = host(out[2][idx, ai]).astype(np.int64)
+        keep = width > 0
+        windows.update(zip([ai] * int(keep.sum()), start[keep], end[keep]))
+        n_bytes += 8 * idx.size
+        ops += int(bit_lengths(width).sum()
+                   + np.where(keep, bit_lengths(e - s) + 1, 0).sum())
+        alive[idx[s >= e]] = False
+    return n_bytes + 4 * len(windows), ops
+
+
+def atoms_inputs(eng, rng, dev):
+    """The membership test of a chain EXPAND on a seeded chunk of C rows
+    (expand_inputs at the depth with the most membership atoms), as the
+    chain hands it over: (columns, atoms, values, ok, lo2, hi2), copied
+    before the call."""
+    F, g_col, g_rs, others, kw = expand_inputs(eng, expand_depth(eng), rng,
+                                               dev)
+    seen, call = [], expand_chain.bound_atoms
+
+    def spy(cols, ais, values, ok, lo2, hi2, **how):
+        seen.append((cols, ais) + tuple(t.clone() for t in
+                                        (values, ok, lo2, hi2)))
+        call(cols, ais, values, ok, lo2, hi2, **how)
+
+    expand_chain.bound_atoms = spy
+    try:
+        expand_chain.expand_step(
+            F, g_col, g_rs, others, impl="leapfrog",
+            atoms=bound_cuda.Atoms(others, kw["other_ais"]), **kw)
+    finally:
+        expand_chain.bound_atoms = call
+    return seen[0]
+
+
+def atoms_check(cols, ais, values, ok, lo2, hi2, what: str) -> tuple:
+    """``ctj_bound_atoms`` against ``plain.bound_atoms`` on copies of one
+    membership test under their contract: ``ok`` equal on every slot, the
+    windows equal on every slot whose final ``ok`` is set.  Returns
+    (max_abs_err on those windows, the plain version's outputs)."""
+    got = [t.clone() for t in (ok, lo2, hi2)]
+    want = [t.clone() for t in (ok, lo2, hi2)]
+    bound_cuda.bound_atoms(bound_cuda.Atoms(cols, ais), values, *got)
+    bound_plain.bound_atoms(cols, ais, values, *want)
+    torch.cuda.synchronize()
+    check(torch.equal(got[0], want[0]),
+          f"{what}: ok differs from the plain version's")
+    keep = want[0]
+    err = max((int((g[keep].long() - w[keep].long()).abs().max())
+               if bool(keep.any()) else 0)
+              for g, w in zip(got[1:], want[1:]))
+    check(err == 0, f"{what}: windows differ on the kept slots (err {err})")
+    return err, want
+
+
+def bound_atoms_row(eng, rng, dev) -> dict:
+    """Phase 3's membership-test row: ``ctj_bound_atoms`` on a seeded
+    chain EXPAND of ``eng``'s plan against its plain version, its times
+    (each timed call on fresh copies of the slots: the test narrows them
+    in place) and its bound."""
+    cols, ais, values, ok, lo2, hi2 = atoms_inputs(eng, rng, dev)
+    err, want = atoms_check(cols, ais, values, ok, lo2, hi2, "bound_atoms")
+    atoms = bound_cuda.Atoms(cols, ais)
+
+    def on_fresh(call, k):
+        pool = [[t.clone() for t in (ok, lo2, hi2)] for _ in range(k)]
+        return lambda: call(*pool.pop())
+
+    def kernel(*slots):
+        bound_cuda.bound_atoms(atoms, values, *slots)
+
+    def plain(*slots):
+        bound_plain.bound_atoms(cols, ais, values, *slots)
+
+    return dict(
+        max_abs_err=err,
+        ms=time_ms(on_fresh(kernel, 28)),
+        **busy(on_fresh(kernel, 26)),
+        plain_ms=time_ms(on_fresh(plain, 6), reps=5, warmup=1),
+        **bound(*atoms_work(cols, ais, ok, lo2, hi2, want)),
+        # no PyTorch call searches windows of shared columns
+        # (torch.searchsorted takes one sorted row per query)
+        library_ms=None,
+        note=(f"C={ok.numel()} atoms={list(ais)} "
+              f"N={[c.numel() for c in cols]} "
+              f"live={int(ok.sum())} kept={int(want[0].sum())}; ok on "
+              f"every slot and windows on the kept slots bit-exact"))
 
 
 def cycle_engine(db, dev):
@@ -810,6 +931,9 @@ def kernels_vs_plain(db, dev):
         # (torch.searchsorted takes one sorted row per query)
         library_ms=None,
         note=f"M={C} N={col.numel()} strict and non-strict bit-exact")
+
+    # the chain EXPAND's membership test: every atom's bounds, one launch
+    rows["bound_atoms"] = bound_atoms_row(eng, rng, dev)
 
     return rows, dict(n=eng.n, m=eng.m, order=order), seeded
 
@@ -1176,23 +1300,27 @@ def dist_phase(q, db2, want2: int, static_count: int) -> None:
 
 
 class BoundCapture:
-    """Record the bound calls of one real chain EXPAND while a run goes
-    on: of the first ``TRIES`` chain EXPANDs with a membership atom, the
-    one with the most candidate slots (``needed``, fetched for these
-    calls only).  Every call still launches the kernel."""
+    """Record the membership test of one real chain EXPAND while a run
+    goes on: of the first ``TRIES`` chain EXPANDs with a membership atom,
+    the one with the most candidate slots (``needed``, fetched for these
+    calls only), its inputs copied before the call.  Every call still
+    launches the kernel."""
 
     TRIES = 64
 
     def __init__(self):
-        self.calls, self.needed, self.tries = None, -1, 0
-        self._step, self._bound = expand_chain.expand_step, bound_cuda.bound
+        self.call, self.needed, self.tries = None, -1, 0
+        self._step = expand_chain.expand_step
+        self._atoms = bound_cuda.bound_atoms
 
     def __enter__(self):
         calls = []
 
-        def bound_spy(col, values, lo, hi, *, strict):
-            calls.append((col, values, lo, hi, strict))
-            return self._bound(col, values, lo, hi, strict=strict)
+        def atoms_spy(atoms, values, ok, lo2, hi2):
+            if self.tries < self.TRIES:
+                calls.append(tuple(t.clone() for t in
+                                   (values, ok, lo2, hi2)))
+            return self._atoms(atoms, values, ok, lo2, hi2)
 
         def step_spy(F, g_col, g_rs, other_cols, **kw):
             calls.clear()
@@ -1201,39 +1329,62 @@ class BoundCapture:
                 self.tries += 1
                 needed = int(out[1])
                 if needed > self.needed:
-                    self.needed, self.calls = needed, list(calls)
+                    self.needed = needed
+                    self.call = (other_cols, kw["other_ais"]) + calls[0]
             return out
 
-        expand_chain.expand_step, bound_cuda.bound = step_spy, bound_spy
+        expand_chain.expand_step = step_spy
+        bound_cuda.bound_atoms = atoms_spy
         return self
 
     def __exit__(self, *exc):
-        expand_chain.expand_step, bound_cuda.bound = self._step, self._bound
+        expand_chain.expand_step = self._step
+        bound_cuda.bound_atoms = self._atoms
         return False
 
     def check(self) -> str:
-        """The kernel against its plain version on every captured call,
-        on the slots below ``needed`` (the chain's kept slots)."""
-        check(bool(self.calls), "the capture saw no bound call")
-        k = min(self.needed, C)
-        for i, (col, v, lo, hi, strict) in enumerate(self.calls):
-            bc = self._bound(col, v, lo, hi, strict=strict)
-            bp = bound_plain.bound(col, v, lo, hi, strict=strict)
-            torch.cuda.synchronize()
-            check(torch.equal(bc[:k], bp[:k]),
-                  f"bound call {i} of a chain EXPAND differs from its plain "
-                  f"version on the kept slots")
-        return (f"{len(self.calls)} calls of a chain EXPAND with needed="
-                f"{self.needed} (N={[c[0].numel() for c in self.calls]}): "
-                f"bit-exact on the {k} kept slots")
+        """The kernel against its plain version on the captured call,
+        under their contract; the widths of the windows it searched (each
+        live slot's, each atom's) and the lengths of the runs it found
+        (each kept slot's, each atom's)."""
+        check(self.call is not None, "the capture saw no membership test")
+        cols, ais, values, ok, lo2, hi2 = self.call
+        _, (kept, lo_out, hi_out) = atoms_check(
+            cols, ais, values, ok, lo2, hi2,
+            "a chain EXPAND's membership test")
+        live, kept = host(ok), host(kept)
+        widths = np.concatenate([
+            np.maximum(np.minimum(host(hi2[:, ai]), c.numel())
+                       - np.maximum(host(lo2[:, ai]), 0), 0)[live]
+            for c, ai in zip(cols, ais)])
+        runs = np.concatenate([host(hi_out[:, ai] - lo_out[:, ai])[kept]
+                               for ai in ais])
+
+        def spread(a):
+            if not a.size:
+                return "none"
+            p50, p99 = np.percentile(a, [50, 99])
+            return f"median {p50:g}, p99 {p99:g}, max {int(a.max())}"
+
+        return (f"a chain EXPAND with needed={self.needed}, atoms "
+                f"{list(ais)} (N={[c.numel() for c in cols]}), "
+                f"{int(live.sum())} live slots, {int(kept.sum())} kept: "
+                f"bit-exact under the contract; window widths "
+                f"{spread(widths)}; runs found {spread(runs)}")
 
 
-def leapfrog_phase(q, db, db2, want: int, want2: int, fused_rows) -> dict:
-    """Phase 12: the chain EXPAND with the leapfrog bound kernel.  A count
-    at wiki-Vote scale and an evaluation at ca-GrQc scale, each equal to
-    the scipy oracle and to the fused path (the evaluation row for row);
-    each run's ``bound_calls_cuda`` equals the wrapper's launches, no
-    bound call ran off the card and no fused EXPAND ran."""
+def leapfrog_phase(q, db, db2, want: int, want2: int, fused_rows,
+                   dev) -> dict:
+    """Phase 12: the chain EXPAND with the leapfrog membership kernel.  A
+    count at wiki-Vote scale and an evaluation at ca-GrQc scale, each
+    equal to the scipy oracle and to the fused path (the evaluation row
+    for row); each run's ``bound_calls_cuda`` equals the
+    ``ctj_bound_atoms`` launches, one a chain EXPAND (the 4-cycle has one
+    membership atom at every depth, whose two bounds are one launch), no
+    bound call ran off the card, no ``ctj_bound`` and no fused EXPAND
+    ran.  Then the reference's public bounded search,
+    ``registry.lower_bound`` / ``upper_bound`` with ``impl="leapfrog"``
+    on a CUDA column (``ctj_bound``), against ``impl="bsearch"``."""
     reset_launches()
     with BoundCapture() as cap:
         res = engine.count(q, db, capacity=C, **CHAIN)
@@ -1251,9 +1402,12 @@ def leapfrog_phase(q, db, db2, want: int, want2: int, fused_rows) -> dict:
         check(c["bound_calls_cuda"] > 0 and c["bound_calls_torch"] == 0,
               f"chain run bound calls {c['bound_calls_cuda']} on the card, "
               f"{c['bound_calls_torch']} off it")
-        check(c["bound_calls_cuda"] == lau["bound"],
-              f"bound launches {lau['bound']} != executor count "
-              f"{c['bound_calls_cuda']}")
+        check(c["bound_calls_cuda"] == lau["bound_atoms"]
+              == c["expand_calls_chain"] and lau["bound"] == 0,
+              f"bound_atoms launches {lau['bound_atoms']}, ctj_bound "
+              f"launches {lau['bound']}, executor count "
+              f"{c['bound_calls_cuda']}, chain EXPANDs "
+              f"{c['expand_calls_chain']}")
         check(c["expand_calls_chain"] > 0 and c["expand_calls_cuda"] == 0
               and lau["expand"] == 0, "a chain run launched a fused EXPAND")
     c2 = res2.counters
@@ -1261,6 +1415,23 @@ def leapfrog_phase(q, db, db2, want: int, want2: int, fused_rows) -> dict:
           and launches["fold_replay"] == c2["fold_calls_cuda"]
           and launches["emit"] == c2["emit_calls_cuda"] > 0,
           "wrapper launches != executor counts in chain evaluate")
+    # the reference's public bounded search on the card: C queries, each
+    # window a run of the wiki-Vote-scale plan's largest trie level
+    col, v, lo, hi = bound_inputs(cycle_engine(db, dev)[0],
+                                  np.random.default_rng(SEED), dev)
+    before = read_launches()
+    s = registry.lower_bound(col, v, lo, hi, impl="leapfrog")
+    e = registry.upper_bound(col, v, s, hi, impl="leapfrog")
+    torch.cuda.synchronize()
+    after = read_launches()
+    check(after["bound"] - before["bound"] == 2
+          and after["bound_atoms"] == before["bound_atoms"],
+          "the public bounded search did not launch ctj_bound twice")
+    for name in launches:
+        launches[name] += after[name] - before[name]
+    check(torch.equal(s, registry.lower_bound(col, v, lo, hi))
+          and torch.equal(e, registry.upper_bound(col, v, s, hi)),
+          "registry bounds with impl=leapfrog differ from impl=bsearch")
     note = cap.check()
     print(f"[12 leapfrog] expand_kernel=chain impl=leapfrog, 4-cycle: count "
           f"at wiki-Vote scale {res.count} (oracle, = fused) exec_s="
@@ -1268,7 +1439,9 @@ def leapfrog_phase(q, db, db2, want: int, want2: int, fused_rows) -> dict:
           f" bound calls {res.counters['bound_calls_cuda']}; evaluate at "
           f"ca-GrQc scale rows={want2} (oracle) = fused row for row, exec_s="
           f"{res2.exec_s:.3f} chain EXPANDs {c2['expand_calls_chain']} bound "
-          f"calls {c2['bound_calls_cuda']}; captured: {note} | launches "
+          f"calls {c2['bound_calls_cuda']}; captured: {note}; "
+          f"registry.lower_bound/upper_bound(impl=leapfrog) on {C} queries "
+          f"(N={col.numel()}) = impl=bsearch | launches "
           + json.dumps(launches), flush=True)
     return dict(launches=launches)
 
@@ -1361,11 +1534,12 @@ def serve_phase(q, db2, want2: int) -> dict:
     after = read_launches()
     c4 = r4.counters
     check(r4.count == want2, f"chain server count {r4.count} != {want2}")
-    check(c4["bound_calls_cuda"] == after["bound"] - before["bound"] > 0
+    check(c4["bound_calls_cuda"]
+          == after["bound_atoms"] - before["bound_atoms"] > 0
           and c4["bound_calls_torch"] == 0 and c4["expand_calls_cuda"] == 0
           and c4["expand_calls_chain"] > 0,
           f"chain server: counters {c4} vs bound launches "
-          f"{after['bound'] - before['bound']}")
+          f"{after['bound_atoms'] - before['bound_atoms']}")
     print(f"[13 serve] engine.serve(GPU_SERVE) on the ca-GrQc-scale graph: "
           f"4-cycle miss rows={want2} (oracle) wall_s={r1.wall_s:.3f} "
           f"exec_s={r1.exec_s:.3f}; renamed 4-cycle plan-cache hit, replay "
@@ -1856,8 +2030,9 @@ def main() -> int:
     print(f"[11 distributed] total {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
-    # 12. the chain EXPAND with the leapfrog bound kernel
-    lf = leapfrog_phase(q, db, db2, want, want2, rows2)
+    # 12. the chain EXPAND with the leapfrog membership kernel, and the
+    #     public bounded search
+    lf = leapfrog_phase(q, db, db2, want, want2, rows2, dev)
     print(f"[12 leapfrog] total {time.perf_counter() - t_start:.1f} s",
           flush=True)
 

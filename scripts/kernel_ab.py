@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the flash-attention, EXPAND, FOLD (replay-only and merged) and
-EMIT kernels of two checkouts in turns on one NVIDIA GPU.
+"""Time the flash-attention, EXPAND, FOLD (replay-only and merged), EMIT
+and bounded-search kernels of two checkouts in turns on one NVIDIA GPU.
 
     python3 scripts/kernel_ab.py OTHER_TREE
 
@@ -18,7 +18,14 @@ every process):
   more rows than the chunk holds) and EMIT, each on
   ``chip_smoke.kernel_inputs``: at C = 2^16 on the 4-cycle's plan of the
   wiki-Vote-scale graph, and at C = 2^25 (the static pass's capacity) on
-  its plan of the ca-GrQc-scale graph, phase 3's inputs at that size.
+  its plan of the ca-GrQc-scale graph, phase 3's inputs at that size;
+* the chain EXPAND with the leapfrog search (``expand_kernel="chain",
+  impl="leapfrog"``), one call of the step ``registry.expand_fn`` builds,
+  as the engine makes it, on a seeded chunk of C = 2^16 rows
+  (``chip_smoke.expand_inputs``) of the 4-cycle's plan of the
+  wiki-Vote-scale graph; its busy time also split out for the bounded
+  search's own kernels (``ctj::bound*``); and ``ctj_bound`` alone on
+  phase 3's 2^16 queries (``chip_smoke.bound_inputs``).
 
 Each time is the median of 25 calls by CUDA events, and the device busy
 time a call by torch.profiler, as ``chip_smoke.py`` takes them.  It
@@ -50,11 +57,12 @@ def measure(tree: Path, label: str) -> dict:
     import chip_smoke as cs
     from repro_torch.core.db import graph_db
     from repro_torch.data.graphs import zipf_graph
-    from repro_torch.kernels import cudalib
+    from repro_torch.kernels import cudalib, registry
     from repro_torch.kernels.emit import cuda as emit_cuda
     from repro_torch.kernels.expand import cuda as expand_cuda
     from repro_torch.kernels.flash_attention import cuda as flash_cuda
     from repro_torch.kernels.fold import cuda as fold_cuda
+    from repro_torch.kernels.leapfrog import cuda as bound_cuda
 
     dev = torch.device("cuda")
     cudalib.load()
@@ -101,6 +109,31 @@ def measure(tree: Path, label: str) -> dict:
             out[f"{name}_{size}_busy_ms"] = cs.busy(fn)["busy_ms"]
             del inputs, fn
             torch.cuda.empty_cache()
+
+    eng, _ = cs.cycle_engine(db, dev)
+    d = cs.expand_depth(eng)
+    F = cs.expand_inputs(eng, d, np.random.default_rng([cs.SEED, cs.C, d]),
+                         dev)[0]
+    args = eng.expand_kernel_args(d)
+    step = registry.expand_fn(
+        registry.ExpandSpec(capacity=cs.C, n_vars=eng.n, n_atoms=eng.m,
+                            n_others=len(args["other_ais"])),
+        path="chain", impl="leapfrog", **args)
+    out["chain_expand_2^16_ms"] = cs.time_ms(lambda: step(F))
+    ops = cs.busy_ops(lambda: step(F))
+    out["chain_expand_2^16_busy_ms"] = sum(ops.values())
+    out["chain_expand_2^16_bound_busy_ms"] = sum(
+        t for k, t in ops.items() if "ctj::bound" in k)
+    out["chain_expand_2^16_busy_by_op"] = {k.split("(")[0][:60]: t
+                                           for k, t in ops.items()}
+    col, v, lo, hi = cs.bound_inputs(eng, np.random.default_rng(cs.SEED),
+                                     dev)
+
+    def bound():
+        bound_cuda.bound(col, v, lo, hi, strict=True)
+
+    out["bound_2^16_ms"] = cs.time_ms(bound)
+    out["bound_2^16_busy_ms"] = cs.busy(bound)["busy_ms"]
     return out
 
 

@@ -52,6 +52,7 @@ _SIGNATURES = {
                        + [_P] * 7 + [_P, _L, _P],
     "ctj_emit": [_P, _P, _I, _I, _P, _P, _P, _L, _P],
     "ctj_bound": [_P] * 4 + [_I] * 3 + [_P, _P],
+    "ctj_bound_atoms": [_P, _I] + [_P] * 4 + [_I, _I, _P],
     "ctj_flash_attention": [_P] * 4 + [_I] * 10 + [_F, _P],
 }
 

@@ -10,18 +10,21 @@ chain with ``impl="bsearch"``):
   run-start array), lay the (row, candidate) pairs out over output slots
   via cumsum + searchsorted;
 * verify each candidate's membership in every other participating atom
-  with bounded search (two per atom, through ``registry.lower_bound`` /
-  ``upper_bound`` with the given ``impl``), narrowing that atom's
-  [lo, hi) trie window;
+  with bounded search (a lower and an upper bound per atom), narrowing
+  that atom's [lo, hi) trie window, through ``registry.bound_atoms``:
+  under ``impl="leapfrog"`` on a CUDA chunk one kernel launch for all
+  atoms, which searches only the slots still alive; otherwise atom by
+  atom with the given ``impl``;
 * compact surviving rows to the front of the chunk (stable partition).
 
 The searchsorted, cumsum, gathers and stable argsort are PyTorch ops on
 the chunk's device, as the reference leaves them to XLA; only the bounded
-search has a kernel of its own (``impl="leapfrog"``: ``ctj_bound`` on a
-CUDA chunk).  Every window a slot below ``needed`` searches is sorted (a
-trie level's column is sorted within each parent run and a window never
-crosses a run); slots past ``needed`` may search stale windows, and
-``ok`` masks them out.  Generic over any Frontier-shaped NamedTuple
+search has a kernel of its own (``impl="leapfrog"``: ``ctj_bound_atoms``
+on a CUDA chunk, one launch per EXPAND).  Every window a live slot (below
+``needed``, a candidate of its row) searches is sorted (a trie level's
+column is sorted within each parent run and a window never crosses a
+run); other slots may hold stale windows, and ``ok`` masks them out.
+Generic over any Frontier-shaped NamedTuple
 (assign/factor/valid/orig/lo/hi).  Rows past the valid prefix are
 unconstrained.
 """
@@ -31,7 +34,7 @@ from typing import Sequence, Tuple
 
 import torch
 
-from ..registry import lower_bound, upper_bound
+from ..registry import bound_atoms
 
 __all__ = ["expand_step", "compact"]
 
@@ -44,9 +47,13 @@ def compact(F):
 
 def expand_step(F, g_col: torch.Tensor, g_rs: torch.Tensor,
                 other_cols: Sequence[torch.Tensor], *, d: int, g_ai: int,
-                other_ais: Tuple[int, ...], n_rows_g: int, impl: str):
+                other_ais: Tuple[int, ...], n_rows_g: int, impl: str,
+                atoms=None):
     """One frontier expansion: returns ``(F', needed)`` with ``needed``
-    the candidate-slot total as a 0-d int32 tensor."""
+    the candidate-slot total as a 0-d int32 tensor.  ``atoms``: the
+    membership columns laid out for the leapfrog kernel
+    (``leapfrog.cuda.Atoms``), required under ``impl="leapfrog"`` on a
+    CUDA chunk."""
     C = F.assign.shape[0]
     dev = F.assign.device
     i32 = torch.int32
@@ -71,18 +78,11 @@ def expand_step(F, g_col: torch.Tensor, g_rs: torch.Tensor,
     else:
         pos = value = run_end = torch.zeros_like(slot)
         ok = torch.zeros_like(ok)
-    lo_src, hi_src = F.lo[src], F.hi[src]
-    lo2, hi2 = lo_src.clone(), hi_src.clone()
+    lo2, hi2 = F.lo[src], F.hi[src]   # gathers: new tensors
     lo2[:, g_ai] = pos
     hi2[:, g_ai] = run_end
-    for ai, col in zip(other_ais, other_cols):
-        hi_ai = hi_src[:, ai].contiguous()
-        s = lower_bound(col, value, lo_src[:, ai].contiguous(), hi_ai,
-                        impl=impl)
-        e = upper_bound(col, value, s, hi_ai, impl=impl)
-        ok = ok & (s < e)
-        lo2[:, ai] = s
-        hi2[:, ai] = e
+    bound_atoms(other_cols, other_ais, value, ok, lo2, hi2, impl=impl,
+                atoms=atoms)
     assign2 = F.assign[src].clone()
     assign2[:, d] = value
     out = F._replace(assign=assign2, factor=F.factor[src], valid=ok,

@@ -12,15 +12,26 @@ is empty.  The count runs over column blocks of ``DEFAULT_BC`` values, so
 its memory stays O(M x DEFAULT_BC) for M queries.  On a window that is
 sorted the count is the insertion point, as a binary search finds it.
 
+:func:`bound_atoms` is the chain EXPAND's membership test built on it,
+the contract ``ctj_bound_atoms`` is held to: for each membership atom in
+turn, the lower bound of every slot's value in its window, the upper
+bound from there, ``ok`` cleared where the two meet, both written back
+into the window, in place.  The CUDA kernel must give the same ``ok`` on
+every slot and the same windows on every slot whose final ``ok`` is set
+(it searches no slot whose ``ok`` is clear and writes the windows of no
+slot that an atom rejects).
+
 :func:`bound_ref` is the port of the reference's oracle
 (``repro/kernels/leapfrog/ref.py``): the same count over the whole column
 at once, for tests.
 """
 from __future__ import annotations
 
+from typing import Callable, Sequence
+
 import torch
 
-__all__ = ["DEFAULT_BC", "bound", "bound_ref"]
+__all__ = ["DEFAULT_BC", "bound", "bound_atoms", "bound_ref"]
 
 DEFAULT_BC = 1024  # column values per block, as the reference's kernel
 
@@ -43,6 +54,24 @@ def bound(col: torch.Tensor, values: torch.Tensor, lo: torch.Tensor,
         mask = cmp & (pos >= lo32[:, None]) & (pos < hi32[:, None])
         count += mask.sum(dim=1, dtype=torch.int32)
     return lo32.to(lo.dtype) + count.to(lo.dtype)
+
+
+def bound_atoms(cols: Sequence[torch.Tensor], ais: Sequence[int],
+                values: torch.Tensor, ok: torch.Tensor, lo2: torch.Tensor,
+                hi2: torch.Tensor, *, search: Callable = bound) -> None:
+    """Narrow column ``ai`` of the (C, m) windows ``lo2``/``hi2`` of every
+    slot to the run of ``values`` in ``cols[k]``, for each ``(k, ai)`` in
+    order, and clear ``ok`` where a run is empty; in place.  An empty
+    column gives empty runs.  ``search(col, values, lo, hi, strict=...)``
+    finds each bound: the dense count by default; the chain EXPAND passes
+    its ``impl``'s bounded search (``registry.bound_atoms``)."""
+    for col, ai in zip(cols, ais):
+        hi = hi2[:, ai]
+        s = search(col, values, lo2[:, ai], hi, strict=True)
+        e = search(col, values, s, hi, strict=False)
+        ok &= s < e
+        lo2[:, ai] = s
+        hi2[:, ai] = e
 
 
 def bound_ref(col: torch.Tensor, values: torch.Tensor, lo: torch.Tensor,

@@ -8,11 +8,15 @@ Every kernel is reached through this module:
     on any device), the leapfrog kernel (``leapfrog/``: ``ctj_bound`` on
     a CUDA column, the dense masked count of ``leapfrog/plain.py`` on a
     CPU column) and the dense count over the whole column at once
-    (``"ref"``, for tests);
+    (``"ref"``, for tests); and :func:`bound_atoms`, the membership test
+    of one chain EXPAND (every atom's lower and upper bound: under
+    ``impl="leapfrog"`` one ``ctj_bound_atoms`` launch on a CUDA chunk,
+    else the atom loop of ``leapfrog/plain.bound_atoms`` over ``impl``'s
+    bounded search);
   * **EXPAND** (``expand_fn``) — one frontier-expansion step, on one of
     two paths: ``"fused"`` (the EXPAND kernel) or ``"chain"`` (the op
     chain of ``expand/chain.py``, whose bounded searches go through
-    ``lower_bound``/``upper_bound`` with the given ``impl``);
+    :func:`bound_atoms`);
   * **FOLD** (``fold_fn``) — one bracket close in evaluation mode, in
     three arities: replay-only (representative row blocks replayed
     through ``orig``), splice-only (tier-2 payload hits' cached blocks
@@ -41,7 +45,8 @@ from typing import Callable, Sequence, Tuple
 import torch
 
 __all__ = ["ExpandSpec", "FoldSpec", "EmitSpec", "BOUND_IMPLS",
-           "EXPAND_PATHS", "lower_bound", "upper_bound", "path_of",
+           "EXPAND_PATHS", "lower_bound", "upper_bound", "bound_atoms",
+           "path_of",
            "expand_fn", "fold_fn", "emit_fn"]
 
 BOUND_IMPLS = ("bsearch", "leapfrog", "ref")
@@ -93,6 +98,35 @@ def lower_bound(col, values, lo, hi, impl: str = "bsearch"):
 
 def upper_bound(col, values, lo, hi, impl: str = "bsearch"):
     return _bound(col, values, lo, hi, False, impl)
+
+
+def bound_atoms(cols: Sequence[torch.Tensor], ais: Sequence[int],
+                values: torch.Tensor, ok: torch.Tensor, lo2: torch.Tensor,
+                hi2: torch.Tensor, *, impl: str, atoms=None) -> None:
+    """The membership test of one chain EXPAND, in place: for each atom
+    ``ais[k]`` in order, narrow column ``ais[k]`` of every slot's (C, m)
+    windows ``lo2``/``hi2`` to the run of ``values`` in ``cols[k]`` and
+    clear ``ok`` where the run is empty.  Under ``impl="leapfrog"`` a CUDA
+    chunk launches ``ctj_bound_atoms`` over ``atoms``, the columns'
+    ``leapfrog.cuda.Atoms`` that ``expand_fn`` builds once (required
+    there); otherwise the atom loop of ``leapfrog/plain.bound_atoms`` runs
+    with ``impl``'s bounded search (the dense count on a CPU chunk under
+    ``"leapfrog"``).  Kernel and loop agree on ``ok`` on every slot and on
+    the windows of every slot whose final ``ok`` is set."""
+    from .leapfrog import cuda, plain
+    if not cols:
+        return  # no membership atom at this depth: every slot stands
+    if impl == "leapfrog" and path_of(values) == "cuda":
+        if atoms is None:
+            raise ValueError("a CUDA chunk's leapfrog membership test needs "
+                             "the columns' leapfrog.cuda.Atoms")
+        cuda.bound_atoms(atoms, values, ok, lo2, hi2)
+        return
+
+    def search(col, v, lo, hi, *, strict):
+        return _bound(col, v, lo, hi, strict, impl)
+
+    plain.bound_atoms(cols, ais, values, ok, lo2, hi2, search=search)
 
 
 # ---------------------------------------------------------------------------
@@ -165,10 +199,13 @@ def expand_fn(spec: ExpandSpec, *, path: str = "fused",
     chunk; ``impl`` does not enter); ``path="chain"`` runs the op chain
     with bounded searches of flavour ``impl``.  The built function
     carries ``fn.path`` and ``fn.bound_calls``: the leapfrog bound calls
-    (kernel launches on a CUDA chunk) one call of it makes, two per
-    membership atom with a non-empty column under ``impl="leapfrog"``,
-    else 0."""
+    (``ctj_bound_atoms`` launches on a CUDA chunk) one call of it makes
+    under ``impl="leapfrog"``, one per group of at most ``MAX_ATOMS``
+    membership atoms, none without an atom or with an empty column (no
+    slot survives it); else 0.  Under ``impl="leapfrog"`` the columns on a
+    CUDA device are checked and laid out for the kernel here, once."""
     from .expand import chain, cuda, plain  # lazy: they import this module
+    from .leapfrog import cuda as leapfrog_cuda
     if path not in EXPAND_PATHS:
         raise ValueError(f"path must be one of {EXPAND_PATHS}, got {path!r}")
     if impl not in BOUND_IMPLS:
@@ -180,13 +217,20 @@ def expand_fn(spec: ExpandSpec, *, path: str = "fused",
     kw = dict(d=d, g_ai=g_ai, other_ais=other_ais, n_rows_g=n_rows_g)
 
     if path == "chain":
+        atoms = None
+        if (impl == "leapfrog" and other_cols
+                and path_of(other_cols[0]) == "cuda"):
+            atoms = leapfrog_cuda.Atoms(other_cols, other_ais)
+
         def fn(F):
             _check_chunk(spec, F)
             return chain.expand_step(F, g_col, g_rs, other_cols, impl=impl,
-                                     **kw)
+                                     atoms=atoms, **kw)
 
-        fn.bound_calls = (2 * sum(c.shape[0] > 0 for c in other_cols)
-                          if impl == "leapfrog" else 0)
+        searched = (impl == "leapfrog"
+                    and all(c.shape[0] > 0 for c in other_cols))
+        fn.bound_calls = (-(-len(other_cols) // leapfrog_cuda.MAX_ATOMS)
+                          if searched else 0)
     else:
         def fn(F):
             if path_of(F.assign) == "cuda":

@@ -571,18 +571,139 @@ def test_bound_kernel_refuses_other_dtypes_and_skips_empty_columns(dev):
     assert bound_cuda.launches == before
 
 
+def _atoms_inputs(C, n_atoms, seed, dev, kind):
+    """C slots of a chain EXPAND's membership test over ``n_atoms`` atoms,
+    atom k on lo/hi column k + 1 (column 0 stands for the guard's, which
+    the test must leave alone).  Every atom's column has the same 64 runs,
+    each sorted; a live slot's window is one run, the same in every atom,
+    and its value mostly one of atom 0's values in that run (each atom
+    redraws a tenth of its values, so a slot survives some atoms and not
+    others).  ``kind``: "runs"; "skewed" (each column sorted as a whole,
+    and one slot in 64 searching a window over the whole column and past
+    its end); "dups" (values 0-15: long runs of equal values); "dead"
+    (``ok`` all False); "empty" (the middle atom's column empty)."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, 40, 64)
+    starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    top = 16 if kind == "dups" else 5000
+    base = np.concatenate([rng.integers(0, top, k) for k in lens])
+    cols = []
+    for _ in range(n_atoms):
+        col = np.where(rng.random(base.size) < 0.1,
+                       rng.integers(0, top, base.size), base)
+        col = (np.sort(col) if kind == "skewed" else np.concatenate(
+            [np.sort(col[a:a + k]) for a, k in zip(starts, lens)]))
+        cols.append(col)
+    if kind == "empty":
+        cols[n_atoms // 2] = cols[n_atoms // 2][:0]
+    n = base.size
+    r = rng.integers(0, 64, C)
+    lo2 = np.tile(rng.integers(0, n, (C, 1)), (1, n_atoms + 1))
+    hi2 = lo2 + rng.integers(0, 9, (C, n_atoms + 1))
+    lo2[:, 1:] = starts[r][:, None]
+    hi2[:, 1:] = (starts[r] + lens[r])[:, None]
+    if kind == "skewed":
+        lo2[::64, 1:], hi2[::64, 1:] = 0, n + 5
+    pick = starts[r] + rng.integers(0, lens[r])
+    values = np.where(rng.random(C) < 0.7, cols[0][pick],
+                      rng.integers(-2, top + 3, C))
+    ok = rng.random(C) < (0 if kind == "dead" else 0.75)
+    i32 = [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+           for a in (values, lo2, hi2)]
+    return ([torch.from_numpy(c.astype(np.int32)).to(dev) for c in cols],
+            tuple(range(1, n_atoms + 1)), i32[0],
+            torch.from_numpy(ok).to(dev), i32[1], i32[2])
+
+
+ATOM_CASES = [("runs", 1), ("runs", 3), ("skewed", 3), ("dups", 3),
+              ("dead", 3), ("runs", 2 * bound_cuda.MAX_ATOMS + 3),
+              ("empty", 2 * bound_cuda.MAX_ATOMS + 3)]
+
+
+@pytest.mark.parametrize("kind,n_atoms", ATOM_CASES,
+                         ids=[f"{k}-{a}" for k, a in ATOM_CASES])
+@pytest.mark.parametrize("C,seed", [(1 << 8, 0), (1 << 16, 1)])
+def test_bound_atoms_kernel_matches_plain(dev, C, seed, kind, n_atoms):
+    """``ctj_bound_atoms`` against ``plain.bound_atoms``: ``ok`` on every
+    slot, the windows on every slot whose final ``ok`` is set, the guard's
+    column untouched; with one group of atoms, no window written on a
+    slot that an atom rejects; one launch per group of ``MAX_ATOMS``
+    columns, none when a column is empty."""
+    cols, ais, values, ok, lo2, hi2 = _atoms_inputs(C, n_atoms, seed, dev,
+                                                    kind)
+    got, want = ([t.clone() for t in (ok, lo2, hi2)] for _ in range(2))
+    before = bound_cuda.atoms_launches
+    bound_cuda.bound_atoms(bound_cuda.Atoms(cols, ais), values, *got)
+    bound_plain.bound_atoms(cols, ais, values, *want)
+    torch.cuda.synchronize()
+    groups = (0 if kind == "empty" else
+              -(-len(cols) // bound_cuda.MAX_ATOMS))
+    assert bound_cuda.atoms_launches - before == groups
+    keep = want[0]
+    assert torch.equal(got[0], keep)
+    assert torch.equal(got[1][keep], want[1][keep])
+    assert torch.equal(got[2][keep], want[2][keep])
+    assert torch.equal(got[1][:, 0], lo2[:, 0])
+    assert torch.equal(got[2][:, 0], hi2[:, 0])
+    if groups <= 1:
+        assert torch.equal(got[1][~keep], lo2[~keep])
+        assert torch.equal(got[2][~keep], hi2[~keep])
+    assert bool(keep.any()) == (kind not in ("dead", "empty"))
+
+
+def test_bound_atoms_wrapper_refuses_other_dtypes_and_devices(dev):
+    cols, ais, values, ok, lo2, hi2 = _atoms_inputs(64, 2, 3, dev, "runs")
+    atoms = bound_cuda.Atoms(cols, ais)
+    with pytest.raises(ValueError, match="kernel takes"):
+        bound_cuda.Atoms([cols[0].long()], (1,))
+    with pytest.raises(ValueError, match="kernel runs on"):
+        bound_cuda.Atoms([cols[0].cpu()], (1,))
+    before = bound_cuda.atoms_launches
+    bad = {"values": (values.long(), ok, lo2, hi2),
+           "ok": (values, ok.to(torch.uint8), lo2, hi2),
+           "lo2": (values, ok, lo2.long(), hi2),
+           "hi2": (values, ok, lo2, hi2.t().contiguous().t()),
+           "device": (values.cpu(), ok.cpu(), lo2.cpu(), hi2.cpu())}
+    for what, args in bad.items():
+        with pytest.raises(ValueError):
+            bound_cuda.bound_atoms(atoms, *args)
+    assert bound_cuda.atoms_launches == before
+
+
+def test_bound_atoms_on_a_cuda_chunk_never_runs_plain(dev, monkeypatch):
+    """registry.bound_atoms(impl="leapfrog") on a CUDA chunk launches the
+    kernel over the columns' prebuilt layout, refuses a call without it,
+    and never reaches the plain version."""
+    from repro_torch.kernels import registry
+
+    def refuse(*args, **kw):
+        raise AssertionError("a CUDA chunk reached plain.bound_atoms")
+
+    monkeypatch.setattr(bound_plain, "bound_atoms", refuse)
+    cols, ais, values, ok, lo2, hi2 = _atoms_inputs(256, 3, 4, dev, "runs")
+    before = bound_cuda.atoms_launches
+    with pytest.raises(ValueError, match="needs the columns"):
+        registry.bound_atoms(cols, ais, values, ok, lo2, hi2,
+                             impl="leapfrog")
+    registry.bound_atoms(cols, ais, values, ok, lo2, hi2, impl="leapfrog",
+                         atoms=bound_cuda.Atoms(cols, ais))
+    torch.cuda.synchronize()
+    assert bound_cuda.atoms_launches == before + 1 and bool(ok.any())
+
+
 @pytest.mark.parametrize("qname,q,which", ENGINE_CASES,
                          ids=[c[0] for c in ENGINE_CASES])
 def test_chain_leapfrog_engine_on_the_card_matches_cpu(dev, qname, q, which):
     """The chain EXPAND with the leapfrog kernel on the card equals the CPU
     run (dense count) and the fused path: counts, tuples in block order,
-    tier counters; every bound call launched the kernel."""
+    tier counters; every bound call launched ``ctj_bound_atoms``."""
     db = _db(nv=20, ne=300) if which == "small" else _hub_db()
     kw = dict(capacity=1 << 8, impl="leapfrog", expand_kernel="chain")
     for fn in (engine.count, engine.evaluate):
-        before = bound_cuda.launches
+        before = bound_cuda.atoms_launches, bound_cuda.launches
         g = fn(q, db, **kw)
-        launched = bound_cuda.launches - before
+        launched = bound_cuda.atoms_launches - before[0]
+        assert bound_cuda.launches == before[1]  # the chain runs no ctj_bound
         c = fn(q, db, device="cpu", **kw)
         f = fn(q, db, capacity=1 << 8)
         assert g.count == c.count == f.count
