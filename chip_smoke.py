@@ -21,8 +21,14 @@ the serving layer (``engine.serve``
 with the ``GPU_SERVE`` preset: a plan-cache miss, an isomorphic hit that
 replays warm tables, a count, four concurrent streams, a snapshot that a
 fresh process, ``chip_smoke.py --serve-worker DIR``, loads and serves
-warm from, and a server on the chain path), checks every result against
-scipy.sparse oracles, and checks that each path launched its kernels;
+warm from, and a server on the chain path), then the reference's knobs
+(phase 15: the FOLD and EMIT op chains, ``fold_kernel="chain",
+emit_kernel="chain"``, in a one-shot evaluation, a payload pass cold and
+warm and a static evaluation cold and warm at ca-GrQc scale, against the
+fused runs' rows; and the paper's host engines, ``backend="ref"``, on the
+reference benchmark's ego-facebook-like graph beside the device engine),
+checks every result against scipy.sparse oracles, and checks that each
+path launched its kernels;
 then LM serving (phase 14): the flash-attention kernel against its plain
 version, and qwen2.5-3b at full width and depth (random weights from a
 seed) prefilling four 2048-token prompts and decoding 32 greedy tokens
@@ -57,7 +63,8 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch  # noqa: E402
 
 from repro_torch.configs.paper_clftj import (  # noqa: E402
-    GPU_SERVE, JoinEngineConfig)
+    BOUNDED_100K, GPU_EVAL_REPLAY, GPU_SERVE, PAPER_FAITHFUL,
+    JoinEngineConfig)
 from repro_torch.core import engine  # noqa: E402
 from repro_torch.core.cache import CacheConfig  # noqa: E402
 from repro_torch.core.cached_frontier import CachedTrieJoin  # noqa: E402
@@ -69,7 +76,7 @@ from repro_torch.core.distributed import (  # noqa: E402
 from repro_torch.core.frontier import Frontier  # noqa: E402
 from repro_torch.core.hostsync import SyncCounter  # noqa: E402
 from repro_torch.core.schedule import FOLD_CHILD  # noqa: E402
-from repro_torch.data.graphs import zipf_graph  # noqa: E402
+from repro_torch.data.graphs import dataset, zipf_graph  # noqa: E402
 from repro_torch.kernels import cudalib, registry  # noqa: E402
 from repro_torch.kernels.emit import cuda as emit_cuda  # noqa: E402
 from repro_torch.kernels.emit import plain as emit_plain  # noqa: E402
@@ -124,6 +131,15 @@ SERVE_STREAMS = 4           # concurrent streaming sessions of the serve phase
 # the leapfrog path: the chain EXPAND whose membership tests launch
 # ctj_bound_atoms
 CHAIN = dict(expand_kernel="chain", impl="leapfrog")
+# phase 15: the FOLD and EMIT op chains (EXPAND stays on its kernel)
+OP_CHAINS = dict(fold_kernel="chain", emit_kernel="chain")
+# phase 11's knobs, passed explicitly to both factories (the defaults)
+DIST_KNOBS = dict(expand_kernel="fused", impl="bsearch", fold_kernel="fused",
+                  emit_kernel="fused")
+# phase 15's host engines: the reference benchmark's dataset
+# (benchmarks/bench_cycle_scaling.py) and its triangle
+HOST_DATASET = "ego-facebook-like"
+HOST_ALGORITHMS = ("clftj", "lftj", "ytd")
 # kernel name -> (wrapper module, its launch counter)
 WRAPPERS = {"expand": (expand_cuda, "launches"),
             "fold_replay": (fold_cuda, "launches"),
@@ -1104,6 +1120,12 @@ def read_launches() -> dict:
             for name, (mod, attr) in WRAPPERS.items()}
 
 
+def digest(rows: np.ndarray) -> tuple:
+    """Rows in order, as a shape and a hash of their bytes."""
+    rows = np.ascontiguousarray(rows)
+    return rows.shape, hashlib.sha1(rows.tobytes()).hexdigest()
+
+
 def timed_pass(eng):
     """One evaluate pass of ``eng``: (rows, seconds), the clock stopped
     after the rows reached the host."""
@@ -1153,7 +1175,7 @@ def static_phase(q, db, db2, want2: int, dev) -> dict:
     se = StaticCLFTJ(q, td2, order2, db2, capacity=C_STATIC,
                      cache=PAYLOAD_CACHE, device=dev)
     torch.cuda.reset_peak_memory_stats()
-    tables, passes = None, []
+    tables, passes, digests = None, [], []
     for label in ("cold", "warm"):
         with SyncCounter() as sync:
             (rows_, stats_, tables), secs = host_synced(
@@ -1164,6 +1186,7 @@ def static_phase(q, db, db2, want2: int, dev) -> dict:
         check(sync.count == 1 and sync.label_counts == {"static-eval": 1},
               f"static {label} fetched {dict(sync.label_counts)}")
         passes.append((label, secs, stats_, int(se.last_needed_max)))
+        digests.append(digest(rows_))
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     launches = read_launches()
     check(passes[1][2]["tier2_replay_hits"] > 0,
@@ -1193,7 +1216,9 @@ def static_phase(q, db, db2, want2: int, dev) -> dict:
           + f"; sort-routed folds {se.stats['fold_sorted_exits']}; peak "
           f"device memory {peak_gb:.2f} GiB | launches "
           + json.dumps(launches), flush=True)
-    return dict(count=total, launches=launches, engine=se, tables=tables)
+    return dict(count=total, launches=launches, engine=se, tables=tables,
+                digests=digests, stats=[st for _, _, st, _ in passes],
+                peak_gib=peak_gb)
 
 
 def dist_worker(rank: int, world: int, work: str) -> int:
@@ -1212,12 +1237,12 @@ def dist_worker(rank: int, world: int, work: str) -> int:
     td2, order2 = engine.plan_query(q, db2)
     reset_launches()
     fn, eng = make_distributed_count(q, td2, order2, db2,
-                                     capacity=C_STATIC)
+                                     capacity=C_STATIC, **DIST_KNOBS)
     (total, ov), count_s = host_synced(lambda: [x.item() for x in fn()])
     local, local_ov = (x.item() for x in eng.count_fn()(
         shard_frontier(eng, rank, world)))
     run, eng2 = make_distributed_evaluate(q, td2, order2, db2,
-                                          capacity=C_STATIC)
+                                          capacity=C_STATIC, **DIST_KNOBS)
     (rows1, s1, tables), t1 = host_synced(run)
     (rows2, s2, _), t2 = host_synced(lambda: run(tables))
     res = dict(rank=rank, count=total, overflow=ov, local=local,
@@ -1289,7 +1314,7 @@ def dist_phase(q, db2, want2: int, static_count: int) -> None:
           "the warm distributed pass served no replay hits")
     print(f"[11 distributed] {DIST_WORLD} processes on one card, gloo, "
           f"4-cycle at ca-GrQc scale, C={C_STATIC}, default cache (direct "
-          f"2^15 slots, payloads): count {res[0]['count']} (oracle) = sum "
+          f"2^15 slots, payloads), knobs {DIST_KNOBS}: count {res[0]['count']} (oracle) = sum "
           f"of shards {local} = static count; rows={want2} (oracle) cold "
           f"and warm, the same on every rank; cold {res[0]['s1']}, warm "
           f"{res[0]['s2']}; per rank count_s / exec_s cold, warm: "
@@ -1582,6 +1607,142 @@ def serve_worker(work: str) -> int:
         exec_s=res.exec_s, compile_s=res.compile_s,
         replay_hits=res.tier2_replay_hits, rows=res.count)))
     return 0
+
+
+def knobs_phase(q, db2, want2: int, fused_rows, pay_ref: dict,
+                static_ref: dict, dev) -> dict:
+    """Phase 15: the reference's knobs.  (a) The FOLD and EMIT op chains
+    (``OP_CHAINS``) on the card at ca-GrQc scale: a one-shot evaluation
+    at C, a cold and a warm pass on one ``GPU_EVAL_REPLAY`` engine, and a
+    static evaluation cold and warm at C_STATIC; each run's rows equal the
+    fused run's in order (phases 5, 8 and 10), the replay hits equal
+    phases 8 and 10's, and not one FOLD or EMIT kernel ran while EXPAND's
+    did.  (c) The paper's host engines (``backend="ref"``: CLFTJ, LFTJ,
+    YTD, and the host CLFTJ under ``PAPER_FAITHFUL`` and ``BOUNDED_100K``)
+    counting the triangle on the reference benchmark's ego-facebook-like
+    graph, and one host CLFTJ evaluation: every count equals the device
+    engine's on the card and scipy's, the tuples the device engine's."""
+    td2, order2 = engine.plan_query(q, db2)
+    reset_launches()
+    runs = []
+
+    def measured(label, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out, secs = host_synced(fn)
+        runs.append(f"{label} {secs:.3f} s, peak "
+                    f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        return out
+
+    # (a) the op chains: one-shot evaluation
+    res = measured("evaluate", lambda: engine.evaluate(q, db2, capacity=C,
+                                                       **OP_CHAINS))
+    check_rows(res.tuples, res.order, q, db2, want2, "chain evaluate")
+    check(np.array_equal(res.tuples, fused_rows),
+          "chain FOLD/EMIT evaluate rows differ from the fused run's")
+    counters = [res.counters]
+    # a payload engine of GPU_EVAL_REPLAY with both chains, cold and warm
+    cfg = dataclasses.replace(GPU_EVAL_REPLAY, **OP_CHAINS)
+    check(cfg.cache_config() == PAYLOAD_CACHE
+          and cfg.frontier_capacity == C,
+          "GPU_EVAL_REPLAY is not phase 8's payload configuration")
+    pay = CachedTrieJoin(q, td2, order2, db2, capacity=cfg.frontier_capacity,
+                         dedup=cfg.dedup, cache=cfg.cache_config(),
+                         device=dev, impl=cfg.impl,
+                         expand_kernel=cfg.expand_kernel,
+                         fold_kernel=cfg.fold_kernel,
+                         emit_kernel=cfg.emit_kernel)
+    for i, label in enumerate(("cold", "warm")):
+        hits0 = pay.stats["tier2_replay_hits"]
+        rows, _ = measured(f"payload {label}", lambda: timed_pass(pay))
+        check(digest(rows) == pay_ref["digests"][i],
+              f"chain payload {label} rows differ from phase 8's")
+        hits = pay.stats["tier2_replay_hits"] - hits0
+        check(hits == pay_ref["hits"][i],
+              f"chain payload {label} replay hits {hits} != phase 8's "
+              f"{pay_ref['hits'][i]}")
+    counters.append(pay.stats)
+    # the static executor, one pass per call, both chains
+    se = StaticCLFTJ(q, td2, order2, db2, capacity=C_STATIC,
+                     cache=PAYLOAD_CACHE, device=dev, **OP_CHAINS)
+    tables = None
+    for i, label in enumerate(("cold", "warm")):
+        with SyncCounter() as sync:
+            rows, st, tables = measured(f"static {label}",
+                                        lambda: se.evaluate_static(tables))
+        check(digest(rows) == static_ref["digests"][i]
+              and st == static_ref["stats"][i],
+              f"chain static {label}: {st} or its rows differ from phase "
+              f"10's {static_ref['stats'][i]}")
+        check(sync.label_counts == {"static-eval": 1},
+              f"chain static {label} fetched {dict(sync.label_counts)}")
+    counters.append(se.stats)
+    del se, tables, pay
+    gc.collect()
+    torch.cuda.empty_cache()
+    chain_launches = read_launches()
+    for name in ("fold_replay", "fold_splice", "fold_merged", "emit"):
+        check(chain_launches[name] == 0,
+              f"the op chains launched {name} {chain_launches[name]} times")
+    expands = sum(c["expand_calls_cuda"] for c in counters)
+    check(chain_launches["expand"] == expands > 0,
+          f"expand launches {chain_launches['expand']} != executor count "
+          f"{expands}")
+    for c in counters:
+        check(c["fold_calls_chain"] > 0 and c["emit_calls_chain"] > 0
+              and all(c[f"{op}_calls_{p}"] == 0
+                      for op in ("fold", "emit") for p in ("cuda", "torch")),
+              "a FOLD or EMIT left the op chains")
+    check(counters[1]["fold_splice_calls_chain"] > 0
+          and counters[2]["fold_merged_calls_chain"] > 0,
+          "the chains spliced or merged nothing")
+    print(f"[15 knobs] fold_kernel=chain emit_kernel=chain, 4-cycle at "
+          f"ca-GrQc scale: evaluate C={C} rows={want2} (oracle) = phase 5 "
+          f"in order; GPU_EVAL_REPLAY engine cold/warm = phase 8 in order, "
+          f"replay hits {pay_ref['hits']}; static C={C_STATIC} cold/warm = "
+          f"phase 10 in order, {static_ref['stats']}; FOLD/EMIT kernel "
+          f"launches 0, EXPAND {chain_launches['expand']}; wall and peak "
+          f"device memory: " + "; ".join(runs)
+          + f" (fused: static peak {static_ref['peak_gib']:.2f} GiB)",
+          flush=True)
+
+    # (c) the host engines beside the device engine
+    t0 = time.perf_counter()
+    dbh = dataset(HOST_DATASET)
+    qt = cycle_query(3)
+    td, order = engine.plan_query(qt, dbh)
+    want = cycle_oracle(dbh, 3)
+    dev_count = engine.count(qt, dbh, td=td, order=order, capacity=C)
+    dev_eval = engine.evaluate(qt, dbh, td=td, order=order, capacity=C)
+    check(dev_count.count == dev_eval.count == want,
+          f"device triangle count {dev_count.count} / {dev_eval.count} != "
+          f"scipy oracle {want}")
+    host = []
+    host_runs = [(a, dict(algorithm=a)) for a in HOST_ALGORITHMS] + [
+        (name, dict(algorithm="clftj", policy=preset.host_policy()))
+        for name, preset in (("PAPER_FAITHFUL", PAPER_FAITHFUL),
+                             ("BOUNDED_100K", BOUNDED_100K))]
+    for label, kw in host_runs:
+        r = engine.count(qt, dbh, td=td, order=order, backend="ref", **kw)
+        check(r.count == want and r.backend == "ref",
+              f"host {label} count {r.count} != {want}")
+        host.append(f"{label} {r.exec_s:.3f} s")
+    ev = engine.evaluate(qt, dbh, td=td, order=order, backend="ref",
+                         algorithm="clftj")
+    check(ev.count == want and set(map(tuple, ev.tuples.tolist()))
+          == set(map(tuple, dev_eval.tuples.tolist())),
+          "host CLFTJ tuples differ from the device engine's")
+    host.append(f"clftj evaluate {ev.exec_s:.3f} s")
+    launches = read_launches()
+    print(f"[15 knobs] host engines, backend=ref, triangle on "
+          f"{HOST_DATASET} ({dbh.relations['E'].shape[0]} directed edges): "
+          f"count {want} (scipy oracle) = device engine's count and "
+          f"evaluate (exec_s {dev_count.exec_s:.3f} / {dev_eval.exec_s:.3f})"
+          f"; every host count equal, host tuples = device tuples; "
+          f"exec_s " + ", ".join(host)
+          + f"; (c) took {time.perf_counter() - t0:.1f} s | launches "
+          + json.dumps(launches), flush=True)
+    return dict(launches=launches)
 
 
 def flash_pairs(t: int, s: int, causal: bool, window, q_offset: int) -> int:
@@ -1923,13 +2084,14 @@ def main() -> int:
     pay = CachedTrieJoin(q, td2, order2, db2, capacity=C,
                          cache=PAYLOAD_CACHE, device=dev)
     reset_launches()
-    passes = []
+    passes, pay_digests = [], []
     for label in ("cold", "warm"):
         before = dict(pay.stats)
         prows, secs = timed_pass(pay)
         check_rows(prows, order2, q, db2, want2, f"payload {label}")
         passes.append((label, secs, {k: pay.stats[k] - before[k]
                                      for k in PAY_KEYS}))
+        pay_digests.append(digest(prows))
     pay_launches = read_launches()
     pst = pay.stats
     warm = passes[1][2]
@@ -2008,6 +2170,7 @@ def main() -> int:
     static_launches = static["launches"]
     static_count = static["count"]
     se = static["engine"]
+    static_ref = {k: static[k] for k in ("digests", "stats", "peak_gib")}
 
     # 3, fold_merged: the kernel on the static warm pass's merged fold (a
     #    third pass, untimed, records it)
@@ -2040,6 +2203,16 @@ def main() -> int:
     served = serve_phase(q, db2, want2)
     srv = served["server"]
     print(f"[13 serve] total {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+    # 15. the reference's knobs: the FOLD and EMIT op chains, and the
+    #     paper's host engines
+    knobs = knobs_phase(
+        q, db2, want2, rows2,
+        dict(digests=pay_digests,
+             hits=[d["tier2_replay_hits"] for _, _, d in passes]),
+        static_ref, dev)
+    print(f"[15 knobs] total {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     # 14. LM serving: qwen2.5-3b at full width (the flash kernel was held
@@ -2077,7 +2250,7 @@ def main() -> int:
         n = ((launches[name] if name != "fold_splice" else 0)
              + pay_launches[name] + static_launches[name]
              + lf["launches"][name] + served["launches"][name]
-             + lm["launches"][name])
+             + knobs["launches"][name] + lm["launches"][name])
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": n,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -48,11 +48,10 @@ __all__ = ["from_reference", "table_from_reference",
 
 # the reference's kernel-path names, mapped onto the port's
 _IMPLS = {"bsearch": "bsearch", "pallas": "leapfrog"}
-_EXPAND_KERNELS = {"auto": "fused", "pallas": "fused", "xla": "chain"}
+# expand_kernel / fold_kernel / emit_kernel
+_KERNEL_PATHS = {"auto": "fused", "pallas": "fused", "xla": "chain"}
+_KERNEL_KNOBS = ("expand_kernel", "fold_kernel", "emit_kernel")
 ATTENTION_IMPLS = {"pallas": "fused", "xla": "chain", "ref": "ref"}
-# the reference's host-engine fields and the values the port takes (it
-# has no host engine yet)
-_HOST_FIELDS = {"support_threshold": 1, "capacity": None, "evict": "none"}
 
 
 def from_reference(relations: Dict[str, np.ndarray],
@@ -127,26 +126,20 @@ def static_tables_from_reference(tables: Dict[int, Sequence[object]],
 def engine_config_from_reference(cfg):
     """The port's :class:`~.configs.paper_clftj.JoinEngineConfig` for a
     reference ``JoinEngineConfig``: ``impl`` ``"pallas"`` becomes
-    ``"leapfrog"``; ``expand_kernel`` ``"auto"``/``"pallas"`` becomes
-    ``"fused"`` and ``"xla"`` ``"chain"``; every other field the port has
-    is copied.  Raises ``ValueError`` on what the port does not carry
-    yet: a ``fold_kernel`` or ``emit_kernel`` of ``"xla"`` (the chains)
-    and host-engine fields off their defaults."""
+    ``"leapfrog"``; each of ``expand_kernel``, ``fold_kernel`` and
+    ``emit_kernel`` of ``"auto"``/``"pallas"`` becomes ``"fused"`` and of
+    ``"xla"`` ``"chain"``; every other field, the host engine's included,
+    is copied.  Raises ``ValueError`` on an ``impl`` or kernel path the
+    reference does not name."""
     from .configs.paper_clftj import JoinEngineConfig
-    for knob in ("fold_kernel", "emit_kernel"):
-        if getattr(cfg, knob) == "xla":
-            raise ValueError(f"{knob}='xla' (the op chain) is not ported")
-    for name, default in _HOST_FIELDS.items():
-        if getattr(cfg, name) != default:
-            raise ValueError(f"{name}={getattr(cfg, name)!r}: the host "
-                             f"engine's fields are not ported")
-    if cfg.impl not in _IMPLS or cfg.expand_kernel not in _EXPAND_KERNELS:
-        raise ValueError(f"no port path for impl={cfg.impl!r}, "
-                         f"expand_kernel={cfg.expand_kernel!r}")
+    knobs = {k: getattr(cfg, k) for k in _KERNEL_KNOBS}
+    if cfg.impl not in _IMPLS or not set(knobs.values()) <= set(
+            _KERNEL_PATHS):
+        raise ValueError(f"no port path for impl={cfg.impl!r}, {knobs}")
     fields = {f: getattr(cfg, f)
               for f in JoinEngineConfig.__dataclass_fields__}
     fields.update(impl=_IMPLS[cfg.impl],
-                  expand_kernel=_EXPAND_KERNELS[cfg.expand_kernel])
+                  **{k: _KERNEL_PATHS[v] for k, v in knobs.items()})
     return JoinEngineConfig(**fields)
 
 

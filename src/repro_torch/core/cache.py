@@ -317,8 +317,8 @@ class DeviceCache:
     _acc_window_probes: object = 0
 
     @staticmethod
-    def create(config: CacheConfig, slots: Optional[int] = None,
-               device="cpu") -> "DeviceCache":
+    def create(config: CacheConfig, slots: Optional[int] = None, *,
+               device) -> "DeviceCache":
         n = config.initial_slots() if slots is None else int(slots)
         w = config.ways
         s = max(1, n // w)
@@ -661,7 +661,7 @@ class DeviceCache:
 class CacheManager:
     """Per-TD-node DeviceCaches under one global slot budget."""
 
-    def __init__(self, config: CacheConfig, device="cpu"):
+    def __init__(self, config: CacheConfig, *, device):
         self.config = config
         self.device = torch.device(device)
         self.tables: Dict[int, DeviceCache] = {}

@@ -56,11 +56,13 @@ class CachedTrieJoin(TrieJoin):
                  db: Database, capacity: int = 1 << 17, dedup: bool = True,
                  cache: Optional[CacheConfig] = None, device="cuda",
                  emit_in_flight: int = 8, stream_interior: bool = True,
-                 impl: str = "bsearch", expand_kernel: str = "fused"):
+                 impl: str = "bsearch", expand_kernel: str = "fused",
+                 fold_kernel: str = "fused", emit_kernel: str = "fused"):
         super().__init__(q, order, db, capacity=capacity, device=device,
                          emit_in_flight=emit_in_flight,
                          stream_interior=stream_interior, impl=impl,
-                         expand_kernel=expand_kernel)
+                         expand_kernel=expand_kernel,
+                         fold_kernel=fold_kernel, emit_kernel=emit_kernel)
         self.plan = Plan.build(td, order)
         self.td = td
         cache = cache if cache is not None else CacheConfig()

@@ -46,9 +46,10 @@ class StaticCLFTJ(CachedTrieJoin):
     created by :meth:`make_tables` and passed through each pass; the LRU
     tick is counted op by op.  ``stats`` adds up, over this engine's
     passes, the kernel launches per path (``fold_merged_calls_*`` for the
-    merged FOLD, which ``fold_calls_*`` also counts) and
-    ``fold_sorted_exits``, the folds whose exit chunk was sorted before
-    its kernel ran; ``last_needed_max`` holds the last pass's largest row
+    merged FOLD, which ``fold_calls_*`` also counts; the op chains'
+    under ``*_calls_chain``) and ``fold_sorted_exits``, the fused folds
+    whose exit chunk was sorted before its kernel ran (the chain FOLD,
+    ``fold_kernel="chain"``, takes unsorted exits as they come); ``last_needed_max`` holds the last pass's largest row
     need (a 0-d device tensor)."""
 
     last_needed_max: Optional[torch.Tensor] = None
@@ -165,20 +166,25 @@ def make_distributed_count(q: CQ, td: TreeDecomposition,
                            order: Sequence[str], db: Database,
                            capacity: int = 1 << 14,
                            cache: Optional[CacheConfig] = None,
-                           device="cuda", group=None):
+                           device="cuda", group=None,
+                           expand_kernel: str = "fused",
+                           impl: str = "bsearch",
+                           fold_kernel: str = "fused",
+                           emit_kernel: str = "fused"):
     """Build ``(fn, engine)`` for a count over the process group: ``fn()``
     runs this rank's shard and returns ``(count, overflow)``, the sums
     over all ranks as 0-d int64 tensors on the engine's device
     (``overflow`` is the number of ranks whose pass overflowed).  Every
     rank must call ``fn`` together.  Raises without an initialised
     process group.  The default cache is direct-mapped with 2^15 slots.
-    The reference's kernel knobs have no counterpart: the port has one
-    kernel per op."""
+    ``expand_kernel``, ``impl``, ``fold_kernel`` and ``emit_kernel`` pick
+    every rank's kernel paths, as on :class:`StaticCLFTJ`."""
     rank, size = _rank_and_size(group)
     if cache is None:
         cache = CacheConfig(policy="direct", slots=1 << 15)
     eng = StaticCLFTJ(q, td, order, db, capacity=capacity, cache=cache,
-                      device=device)
+                      device=device, expand_kernel=expand_kernel, impl=impl,
+                      fold_kernel=fold_kernel, emit_kernel=emit_kernel)
     count_fn = eng.count_fn()
 
     def fn():
@@ -194,7 +200,11 @@ def make_distributed_evaluate(q: CQ, td: TreeDecomposition,
                               order: Sequence[str], db: Database,
                               capacity: int = 1 << 14,
                               cache: Optional[CacheConfig] = None,
-                              device="cuda", group=None):
+                              device="cuda", group=None,
+                              expand_kernel: str = "fused",
+                              impl: str = "bsearch",
+                              fold_kernel: str = "fused",
+                              emit_kernel: str = "fused"):
     """Build ``(run, engine)`` for a payload-capable evaluation over the
     process group.
 
@@ -208,13 +218,15 @@ def make_distributed_evaluate(q: CQ, td: TreeDecomposition,
     ``run`` together.  Raises without an initialised process group.  The
     default cache is direct-mapped with 2^15 slots and payloads on (an
     explicit payloads-off config evaluates exactly but never replays).
-    The reference's kernel knobs have no counterpart."""
+    ``expand_kernel``, ``impl``, ``fold_kernel`` and ``emit_kernel`` pick
+    every rank's kernel paths, as on :class:`StaticCLFTJ`."""
     rank, size = _rank_and_size(group)
     if cache is None:
         cache = CacheConfig(policy="direct", slots=1 << 15,
                             cache_payloads=True)
     eng = StaticCLFTJ(q, td, order, db, capacity=capacity, cache=cache,
-                      device=device)
+                      device=device, expand_kernel=expand_kernel, impl=impl,
+                      fold_kernel=fold_kernel, emit_kernel=emit_kernel)
     eval_fn = eng.evaluate_fn()
 
     def run(tables: Optional[Dict[int, tuple]] = None):

@@ -1,8 +1,11 @@
-"""Public join-engine API: plan + execute CLFTJ/LFTJ on the card.
+"""Public join-engine API: plan + execute CLFTJ/LFTJ on the card, and the
+paper's host engines.
 
     from repro_torch.core import engine
     res = engine.count(q, db)                     # plans a TD, runs CLFTJ
     res = engine.count(q, db, algorithm="lftj")   # vanilla trie join
+    res = engine.count(q, db, backend="ref")      # paper-faithful host engines
+    res = engine.count(q, db, algorithm="ytd", backend="ref")  # Yannakakis
     res = engine.evaluate(q, db)                  # materialized tuples
     res = engine.evaluate(q, db, cache=CacheConfig(cache_payloads=True))
     for block in engine.evaluate_stream(q, db):   # streamed row blocks
@@ -27,6 +30,20 @@ did the work.
 the default) or ``"chain"`` (the op chain), and ``impl`` the chain's
 bounded search, ``"bsearch"`` (the default) or ``"leapfrog"`` (the
 leapfrog kernel); the fused path does not read ``impl``.
+``fold_kernel`` and ``emit_kernel`` pick the FOLD and EMIT paths of an
+evaluation the same way (``"fused"``, the default, or ``"chain"``); the
+chains' launches count as ``fold_calls_chain`` / ``emit_calls_chain``.
+
+``backend`` picks the engines: ``"torch"`` (the default) runs the device
+engines above on ``device``; ``"ref"`` runs the paper's host engines
+(``lftj_ref.LFTJ``, ``clftj_ref.CLFTJ`` with its ``CachePolicy``,
+``yannakakis.YTD``; numpy on the CPU), the only backend of
+``algorithm="ytd"``.  The host engines read ``policy`` (``count`` maps
+``cache`` onto a ``CachePolicy`` when none is given, as the reference
+does) and no device knob; their ``Result.counters`` are the paper's
+memory-access proxies (``Counters.snapshot()``).  The reference's
+``evaluate`` defaults to ``backend="ref"``; the port's runs on the card
+unless the caller picks the host engines.
 """
 from __future__ import annotations
 
@@ -40,16 +57,21 @@ import torch
 from ..kernels import cudalib
 from .cache import CacheConfig
 from .cached_frontier import CachedTrieJoin
+from .clftj_ref import CLFTJ, CachePolicy
 from .cq import CQ
-from .db import Database
+from .db import Counters, Database
 from .decompose import choose_plan
 from .frontier import TrieJoin, resolve_device
+from .lftj_ref import LFTJ
 from .td import TreeDecomposition
+from .yannakakis import YTD
 
 __all__ = ["Result", "ResultStream", "CompileClock", "count", "evaluate",
-           "evaluate_stream", "serve", "plan_query"]
+           "evaluate_stream", "serve", "plan_query", "ALGORITHMS",
+           "BACKENDS"]
 
-ALGORITHMS = ("clftj", "lftj")
+ALGORITHMS = ("clftj", "lftj", "ytd")
+BACKENDS = ("torch", "ref")
 
 
 @dataclass
@@ -60,6 +82,7 @@ class Result:
     device: str
     order: Tuple[str, ...]
     td: Optional[TreeDecomposition]
+    backend: str = "torch"  # "torch" (device engines) | "ref" (host)
     counters: Dict[str, int] = field(default_factory=dict)
     wall_s: float = 0.0     # end-to-end (= plan_s + compile_s + exec_s)
     plan_s: float = 0.0     # TD enumeration + order selection
@@ -73,6 +96,14 @@ class Result:
         of re-expanded; 0 unless the engine ran with
         ``cache_payloads=True``."""
         return int(self.counters.get("tier2_replay_hits", 0))
+
+    @property
+    def fold_paths(self) -> Dict[str, int]:
+        """FOLD launches per path (``fold_kernel`` dispatch): ``{"cuda":
+        n, "torch": n, "chain": n}``; empty for the host engines."""
+        return {k[len("fold_calls_"):]: int(v)
+                for k, v in self.counters.items()
+                if k.startswith("fold_calls_")}
 
     @property
     def plan_cache_hit(self) -> bool:
@@ -152,20 +183,54 @@ def _counters(eng, algorithm: str) -> Dict[str, int]:
             else eng.call_counts())
 
 
-def _check_algorithm(algorithm: str) -> None:
+def _check_run(algorithm: str, backend: str) -> None:
     if algorithm not in ALGORITHMS:
         raise ValueError(f"algorithm must be one of {ALGORITHMS}, "
                          f"got {algorithm!r}")
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, "
+                         f"got {backend!r}")
+    if algorithm == "ytd" and backend != "ref":
+        raise ValueError("algorithm='ytd' runs on the host engines only: "
+                         "pass backend='ref'")
+
+
+def _run_ref(q: CQ, db: Database, algorithm: str, td, order,
+             policy: Optional[CachePolicy], evaluate: bool):
+    """One host-engine run: ``(count, rows, counters)``, ``rows`` int64
+    over ``order`` (over ``q.variables`` for YTD), as the reference's
+    facade gives them."""
+    counters = Counters()
+    if algorithm == "clftj":
+        eng = CLFTJ(q, td, order, db, policy, counters)
+    elif algorithm == "lftj":
+        eng = LFTJ(q, order, db, counters)
+    else:
+        eng = YTD(q, td, db, counters)
+    if not evaluate:
+        return eng.count(), None, counters.snapshot()
+    width = len(q.variables) if algorithm == "ytd" else len(order)
+    rows = np.asarray(list(eng.evaluate()), dtype=np.int64).reshape(
+        -1, width)
+    return rows.shape[0], rows, counters.snapshot()
 
 
 def _run(q: CQ, db: Database, algorithm: str, td, order, capacity: int,
-         dedup: bool, cache: Optional[CacheConfig], device,
-         evaluate: bool, **knobs) -> Result:
-    _check_algorithm(algorithm)
-    dev = resolve_device(device)
+         dedup: bool, cache: Optional[CacheConfig], device, backend: str,
+         policy: Optional[CachePolicy], evaluate: bool, **knobs) -> Result:
+    _check_run(algorithm, backend)
+    dev = resolve_device(device) if backend == "torch" else None
     t0 = time.perf_counter()
     td, order = _plan(q, db, td, order)
     t1 = time.perf_counter()
+    if backend == "ref":
+        c, rows, counters = _run_ref(q, db, algorithm, td, order, policy,
+                                     evaluate)
+        t2 = time.perf_counter()
+        return Result(count=c, tuples=rows, algorithm=algorithm,
+                      device="cpu", order=order, td=td, backend=backend,
+                      counters=counters, wall_s=t2 - t0, plan_s=t1 - t0,
+                      exec_s=t2 - t1)
     compile_s = _build_kernels(dev)
     eng = _engine(q, db, algorithm, td, order, capacity, dedup, cache, dev,
                   **knobs)
@@ -180,8 +245,8 @@ def _run(q: CQ, db: Database, algorithm: str, td, order, capacity: int,
     counters = _counters(eng, algorithm)
     t2 = time.perf_counter()
     return Result(count=c, tuples=rows, algorithm=algorithm, device=str(dev),
-                  order=order, td=td, counters=counters, wall_s=t2 - t0,
-                  plan_s=t1 - t0, compile_s=compile_s,
+                  order=order, td=td, backend=backend, counters=counters,
+                  wall_s=t2 - t0, plan_s=t1 - t0, compile_s=compile_s,
                   exec_s=(t2 - t1) - compile_s)
 
 
@@ -190,11 +255,20 @@ def count(q: CQ, db: Database, algorithm: str = "clftj",
           order: Optional[Sequence[str]] = None, capacity: int = 1 << 16,
           dedup: bool = True, cache: Optional[CacheConfig] = None,
           device="cuda", impl: str = "bsearch",
-          expand_kernel: str = "fused") -> Result:
+          expand_kernel: str = "fused", fold_kernel: str = "fused",
+          emit_kernel: str = "fused", backend: str = "torch",
+          policy: Optional[CachePolicy] = None) -> Result:
     """Count ``q`` over ``db``.  ``cache`` configures the tier-2 cache of
-    the CLFTJ engine (policy / associativity / slots / dynamic budget)."""
+    the CLFTJ engine (policy / associativity / slots / dynamic budget); on
+    ``backend="ref"`` it is mapped onto the host CLFTJ's
+    :class:`CachePolicy` (``CachePolicy.from_cache_config``) unless an
+    explicit ``policy`` is given."""
+    if backend == "ref" and policy is None and cache is not None:
+        policy = CachePolicy.from_cache_config(cache)
     return _run(q, db, algorithm, td, order, capacity, dedup, cache, device,
-                evaluate=False, impl=impl, expand_kernel=expand_kernel)
+                backend, policy, evaluate=False, impl=impl,
+                expand_kernel=expand_kernel, fold_kernel=fold_kernel,
+                emit_kernel=emit_kernel)
 
 
 def evaluate(q: CQ, db: Database, algorithm: str = "clftj",
@@ -202,15 +276,22 @@ def evaluate(q: CQ, db: Database, algorithm: str = "clftj",
              order: Optional[Sequence[str]] = None, capacity: int = 1 << 16,
              dedup: bool = True, cache: Optional[CacheConfig] = None,
              device="cuda", impl: str = "bsearch",
-             expand_kernel: str = "fused") -> Result:
+             expand_kernel: str = "fused", fold_kernel: str = "fused",
+             emit_kernel: str = "fused", backend: str = "torch",
+             policy: Optional[CachePolicy] = None) -> Result:
     """Materialize ``q``'s full result: ``Result.tuples`` is an (N, n)
     int32 array over ``Result.order`` columns, in the engine's block
     order (tier-1 representatives replayed as row blocks).  With
     ``cache=CacheConfig(cache_payloads=True)`` tier 2 serves evaluation
     too: recurring subjoins splice their cached row blocks instead of
-    re-expanding (``Result.tier2_replay_hits``)."""
+    re-expanding (``Result.tier2_replay_hits``).  On ``backend="ref"``
+    the tuples are the host engine's, int64, in its order (over
+    ``q.variables`` for YTD), and the host CLFTJ caches under ``policy``
+    alone, as in the reference."""
     return _run(q, db, algorithm, td, order, capacity, dedup, cache, device,
-                evaluate=True, impl=impl, expand_kernel=expand_kernel)
+                backend, policy, evaluate=True, impl=impl,
+                expand_kernel=expand_kernel, fold_kernel=fold_kernel,
+                emit_kernel=emit_kernel)
 
 
 @dataclass
@@ -237,14 +318,20 @@ def evaluate_stream(q: CQ, db: Database, algorithm: str = "clftj",
                     cache: Optional[CacheConfig] = None,
                     emit_in_flight: int = 8, stream_interior: bool = True,
                     device="cuda", impl: str = "bsearch",
-                    expand_kernel: str = "fused") -> ResultStream:
+                    expand_kernel: str = "fused", fold_kernel: str = "fused",
+                    emit_kernel: str = "fused",
+                    backend: str = "torch") -> ResultStream:
     """Evaluate ``q`` as a *stream*: returns a :class:`ResultStream` whose
     iterator yields materialized (k, n) int32 blocks in arrival order —
     each block's device→host copy issued asynchronously as the executor
     produces it, at most ``emit_in_flight`` copies in flight — instead of
-    buffering the whole result.  Only the trie-join engines stream
-    (``algorithm`` "clftj" or "lftj")."""
-    _check_algorithm(algorithm)
+    buffering the whole result.  Only the device trie-join engines
+    stream (``algorithm`` "clftj" or "lftj" on ``backend="torch"``): the
+    host engines have no device→host copy to overlap."""
+    if backend != "torch" or algorithm not in ("clftj", "lftj"):
+        raise ValueError(
+            f"evaluate_stream supports the device clftj/lftj engines only, "
+            f"got algorithm={algorithm!r} backend={backend!r}")
     dev = resolve_device(device)
     t0 = time.perf_counter()
     td_, order_ = _plan(q, db, td, order)
@@ -257,7 +344,8 @@ def evaluate_stream(q: CQ, db: Database, algorithm: str = "clftj",
         eng = _engine(q, db, algorithm, td_, order_, capacity, dedup, cache,
                       dev, emit_in_flight=emit_in_flight,
                       stream_interior=stream_interior, impl=impl,
-                      expand_kernel=expand_kernel)
+                      expand_kernel=expand_kernel, fold_kernel=fold_kernel,
+                      emit_kernel=emit_kernel)
         for block in eng.evaluate_stream():
             n_rows += block.shape[0]
             yield block

@@ -11,7 +11,10 @@ path ``expand_kernel`` names: ``"fused"`` (the default) runs the EXPAND
 kernel (the CUDA kernel on a CUDA chunk, its plain torch version on a CPU
 chunk); ``"chain"`` runs the op chain of ``kernels/expand/chain.py``,
 whose bounded searches are of flavour ``impl`` (``"bsearch"``, or
-``"leapfrog"``: the leapfrog kernel).  The static
+``"leapfrog"``: the leapfrog kernel).  ``fold_kernel`` and
+``emit_kernel`` pick the evaluation-mode FOLD and EMIT paths the same
+way: ``"fused"`` (the kernels) or ``"chain"`` (the op chains of
+``kernels/fold/chain.py`` and ``kernels/emit/chain.py``).  The static
 chunk capacity bounds device memory per launch (each morsel is one
 fixed-shape chunk).
 
@@ -38,9 +41,9 @@ from .db import Database
 from .schedule import MAX_KEY_BITS, ScheduleExecutor, lower
 
 __all__ = ["MAX_KEY_BITS", "Frontier", "AtomLevel", "TrieJoin",
-           "resolve_device", "EXPAND_KERNELS", "IMPLS"]
+           "resolve_device", "KERNEL_PATHS", "IMPLS"]
 
-EXPAND_KERNELS = kernels.EXPAND_PATHS      # "fused" | "chain"
+KERNEL_PATHS = kernels.KERNEL_PATHS        # "fused" | "chain"
 IMPLS = ("bsearch", "leapfrog")            # the chain's bounded search
 
 
@@ -100,15 +103,21 @@ class TrieJoin:
     def __init__(self, q: CQ, order: Sequence[str], db: Database,
                  capacity: int = 1 << 17, device="cuda",
                  emit_in_flight: int = 8, stream_interior: bool = True,
-                 impl: str = "bsearch", expand_kernel: str = "fused"):
-        if expand_kernel not in EXPAND_KERNELS:
-            raise ValueError(f"expand_kernel must be one of "
-                             f"{EXPAND_KERNELS}, got {expand_kernel!r}")
+                 impl: str = "bsearch", expand_kernel: str = "fused",
+                 fold_kernel: str = "fused", emit_kernel: str = "fused"):
+        for knob, path in (("expand_kernel", expand_kernel),
+                           ("fold_kernel", fold_kernel),
+                           ("emit_kernel", emit_kernel)):
+            if path not in KERNEL_PATHS:
+                raise ValueError(f"{knob} must be one of {KERNEL_PATHS}, "
+                                 f"got {path!r}")
         if impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
         self.device = resolve_device(device)
         self.impl = impl
         self.expand_kernel = expand_kernel
+        self.fold_kernel = fold_kernel
+        self.emit_kernel = emit_kernel
         # depth -> the EXPAND path built for it (as the reference records
         # the path its registry resolved)
         self.expand_paths: Dict[int, str] = {}
@@ -223,27 +232,30 @@ class TrieJoin:
                  with_splice: bool):
         """The registry-built FOLD step for bracket [d0, d1] in the arity
         the flags select: replay-only, splice-only, or merged (both flags;
-        the static executor's)."""
+        the static executor's), on the ``fold_kernel`` path."""
         key = (d0, d1, with_replay, with_splice)
         fn = self._fold_fns.get(key)
         if fn is None:
             spec = kernels.FoldSpec(capacity=self.capacity, n_vars=self.n,
                                     n_atoms=self.m)
             fn = self._fold_fns[key] = kernels.fold_fn(
-                spec, d0=d0, d1=d1, with_replay=with_replay,
-                with_splice=with_splice)
+                spec, path=self.fold_kernel, d0=d0, d1=d1,
+                with_replay=with_replay, with_splice=with_splice)
         return fn
 
     def _emit_fn(self):
-        """The registry-built EMIT pack ``(assign, valid) -> (packed, k)``."""
+        """The registry-built EMIT pack ``(assign, valid) -> (packed, k)``,
+        on the ``emit_kernel`` path."""
         if self._emit is None:
             self._emit = kernels.emit_fn(
-                kernels.EmitSpec(capacity=self.capacity, n_vars=self.n))
+                kernels.EmitSpec(capacity=self.capacity, n_vars=self.n),
+                path=self.emit_kernel)
         return self._emit
 
     def call_counts(self) -> Dict[str, int]:
         """Kernel launches per path of the last execution, as
-        ``{"expand_calls_cuda": n, "expand_calls_torch": n, ...}``."""
+        ``{"expand_calls_cuda": n, "expand_calls_torch": n, ...}``
+        (:data:`~.schedule.CALL_COUNTERS`)."""
         ex = getattr(self, "last_executor", None)
         return {} if ex is None else ex.call_counts()
 

@@ -26,8 +26,10 @@ span sequentially so later morsels hit earlier morsels' tier-2 inserts.
 as one pass over one chunk per op, overflow flagged instead of split,
 tier-2 tables threaded through as tuples, and no host sync inside.
 EXPAND, the evaluation-mode FOLD (replay, splice and their merged arity)
-and the EMIT pack are kernels behind ``kernels/registry.py``; the slab
-store (:func:`_store_blocks`) is plain PyTorch ops.
+and the EMIT pack are kernels behind ``kernels/registry.py``, each on the
+path its engine knob names (``expand_kernel`` / ``fold_kernel`` /
+``emit_kernel``: ``"fused"``, the kernel, or ``"chain"``, the op chain);
+the slab store (:func:`_store_blocks`) is plain PyTorch ops.
 
 Reference: ``repro/core/schedule.py``.
 """
@@ -45,24 +47,32 @@ from .hostsync import AsyncFetchQueue, device_get, device_get_async
 
 MAX_KEY_BITS = 21  # packed adhesion keys: values must fit in 21 bits
 
-# kernel launch counters of a pass, per path ("cuda" | "torch",
-# registry.path_of): "fold" counts both FOLD arities, "fold_splice" the
-# splice alone; "expand_calls_chain" counts chain EXPANDs (any device),
-# whose leapfrog bound calls land in "bound_calls_*"
+# kernel launch counters of a pass, per path: "cuda" | "torch"
+# (registry.path_of) for the fused path, "chain" for the op chain on any
+# device (launch_path).  "fold" counts both FOLD arities, "fold_splice"
+# the splice alone; a chain EXPAND's leapfrog bound calls land in
+# "bound_calls_*"
 CALL_COUNTERS = tuple(
     f"{op}_calls_{path}" for op in ("expand", "fold", "fold_splice", "emit")
-    for path in ("cuda", "torch")) + (
-    "expand_calls_chain", "bound_calls_cuda", "bound_calls_torch")
+    for path in ("cuda", "torch", "chain")) + (
+    "bound_calls_cuda", "bound_calls_torch")
+
+
+def launch_path(fn, t: torch.Tensor) -> str:
+    """The path one call of the registry-built step ``fn`` on a chunk on
+    ``t``'s device takes: ``"chain"`` for the op chain, else the fused
+    path's ``"cuda"`` | ``"torch"``."""
+    return "chain" if fn.path == "chain" else path_of(t)
 
 
 def expand_launches(fn, t: torch.Tensor) -> Dict[str, int]:
     """What one call of the registry-built EXPAND step ``fn`` on a chunk
     on ``t``'s device adds to the launch counters: one fused EXPAND on
     its path, or one chain EXPAND and its leapfrog bound calls."""
+    out = {f"expand_calls_{launch_path(fn, t)}": 1}
     if fn.path == "chain":
-        return {"expand_calls_chain": 1,
-                f"bound_calls_{path_of(t)}": fn.bound_calls}
-    return {f"expand_calls_{path_of(t)}": 1}
+        out[f"bound_calls_{path_of(t)}"] = fn.bound_calls
+    return out
 
 # ---------------------------------------------------------------------------
 # The IR
@@ -402,8 +412,8 @@ class ScheduleExecutor:
         self.emitted_blocks = 0
         self.emit_queue: Optional[AsyncFetchQueue] = None  # set by stream
 
-    def _count_launch(self, op: str, t: torch.Tensor) -> None:
-        path = path_of(t)
+    def _count_launch(self, op: str, fn, t: torch.Tensor) -> None:
+        path = launch_path(fn, t)
         self.calls[f"{op}_calls_{path}"] += 1
         if op == "fold_splice":
             self.calls[f"fold_calls_{path}"] += 1
@@ -553,7 +563,7 @@ class ScheduleExecutor:
                     efn = self.engine._emit_fn()
                     pairs = []
                     for F in chunks:
-                        self._count_launch("emit", F.assign)
+                        self._count_launch("emit", efn, F.assign)
                         pairs.append(efn(F.assign, F.valid))
                     self.emitted_blocks += len(pairs)
                     yield pairs
@@ -703,10 +713,10 @@ class ScheduleExecutor:
             if not fr.use_t1:
                 keys_h = host[4]
         active_dev = fr.F.valid & ~fr.hit
-        # the replay kernel needs sorted exits — guaranteed here: every
-        # exit chunk is an EXPAND output or a fold continuation (bracket
-        # interiors always contain >=1 EXPAND), both of which are
-        # valid-prefix compacted with nondecreasing orig
+        # the replay kernel needs sorted exits (the chain does not) —
+        # guaranteed here: every exit chunk is an EXPAND output or a fold
+        # continuation (bracket interiors always contain >=1 EXPAND),
+        # both of which are valid-prefix compacted with nondecreasing orig
         fold_replay = eng._fold_fn(d0, d1, True, False) if exits else None
         out: List[Any] = []
         ecnts: List[np.ndarray] = []
@@ -719,7 +729,7 @@ class ScheduleExecutor:
             ecnts.append(ecnt)
             pcnt = np.where(active_h, ecnt[np.clip(ror_h, 0, C - 1)], 0)
             for mask in _pack_parent_morsels(pcnt, C):
-                self._count_launch("fold", fr.F.assign)
+                self._count_launch("fold", fold_replay, fr.F.assign)
                 cont, _stats = fold_replay(
                     fr.F, active_dev & torch.from_numpy(mask).to(dev),
                     fr.rep_of_row, E)
@@ -735,7 +745,8 @@ class ScheduleExecutor:
                 fold_splice = eng._fold_fn(d0, d1, False, True)
                 pcnt = np.where(hit_h, plen_h, 0).astype(np.int64)
                 for mask in _pack_parent_morsels(pcnt, C):
-                    self._count_launch("fold_splice", fr.F.assign)
+                    self._count_launch("fold_splice", fold_splice,
+                                       fr.F.assign)
                     spl, _stats = fold_splice(
                         fr.F, fr.hit & torch.from_numpy(mask).to(dev),
                         fr.poff, fr.plen, tbl.slab)
@@ -913,20 +924,22 @@ def execute_static(schedule: Schedule, engine, F0, tables: Dict[int, tuple],
     bypassed in evaluation (optionality); with tier-1 dedup off only the
     first occurrence of a duplicate key may store its block.
 
-    The FOLD kernels need the exit chunk sorted by ``orig``.  The pass
-    tracks that as the reference does: the initial chunk and every
-    representative chunk are sorted, EXPAND and a replay-only FOLD keep
-    their input's order, a merged FOLD's output is two sorted regions.  An
-    exit chunk that is not sorted is stably sorted on the device first
-    (:func:`_sort_exits`) and goes to the same kernel (the reference sends
-    such a fold to its XLA chain, which gathers the exits in this same
-    order).
+    The FOLD kernels (``fold_kernel="fused"``) need the exit chunk sorted
+    by ``orig``.  The pass tracks that as the reference does: the initial
+    chunk and every representative chunk are sorted, EXPAND and a
+    replay-only FOLD keep their input's order, a merged FOLD's output is
+    two sorted regions.  Under ``"fused"`` an exit chunk that is not
+    sorted is stably sorted on the device first (:func:`_sort_exits`) and
+    goes to the same kernel; the chain (``fold_kernel="chain"``) takes
+    the exits as they come and sorts them itself, as the reference routes
+    such a fold to its XLA chain.  Both give the same rows.
 
     ``counts``, when given, receives the pass's kernel launches per path
     (``expand_calls_cuda`` …, chain EXPANDs and their bound calls as
     :func:`expand_launches` counts them, ``fold_merged_calls_*`` for the
-    merged arity, which ``fold_calls_*`` also counts), ``fold_sorted_exits`` (the
-    folds that sorted their exits first) and ``needed_max`` (a 0-d device
+    merged arity, which ``fold_calls_*`` also counts; the op chains as
+    ``*_calls_chain``), ``fold_sorted_exits`` (the fused folds that
+    sorted their exits first) and ``needed_max`` (a 0-d device
     tensor: the most rows any op of the pass needed, a merged FOLD's
     replay and splice rows together).
     """
@@ -939,12 +952,12 @@ def execute_static(schedule: Schedule, engine, F0, tables: Dict[int, tuple],
     i32, i64 = torch.int32, torch.int64
     counts = {} if counts is None else counts
     for op_name in ("expand", "fold", "fold_merged", "emit"):
-        for path in ("cuda", "torch"):
+        for path in ("cuda", "torch", "chain"):
             counts.setdefault(f"{op_name}_calls_{path}", 0)
     counts.setdefault("fold_sorted_exits", 0)
 
-    def launched(op_name: str, t: torch.Tensor) -> None:
-        counts[f"{op_name}_calls_{path_of(t)}"] += 1
+    def launched(op_name: str, fn, t: torch.Tensor) -> None:
+        counts[f"{op_name}_calls_{launch_path(fn, t)}"] += 1
 
     F = F0
     ov = torch.zeros((), dtype=torch.bool, device=dev)
@@ -1017,11 +1030,11 @@ def execute_static(schedule: Schedule, engine, F0, tables: Dict[int, tuple],
             if mode == "evaluate":
                 E = F
                 d0, d1 = op.sub_first, op.sub_last
-                if not sorted_now:
+                ffn = engine._fold_fn(d0, d1, True, use_t2)
+                if not sorted_now and ffn.path == "fused":
                     E = _sort_exits(E)
                     counts["fold_sorted_exits"] += 1
-                ffn = engine._fold_fn(d0, d1, True, use_t2)
-                launched("fold", P.assign)
+                launched("fold", ffn, P.assign)
                 if use_t2:
                     (tk, tv, tu, ts, tc, tpoff, tplen, slab,
                      bump) = tables[op.node]
@@ -1030,7 +1043,7 @@ def execute_static(schedule: Schedule, engine, F0, tables: Dict[int, tuple],
                     # arena rows); stream order keeps that on the card.
                     # Everything replays and splices at once, so all
                     # three stats figures are checked against C
-                    launched("fold_merged", P.assign)
+                    launched("fold_merged", ffn, P.assign)
                     F, stats = ffn(P, active, rep_of_row, E, hit, poff,
                                    plen, slab)
                     ov = ov | (stats > C).any()
@@ -1116,8 +1129,9 @@ def execute_static(schedule: Schedule, engine, F0, tables: Dict[int, tuple],
             else:
                 # valid rows to the front: the result mask becomes a
                 # prefix predicate
-                launched("emit", F.assign)
-                rows, k = engine._emit_fn()(F.assign, F.valid)
+                efn = engine._emit_fn()
+                launched("emit", efn, F.assign)
+                rows, k = efn(F.assign, F.valid)
                 rvalid = ar < k
                 total = k.to(i64)
     counts["needed_max"] = needed_max

@@ -21,16 +21,21 @@ Every kernel is reached through this module:
     three arities: replay-only (representative row blocks replayed
     through ``orig``), splice-only (tier-2 payload hits' cached blocks
     spliced from the slab) and merged (both in one chunk, the static
-    executor's);
-  * **EMIT** (``emit_fn``) — the stable valid-row pack of a result chunk.
+    executor's); on one of two paths, ``"fused"`` (the FOLD kernels) or
+    ``"chain"`` (the op chain of ``fold/chain.py``);
+  * **EMIT** (``emit_fn``) — the stable valid-row pack of a result chunk,
+    ``"fused"`` (the EMIT kernel) or ``"chain"`` (``emit/chain.py``).
 
-Dispatch goes by the device of the chunk a built function is called with:
-a CUDA tensor launches the hand-written CUDA kernel (``<op>/cuda.py``,
-sources in ``repro_torch/csrc``), a CPU tensor runs the plain PyTorch
-version (``<op>/plain.py``).  The one path choice is the caller's, as in
-the reference: the EXPAND path (``"fused"`` | ``"chain"``) and the chain's
-bounded search (``impl``).  There is no autotune and no fallback: a CUDA
-launch that fails raises.  Each path checks its inputs once: the CUDA
+On the ``"fused"`` path dispatch goes by the device of the chunk a built
+function is called with: a CUDA tensor launches the hand-written CUDA
+kernel (``<op>/cuda.py``, sources in ``repro_torch/csrc``), a CPU tensor
+runs the plain PyTorch version (``<op>/plain.py``).  The ``"chain"`` path
+runs its PyTorch ops on whatever device the chunk is on.  The path
+choices are the caller's, as in the reference: each op's path
+(:data:`KERNEL_PATHS`, the reference's ``expand_kernel`` /
+``fold_kernel`` / ``emit_kernel``) and the chain EXPAND's bounded search
+(``impl``).  There is no autotune and no fallback: a CUDA launch that
+fails raises, and one path never stands in for the other.  Each path checks its inputs once: the CUDA
 wrappers check device, dtype, shape and contiguity of every pointer they
 pass, and the built functions here check the plain path's chunks against
 the spec.  :func:`path_of` names the path a tensor takes
@@ -45,12 +50,12 @@ from typing import Callable, Sequence, Tuple
 import torch
 
 __all__ = ["ExpandSpec", "FoldSpec", "EmitSpec", "BOUND_IMPLS",
-           "EXPAND_PATHS", "lower_bound", "upper_bound", "bound_atoms",
+           "KERNEL_PATHS", "lower_bound", "upper_bound", "bound_atoms",
            "path_of",
            "expand_fn", "fold_fn", "emit_fn"]
 
 BOUND_IMPLS = ("bsearch", "leapfrog", "ref")
-EXPAND_PATHS = ("fused", "chain")
+KERNEL_PATHS = ("fused", "chain")
 
 
 # ---------------------------------------------------------------------------
@@ -171,6 +176,11 @@ def path_of(t: torch.Tensor) -> str:
     raise ValueError(f"no kernel path for device {t.device}")
 
 
+def _check_path(path: str) -> None:
+    if path not in KERNEL_PATHS:
+        raise ValueError(f"path must be one of {KERNEL_PATHS}, got {path!r}")
+
+
 def _check(what: str, t: torch.Tensor, shape: Tuple[int, ...],
            dtype: torch.dtype) -> None:
     if tuple(t.shape) != shape or t.dtype != dtype:
@@ -206,8 +216,7 @@ def expand_fn(spec: ExpandSpec, *, path: str = "fused",
     CUDA device are checked and laid out for the kernel here, once."""
     from .expand import chain, cuda, plain  # lazy: they import this module
     from .leapfrog import cuda as leapfrog_cuda
-    if path not in EXPAND_PATHS:
-        raise ValueError(f"path must be one of {EXPAND_PATHS}, got {path!r}")
+    _check_path(path)
     if impl not in BOUND_IMPLS:
         raise ValueError(f"impl must be one of {BOUND_IMPLS}, got {impl!r}")
     other_ais = tuple(other_ais)
@@ -243,8 +252,8 @@ def expand_fn(spec: ExpandSpec, *, path: str = "fused",
     return fn
 
 
-def fold_fn(spec: FoldSpec, *, d0: int, d1: int, with_replay: bool = True,
-            with_splice: bool = False) -> Callable:
+def fold_fn(spec: FoldSpec, *, path: str = "fused", d0: int, d1: int,
+            with_replay: bool = True, with_splice: bool = False) -> Callable:
     """Build the FOLD step of bracket ``[d0, d1]`` in one of its arities,
     as the reference's ``_fold_fn(d0, d1, with_replay, with_splice)``:
 
@@ -257,68 +266,63 @@ def fold_fn(spec: FoldSpec, *, d0: int, d1: int, with_replay: bool = True,
       ``C``, with ``stats`` the int64 ``[needed, n_spliced, min(needed, C)
       + min(n_spliced, C)]`` (the static executor's arity).
 
-    The replay and merged CUDA kernels require the exit chunk
-    valid-prefix compacted with nondecreasing ``orig`` (every exit chunk
-    the executors hand them is)."""
-    from .fold import cuda, plain
+    ``path="fused"`` runs the FOLD kernels (their plain version on a CPU
+    chunk); the replay and merged CUDA kernels require the exit chunk
+    valid-prefix compacted with nondecreasing ``orig`` (the executors
+    sort an exit chunk that is not).  ``path="chain"`` runs the op chain
+    of ``fold/chain.py`` on the chunk's device, which takes exits in any
+    order.  The built function carries ``fn.path``."""
+    from .fold import chain, cuda
+    _check_path(path)
     C = spec.capacity
-    if not (with_replay or with_splice):
-        raise ValueError("FOLD needs at least one of replay/splice")
+    step = chain.build(d0=d0, d1=d1, with_replay=with_replay,
+                       with_splice=with_splice)
+    # the wrapper's name: it is looked up at each call, so a wrapper
+    # replaced on the module (a spy) is the one that runs
+    kernel = ("merged" if with_replay and with_splice
+              else "replay" if with_replay else "splice")
 
-    def check_replay(P, active, rep_of_row, E):
+    def check(P, *rest):
         _check_chunk(spec, P)
-        _check_chunk(spec, E)
-        _check("active", active, (C,), torch.bool)
-        _check("rep_of_row", rep_of_row, (C,), torch.int32)
+        if with_replay:
+            active, rep_of_row, E, *rest = rest
+            _check_chunk(spec, E)
+            _check("active", active, (C,), torch.bool)
+            _check("rep_of_row", rep_of_row, (C,), torch.int32)
+        if with_splice:
+            hit, poff, plen, slab = rest
+            _check("hit", hit, (C,), torch.bool)
+            _check("poff", poff, (C,), torch.int32)
+            _check("plen", plen, (C,), torch.int32)
+            _check("slab", slab, (slab.shape[0], d1 - d0 + 1), torch.int32)
 
-    def check_splice(P, hit, poff, plen, slab):
-        _check_chunk(spec, P)
-        _check("hit", hit, (C,), torch.bool)
-        _check("poff", poff, (C,), torch.int32)
-        _check("plen", plen, (C,), torch.int32)
-        _check("slab", slab, (slab.shape[0], d1 - d0 + 1), torch.int32)
+    def fn(*args):
+        if path == "fused" and path_of(args[0].assign) == "cuda":
+            return getattr(cuda, kernel)(*args, d0=d0, d1=d1)
+        check(*args)
+        return step(*args)   # the chain, which plain.py names
 
-    if with_replay and with_splice:
-        def fn(P, active, rep_of_row, E, hit, poff, plen, slab):
-            args = (P, active, rep_of_row, E, hit, poff, plen, slab)
-            if path_of(P.assign) == "cuda":
-                return cuda.merged(*args, d0=d0, d1=d1)
-            check_replay(P, active, rep_of_row, E)
-            check_splice(P, hit, poff, plen, slab)
-            return plain.merged(*args, d0=d0, d1=d1)
-
-        return fn
-
-    if with_splice:
-        def fn(P, hit, poff, plen, slab):
-            if path_of(P.assign) == "cuda":
-                return cuda.splice(P, hit, poff, plen, slab, d0=d0, d1=d1)
-            check_splice(P, hit, poff, plen, slab)
-            return plain.splice(P, hit, poff, plen, slab, d0=d0, d1=d1)
-
-        return fn
-
-    def fn(P, active, rep_of_row, E):
-        if path_of(P.assign) == "cuda":
-            return cuda.replay(P, active, rep_of_row, E, d0=d0, d1=d1)
-        check_replay(P, active, rep_of_row, E)
-        return plain.replay(P, active, rep_of_row, E, d0=d0, d1=d1)
-
+    fn.path = path
     return fn
 
 
-def emit_fn(spec: EmitSpec) -> Callable:
+def emit_fn(spec: EmitSpec, *, path: str = "fused") -> Callable:
     """Build the EMIT pack ``fn(assign, valid) -> (packed, k)``: the
     valid rows stably moved to the front, ``k`` their count (a 0-d int32
-    tensor on the chunk's device); rows past ``k`` are unconstrained."""
-    from .emit import cuda, plain
+    tensor on the chunk's device); rows past ``k`` are unconstrained.
+    ``path="fused"`` runs the EMIT kernel (its plain version on a CPU
+    chunk), ``path="chain"`` the op chain of ``emit/chain.py`` on the
+    chunk's device.  The built function carries ``fn.path``."""
+    from .emit import chain, cuda
+    _check_path(path)
     C = spec.capacity
 
     def fn(assign, valid):
-        if path_of(assign) == "cuda":
+        if path == "fused" and path_of(assign) == "cuda":
             return cuda.pack(assign, valid)
         _check("assign", assign, (C, spec.n_vars), torch.int32)
         _check("valid", valid, (C,), torch.bool)
-        return plain.pack(assign, valid)
+        return chain.pack(assign, valid)   # the chain, which plain.py names
 
+    fn.path = path
     return fn

@@ -163,7 +163,8 @@ class PlanCache:
             canon_q, ctd, corder, self.db, capacity=cfg.frontier_capacity,
             dedup=cfg.dedup, cache=cfg.cache_config(), device=self.device,
             emit_in_flight=cfg.emit_in_flight, impl=cfg.impl,
-            expand_kernel=cfg.expand_kernel)
+            expand_kernel=cfg.expand_kernel, fold_kernel=cfg.fold_kernel,
+            emit_kernel=cfg.emit_kernel)
         return CachedPlan(key=key, cq=canon_q, td=ctd, order=tuple(corder),
                           engine=engine,
                           schedule_sig=engine.schedule.signature(),

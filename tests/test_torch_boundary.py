@@ -38,6 +38,11 @@ def test_imports_without_jax_and_reference():
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
     assert len(MODULES) >= 20
+    # the host engines and the FOLD / EMIT chains are among them
+    assert {f"repro_torch.core.{m}" for m in (
+        "trie", "lftj_ref", "bruteforce", "clftj_ref", "yannakakis")} | {
+        "repro_torch.kernels.fold.chain",
+        "repro_torch.kernels.emit.chain"} <= set(MODULES)
 
 
 IMPORT_RE = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)

@@ -830,3 +830,83 @@ def test_lm_on_the_card_matches_cpu(dev):
     np.testing.assert_array_equal(
         greedy_generate(gpu, {"tokens": toks}, 5).numpy(),
         greedy_generate(cpu, {"tokens": toks}, 5).numpy())
+
+
+def _chip_smoke():
+    """The root ``chip_smoke.py`` as a module (its seeded kernel inputs)."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name", ["fold_replay", "fold_merged", "fold_splice",
+                                  "emit"])
+def test_fold_and_emit_chains_on_the_card_match_kernels(dev, name):
+    """The FOLD and EMIT op chains on CUDA tensors give the kernels' valid
+    prefix and stats, bit for bit, on ``chip_smoke.kernel_inputs``' seeded
+    chunks at C = 2^16 on the ca-GrQc-scale graph's plan (the splice on
+    this file's seeded payload hits), and launch no kernel of their own."""
+    from repro_torch.kernels.emit import chain as emit_chain
+    from repro_torch.kernels.fold import chain as fold_chain
+    cs = _chip_smoke()
+    eng, _ = cs.cycle_engine(cs.grqc_db(), dev)
+    C = 1 << 16
+    before = (fold_cuda.launches, fold_cuda.splice_launches,
+              fold_cuda.merged_launches, emit_cuda.launches)
+    if name == "emit":
+        assign, valid = cs.kernel_inputs("emit", eng, dev, C)
+        pc, kc = emit_chain.pack(assign, valid)
+        assert (fold_cuda.launches, fold_cuda.splice_launches,
+                fold_cuda.merged_launches, emit_cuda.launches) == before
+        pk, kk = emit_cuda.pack(assign, valid)
+        assert pc.is_cuda and int(kc) == int(kk) > 0
+        assert torch.equal(pc[:int(kk)], pk[:int(kk)])
+        return
+    if name == "fold_replay":
+        P, active, ror, E, d0, d1 = cs.kernel_inputs(name, eng, dev, C)
+        args, replay, splice = (P, active, ror, E), True, False
+        kernel = fold_cuda.replay
+    elif name == "fold_merged":
+        args, d0, d1 = cs.kernel_inputs(name, eng, dev, C)
+        replay, splice, kernel = True, True, fold_cuda.merged
+    else:
+        args, d0, d1 = _splice_inputs(C, 7, dev), 1, 3
+        replay, splice, kernel = False, True, fold_cuda.splice
+    Fc, sc = fold_chain.build(d0=d0, d1=d1, with_replay=replay,
+                              with_splice=splice)(*args)
+    assert (fold_cuda.launches, fold_cuda.splice_launches,
+            fold_cuda.merged_launches, emit_cuda.launches) == before
+    Fk, sk = kernel(*args, d0=d0, d1=d1)
+    assert Fc.assign.is_cuda and torch.equal(sc, sk)
+    _same_prefix(Fc, Fk)
+
+
+def test_chain_evaluate_launches_no_fold_or_emit_kernel(dev):
+    """``fold_kernel="chain", emit_kernel="chain"`` on the card: the rows
+    of the fused run in the same order, EXPAND still on its kernel, and
+    not one FOLD or EMIT kernel launched (the executor counts the chains'
+    calls as ``*_calls_chain``)."""
+    db = _db(nv=20, ne=300)
+    for q in (bowtie_query(), cycle_query(4)):
+        fused = engine.evaluate(q, db, capacity=1 << 8,
+                                cache=CacheConfig(slots=64,
+                                                  cache_payloads=True))
+        before = (fold_cuda.launches, fold_cuda.splice_launches,
+                  emit_cuda.launches, expand_cuda.launches)
+        chain = engine.evaluate(q, db, capacity=1 << 8,
+                                cache=CacheConfig(slots=64,
+                                                  cache_payloads=True),
+                                fold_kernel="chain", emit_kernel="chain")
+        after = (fold_cuda.launches, fold_cuda.splice_launches,
+                 emit_cuda.launches, expand_cuda.launches)
+        np.testing.assert_array_equal(chain.tuples, fused.tuples)
+        assert after[:3] == before[:3]
+        assert after[3] - before[3] == chain.counters["expand_calls_cuda"] > 0
+        c = chain.counters
+        assert c["fold_calls_chain"] == fused.counters["fold_calls_cuda"] > 0
+        assert c["emit_calls_chain"] == fused.counters["emit_calls_cuda"] > 0
+        assert c["fold_calls_cuda"] == c["emit_calls_cuda"] == 0

@@ -8,7 +8,11 @@ The ranks are two fresh Python processes (they import neither ``jax`` nor
 pickle.  Compared, bit for bit: the summed count and overflow, each rank's
 own shard count, the gathered rows (the same on both ranks, in rank
 order) of a cold and a warm evaluation, and the warm pass's replay hits
-on the bowtie."""
+on the bowtie.  One more case runs the bowtie with every kernel knob off
+its default (the chain EXPAND with the leapfrog search, the FOLD and EMIT
+chains), passed through both factories, against the reference's static
+executor under the same knobs (``expand_kernel``, ``fold_kernel`` and
+``emit_kernel`` ``"xla"``, ``impl="pallas"``)."""
 import os
 import pickle
 import subprocess
@@ -38,6 +42,12 @@ CAP = 1 << 12
 PAY = dict(policy="setassoc", slots=256, assoc=4, cache_payloads=True,
            payload_rows=1 << 12)
 QUERIES = {"bowtie": bowtie_query(), "cycle4": cycle_query(4)}
+# the chain case: the port's knobs and the reference's names for them
+CHAIN_CASE = "bowtie-chain"
+CHAIN_KNOBS = dict(expand_kernel="chain", impl="leapfrog",
+                   fold_kernel="chain", emit_kernel="chain")
+R_CHAIN_KNOBS = dict(expand_kernel="xla", impl="pallas", fold_kernel="xla",
+                     emit_kernel="xla")
 
 WORKER = r"""
 import pickle, sys
@@ -56,19 +66,22 @@ with open(inp, "rb") as f:
 res = {}
 for name, case in cases.items():
     db, q, td, order = from_reference(*case["plan"])
+    knobs = case["knobs"]
     fn, eng = make_distributed_count(q, td, order, db,
-                                     capacity=case["capacity"], device="cpu")
+                                     capacity=case["capacity"], device="cpu",
+                                     **knobs)
     total, ov = fn()
     local, local_ov = eng.count_fn()(shard_frontier(eng, rank, world))
     run, eng = make_distributed_evaluate(
         q, td, order, db, capacity=case["capacity"],
-        cache=CacheConfig(**case["cache"]), device="cpu")
+        cache=CacheConfig(**case["cache"]), device="cpu", **knobs)
     rows1, s1, tables = run()
     rows2, s2, _ = run(tables)
     res[name] = dict(count=int(total), overflow=int(ov), local=int(local),
                      local_overflow=bool(local_ov), rows1=rows1, s1=s1,
                      rows2=rows2, s2=s2,
-                     merged=eng.stats["fold_merged_calls_torch"])
+                     calls={k: v for k, v in eng.stats.items()
+                            if "calls" in k})
 dist.destroy_process_group()
 with open(out, "wb") as f:
     pickle.dump(res, f)
@@ -91,8 +104,10 @@ def _plan(q, db):
 def ranks(db, tmp_path_factory):
     """Run the worker on every rank; returns each rank's results."""
     tmp = tmp_path_factory.mktemp("dist")
-    cases = {name: dict(plan=_plan(q, db)[2], capacity=CAP, cache=PAY)
+    cases = {name: dict(plan=_plan(q, db)[2], capacity=CAP, cache=PAY,
+                        knobs={})
              for name, q in QUERIES.items()}
+    cases[CHAIN_CASE] = dict(cases["bowtie"], knobs=CHAIN_KNOBS)
     inp = tmp / "cases.pkl"
     inp.write_bytes(pickle.dumps(cases))
     # one thread a rank: ranks that spin on intra-op threads while their
@@ -121,13 +136,13 @@ class _Mesh:
     shape = {"data": WORLD}
 
 
-def _reference_shards(q, db):
+def _reference_shards(q, db, **knobs):
     """The reference's static engine and its shard frontiers, built in
     this process: ``_GuardPartition.shard_frontier`` under ``vmap`` over a
     named axis of the ranks, with no mesh."""
     td, order, _ = _plan(q, db)
     eng = RStatic(q, td, order, db, capacity=CAP,
-                  cache=rc.CacheConfig(**PAY))
+                  cache=rc.CacheConfig(**PAY), **knobs)
     part = _GuardPartition(eng, _Mesh(), ("data",))
     with enable_x64():
         F0s = jax.vmap(lambda _: part.shard_frontier(), axis_name="data")(
@@ -159,17 +174,13 @@ def test_distributed_count_matches_oracle_and_reference_shards(db, ranks,
     assert sum(res[qname]["local"] for res in ranks) == want
 
 
-@pytest.mark.parametrize("qname", list(QUERIES))
-def test_distributed_evaluate_matches_oracle_cold_and_warm(db, ranks,
-                                                           qname):
-    """Both passes give the oracle's rows; the rows are the reference's
-    static evaluation of each shard, concatenated in rank order; the warm
-    pass replays from the tables the cold pass returned."""
-    q = QUERIES[qname]
+def _expected_rows(q, db, **knobs):
+    """The oracle's tuples, and the reference's static evaluation of each
+    shard, cold then warm, concatenated in rank order."""
     td, order, _ = _plan(q, db)
     want = _tuples(np.asarray(clftj_evaluate(q, td, order, db),
                               np.int64).reshape(-1, len(order)))
-    eng, F0s = _reference_shards(q, db)
+    eng, F0s = _reference_shards(q, db, **knobs)
     expect = {"rows1": [], "rows2": []}
     with enable_x64():
         for F0 in F0s:
@@ -177,6 +188,17 @@ def test_distributed_evaluate_matches_oracle_cold_and_warm(db, ranks,
             for key in ("rows1", "rows2"):
                 a, v, _, _, _, tables = eng.evaluate_fn()(F0, tables)
                 expect[key].append(np.asarray(a)[np.asarray(v)])
+    return want, expect
+
+
+@pytest.mark.parametrize("qname", list(QUERIES))
+def test_distributed_evaluate_matches_oracle_cold_and_warm(db, ranks,
+                                                           qname):
+    """Both passes give the oracle's rows; the rows are the reference's
+    static evaluation of each shard, concatenated in rank order; the warm
+    pass replays from the tables the cold pass returned."""
+    q = QUERIES[qname]
+    want, expect = _expected_rows(q, db)
     for r, res in enumerate(ranks):
         got = res[qname]
         for key, stats in (("rows1", got["s1"]), ("rows2", got["s2"])):
@@ -189,9 +211,41 @@ def test_distributed_evaluate_matches_oracle_cold_and_warm(db, ranks,
             assert stats["overflow_shards"] == 0
             np.testing.assert_array_equal(rows, ranks[0][qname][key])
         assert got["s1"]["tier2_replay_hits"] == 0
-        assert got["merged"] > 0
+        assert got["calls"]["fold_merged_calls_torch"] > 0
         if qname == "bowtie":
             assert got["s2"]["tier2_replay_hits"] > 0
+
+
+def test_distributed_chain_path_matches_reference(db, ranks):
+    """Both factories take the kernel knobs: with the chain EXPAND and its
+    leapfrog search and the FOLD and EMIT chains, the count and the rows
+    of both passes equal the reference's static executor under the same
+    knobs, shard by shard, and every launch went down the chains."""
+    q = QUERIES["bowtie"]
+    td, order, _ = _plan(q, db)
+    want, expect = _expected_rows(q, db, **R_CHAIN_KNOBS)
+    eng, F0s = _reference_shards(q, db, **R_CHAIN_KNOBS)
+    for r, res in enumerate(ranks):
+        got = res[CHAIN_CASE]
+        assert got["count"] == lftj_count(q, order, db) == len(want)
+        with enable_x64():
+            total, ov, _ = r_execute_static(eng.schedule, eng, F0s[r],
+                                            eng.make_tables("count"),
+                                            eng.cache_config)
+        assert (got["local"], got["local_overflow"]) == (int(total),
+                                                         bool(ov)), r
+        for key, stats in (("rows1", got["s1"]), ("rows2", got["s2"])):
+            np.testing.assert_array_equal(
+                got[key], np.concatenate(expect[key]), err_msg=f"{r} {key}")
+            np.testing.assert_array_equal(got[key], ranks[0]["bowtie"][key])
+            assert stats == ranks[0]["bowtie"]["s1" if key == "rows1"
+                                               else "s2"]
+        calls = got["calls"]
+        assert got["s2"]["tier2_replay_hits"] > 0
+        for op in ("expand", "fold", "fold_merged", "emit"):
+            assert calls[f"{op}_calls_chain"] > 0, op
+            assert calls[f"{op}_calls_torch"] == 0, op
+        assert calls["bound_calls_torch"] > 0
 
 
 def test_factories_raise_without_a_process_group(db):

@@ -155,18 +155,56 @@ def test_config_maps_from_reference():
              ("TPU_ADAPTIVE", "GPU_ADAPTIVE"),
              ("TPU_EVAL_REPLAY", "GPU_EVAL_REPLAY"),
              ("TPU_STREAM_EMIT", "GPU_STREAM_EMIT"),
-             ("TPU_SERVE", "GPU_SERVE"), ("TPU_FUSED_EXPAND", "GPU_DEFAULT")]
+             ("TPU_SERVE", "GPU_SERVE"),
+             ("TPU_FUSED_EXPAND", "GPU_FUSED_EXPAND"),
+             ("TPU_FUSED_EXPAND", "GPU_DEFAULT"),
+             ("PAPER_FAITHFUL", "PAPER_FAITHFUL"),
+             ("BOUNDED_100K", "BOUNDED_100K")]
     for r_name, t_name in pairs:
         assert engine_config_from_reference(
             getattr(r_configs, r_name)) == getattr(t_configs, t_name)
     chain = engine_config_from_reference(dataclasses.replace(
-        r_configs.TPU_DEFAULT, impl="pallas", expand_kernel="xla"))
-    assert (chain.impl, chain.expand_kernel) == ("leapfrog", "chain")
-    for bad in (dict(fold_kernel="xla"), dict(emit_kernel="xla"),
-                dict(capacity=100_000), dict(evict="lru")):
+        r_configs.TPU_DEFAULT, impl="pallas", expand_kernel="xla",
+        fold_kernel="xla", emit_kernel="xla"))
+    assert (chain.impl, chain.expand_kernel, chain.fold_kernel,
+            chain.emit_kernel) == ("leapfrog", "chain", "chain", "chain")
+    host = engine_config_from_reference(dataclasses.replace(
+        r_configs.TPU_DEFAULT, support_threshold=3, capacity=100_000,
+        evict="lru"))
+    assert (host.support_threshold, host.capacity, host.evict) == (
+        3, 100_000, "lru")
+    for bad in (dict(fold_kernel="ref"), dict(emit_kernel="fused"),
+                dict(expand_kernel="chain"), dict(impl="leapfrog")):
         with pytest.raises(ValueError):
             engine_config_from_reference(dataclasses.replace(
                 r_configs.TPU_DEFAULT, **bad))
+
+
+R_PRESETS = sorted(name for name, v in vars(r_configs).items()
+                   if isinstance(v, r_configs.JoinEngineConfig))
+
+
+@pytest.mark.parametrize("name", R_PRESETS)
+def test_every_reference_preset_converts(name):
+    """Every preset of the reference's ``configs/paper_clftj.py`` carries
+    across: every field the port shares keeps its value, the kernel paths
+    and ``impl`` are mapped, and the host CLFTJ's policy is the one the
+    preset names."""
+    rcfg = getattr(r_configs, name)
+    cfg = engine_config_from_reference(rcfg)
+    mapped = {"impl": {"bsearch": "bsearch", "pallas": "leapfrog"}}
+    paths = {"auto": "fused", "pallas": "fused", "xla": "chain"}
+    for knob in ("expand_kernel", "fold_kernel", "emit_kernel"):
+        mapped[knob] = paths
+    for f in dataclasses.fields(rcfg):
+        want = getattr(rcfg, f.name)
+        assert getattr(cfg, f.name) == mapped.get(f.name, {}).get(
+            want, want), f.name
+    pol = cfg.host_policy()
+    assert (pol.support_threshold, pol.capacity, pol.evict) == (
+        rcfg.support_threshold, rcfg.capacity, rcfg.evict)
+    port_name = name.replace("TPU_", "GPU_")
+    assert getattr(t_configs, port_name) == cfg
 
 
 # ---------------------------------------------------------------------------
