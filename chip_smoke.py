@@ -33,7 +33,13 @@ then LM serving (phase 14): the flash-attention kernel against its plain
 version, and qwen2.5-3b at full width and depth (random weights from a
 seed) prefilling four 2048-token prompts and decoding 32 greedy tokens
 under ``greedy_generate``, checked against the plain attention path and
-against a full forward.  Phases print one line each; then come the
+against a full forward; then training (phase 16): qwen2.5-3b at full
+width and depth, the kernel's gradients (through the plain path in
+backward) against the plain attention's in fp32 and bf16 compute beside
+a planted fault, eight AdamW steps of ``make_train_step`` on 4 x 2048
+tokens in two microbatches, the three remat policies at four layers,
+and the fault-tolerant loop (crash and resume from a checkpoint) at one
+layer.  Phases print one line each; then come the
 card's name and power limit (as nvidia-smi prints them), a JSON object
 with each kernel's launches, error, times and bound, and as the last line
 
@@ -48,6 +54,8 @@ import dataclasses
 import gc
 import hashlib
 import json
+import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -84,7 +92,7 @@ from repro_torch.kernels.expand import chain as expand_chain  # noqa: E402
 from repro_torch.kernels.expand import cuda as expand_cuda  # noqa: E402
 from repro_torch.kernels.expand import plain as expand_plain  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    cuda as flash_cuda, plain as flash_plain)
+    cuda as flash_cuda, ops as flash_ops, plain as flash_plain)
 from repro_torch.kernels.fold import cuda as fold_cuda  # noqa: E402
 from repro_torch.kernels.fold import plain as fold_plain  # noqa: E402
 from repro_torch.kernels.leapfrog import cuda as bound_cuda  # noqa: E402
@@ -94,7 +102,12 @@ from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.data.tokens import DataConfig, batch_at  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models.kvcache import pad_caches  # noqa: E402
+from repro_torch.optim.adamw import OptConfig  # noqa: E402
+from repro_torch.train import loop as train_loop  # noqa: E402
+from repro_torch.train.loop import LoopConfig, train  # noqa: E402
 from repro_torch.train.serve_step import greedy_generate  # noqa: E402
+from repro_torch.train.train_step import (  # noqa: E402
+    TrainConfig, init_train_state, make_train_step)
 
 C = 1 << 16                 # the main path's chunk capacity
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
@@ -1970,6 +1983,372 @@ def lm_phase(dev) -> dict:
                 tokens=out)
 
 
+# phase 16: training qwen2.5-3b at full width and depth.  (a) one
+# sequence of TRAIN_SEQ tokens; (b) TRAIN_STEPS steps of make_train_step
+# on one fixed batch of TRAIN_BATCH sequences in TRAIN_MB microbatches
+# (phase 14's 4 x 2048 tokens); (c) each remat policy one step at
+# TRAIN_REMAT_LAYERS layers; (d) the loop at one layer, crash at step
+# TRAIN_CRASH of TRAIN_LOOP_STEPS, checkpoints every TRAIN_CKPT_EVERY
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MB, TRAIN_STEPS = 2048, 4, 2, 8
+TRAIN_OPT = OptConfig(lr=1e-4, warmup_steps=2, decay_steps=100)
+TRAIN_REMAT_LAYERS = 4
+TRAIN_LOOP_STEPS, TRAIN_CKPT_EVERY, TRAIN_CRASH = 12, 6, 7
+TRAIN_DIR = ROOT / "build" / "chip_smoke_train"
+# (a) bounds on the relative L2 error ||g_fused - g_chain|| / ||g_chain||
+# of every parameter's gradient, fused (the kernel in the forward pass,
+# the plain path differentiated in backward) against chain (the plain
+# path both ways).  Both differentiate the same function; they differ
+# only by the forward activations that reach each layer, the kernel's
+# output against the plain version's: FLASH_TOL apart, 2e-5 in fp32 and
+# 2e-2 (p rounded to bf16 on the tensor cores) in bf16, compounding
+# over 36 layers.  On an H100 the worst tensor read 2.16e-5 in fp32 and
+# 0.0889 in bf16 (the last layer's wk); the bounds are 1e-3 and twice
+# that bf16 reading (as LM_TOL is for the serving path's bf16 noise).
+# The planted fault (the kernel's output detached, as before the
+# autograd Function) loses attention's whole share of the q/k/v
+# projections' gradients: relative error 1 there (read 1 in both
+# dtypes); it must read at least TRAIN_FAULT_MIN, above both bounds.
+TRAIN_GRAD_TOL = {torch.float32: 1e-3, torch.bfloat16: 0.2}
+TRAIN_FAULT_MIN = 0.5
+# (c) the remat policies against "full": one step from the same seed
+# runs the same forward ops (remat only recomputes them), so the losses
+# are equal; the gradients differ only by the order of the embedding
+# gradient's atomic adds (PyTorch's CUDA index backward), so grad_norm
+# and the updated parameters within TRAIN_REMAT_TOL relative / absolute
+TRAIN_REMAT_TOL = 1e-4
+# (d) a resumed run against a straight one: the same data and state
+# (the card's runs have read 0 apart), so the losses within
+# TRAIN_RESUME_TOL relative, the CPU test's bound.  A planted resume
+# that restores the parameters but loses AdamW's m and v must read
+# above it.
+TRAIN_RESUME_TOL = 1e-5
+
+
+def rel_l2(got: dict, want: dict) -> dict:
+    """||got - want|| / ||want|| per tensor (0 where both are zero); a
+    gradient that is None (no path reached the parameter) counts as 0."""
+    out = {}
+    for name, w in want.items():
+        den = float(w.float().norm())
+        g = got[name]
+        num = den if g is None else float((g.float() - w.float()).norm())
+        out[name] = num / den if den else (0.0 if num == 0 else math.inf)
+    return out
+
+
+def loss_grads(model, batch) -> tuple:
+    """(loss, every parameter's gradient) of one ``Model.loss``; the
+    gradients are handed over (``.grad`` is left empty)."""
+    model.zero_grad(set_to_none=True)
+    loss, _ = model.loss(batch)
+    loss.backward()
+    grads = {}
+    for name, p in model.named_parameters():
+        grads[name], p.grad = p.grad, None
+    return float(loss.detach()), grads
+
+
+def detached_attention(q, k, v, *, causal=True, window=None, q_offset=0,
+                       impl="fused", **kw):
+    """The fault that FlashAttention repairs, planted here: the kernel's
+    output with no autograd node."""
+    return flash_cuda.flash_attention(q.detach(), k.detach(), v.detach(),
+                                      causal=causal, window=window,
+                                      q_offset=q_offset)
+
+
+def grad_check(model, batch, dtype) -> dict:
+    """Phase 16 (a) in one compute dtype: fused against chain, and the
+    planted fault against chain."""
+    model.cfg = dataclasses.replace(model.cfg, dtype_compute={
+        torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype])
+    model.impl = "chain"
+    loss_c, chain = loss_grads(model, batch)
+    model.impl = "fused"
+    before = flash_cuda.launches
+    loss_f, fused = loss_grads(model, batch)
+    launches = flash_cuda.launches - before
+    err = rel_l2(fused, chain)
+    del fused
+    real = flash_ops.flash_attention
+    flash_ops.flash_attention = detached_attention
+    try:
+        _, faulty = loss_grads(model, batch)
+    finally:
+        flash_ops.flash_attention = real
+    fault = rel_l2(faulty, chain)
+    del faulty, chain
+    worst = max(err, key=err.get)
+    worst_fault = max(fault, key=fault.get)
+    tol = TRAIN_GRAD_TOL[dtype]
+    name = str(dtype)[6:]
+    check(all(math.isfinite(e) for e in err.values()),
+          f"(a) {name}: a non-finite gradient error")
+    check(err[worst] <= tol, f"(a) {name}: fused vs chain gradient of "
+          f"{worst}: relative L2 error {err[worst]} above {tol}")
+    check(fault[worst_fault] >= TRAIN_FAULT_MIN > tol,
+          f"(a) {name}: the planted fault reads only "
+          f"{fault[worst_fault]} ({worst_fault})")
+    check(launches == 2 * model.cfg.n_layers,
+          f"(a) {name}: {launches} flash launches, not 2 a layer")
+    return dict(loss_fused=loss_f, loss_chain=loss_c, err=err[worst],
+                worst=worst, fault=fault[worst_fault],
+                fault_worst=worst_fault, launches=launches)
+
+
+def train_steps(model, batch, steps: int) -> dict:
+    """Phase 16 (b): ``steps`` train steps on one batch; per step the
+    flash launches, the FlashAttention backward recomputes and the plain
+    path's calls (counted through the module attribute the backward
+    calls), each step's seconds to the host's loss; and ``step``, a
+    callable that takes one more step from where they ended."""
+    step_fn = make_train_step(model, TrainConfig(microbatches=TRAIN_MB,
+                                                 opt=TRAIN_OPT))
+    state = init_train_state(model)
+    plain_calls = [0]
+    real = flash_plain.flash_attention
+
+    def counted(*a, **kw):
+        plain_calls[0] += 1
+        return real(*a, **kw)
+
+    out = dict(loss=[], grad_norm=[], seconds=[], launches=[], backward=[],
+               plain=[])
+    flash_plain.flash_attention = counted
+    try:
+        for _ in range(steps):
+            before = (flash_cuda.launches, flash_cuda.backward_calls,
+                      plain_calls[0])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            out["loss"].append(float(metrics["loss"]))
+            out["grad_norm"].append(float(metrics["grad_norm"]))
+            out["seconds"].append(time.perf_counter() - t0)
+            out["launches"].append(flash_cuda.launches - before[0])
+            out["backward"].append(flash_cuda.backward_calls - before[1])
+            out["plain"].append(plain_calls[0] - before[2])
+    finally:
+        flash_plain.flash_attention = real
+    out["step"] = lambda: step_fn(state, batch)
+    return out
+
+
+def train_phase(dev) -> dict:
+    """Phase 16: qwen2.5-3b trained at full width and depth on the card
+    (weights from a seeded torch.Generator, bf16 compute, remat "full",
+    as the config): (a) loss and every gradient of ``impl="fused"``
+    against ``impl="chain"`` on one 2048-token sequence, in fp32 and in
+    bf16 compute, and the planted fault; (b) TRAIN_STEPS steps of
+    ``make_train_step``, microbatches=2, on one batch of 4 x 2048
+    tokens: finite, falling, n_layers x mb x 2 flash launches a step
+    (forward and remat recompute) and the plain path only in backward;
+    (c) remat "none" and "dots" against "full" at 4 layers; (d) the loop
+    at one layer, crash-resume against a straight run, and the launcher
+    (``python -m repro_torch.launch.train``) at smoke size."""
+    t_phase = time.perf_counter()
+    cfg = get_arch(LM_ARCH)
+    gen = torch.Generator(device=dev)
+    data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, seed=SEED)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in batch_at(data, 0).items()}
+    n = cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, device=dev)
+    model.reset_parameters(gen.manual_seed(SEED))
+
+    # (a) fused vs chain gradients, before any optimizer state exists
+    one = {k: v[:1] for k, v in batch.items()}
+    t0 = time.perf_counter()
+    grads = {str(d)[6:]: grad_check(model, one, d)
+             for d in (torch.float32, torch.bfloat16)}
+    model.cfg = cfg
+    grad_s = time.perf_counter() - t0
+    peak_a = torch.cuda.max_memory_allocated() / 2 ** 30
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the train step (counts read after the step alone)
+    torch.cuda.reset_peak_memory_stats()
+    model.reset_parameters(gen.manual_seed(SEED))
+    reset_launches()
+    run = train_steps(model, batch, TRAIN_STEPS)
+    launches = read_launches()
+    peak_b = torch.cuda.max_memory_allocated() / 2 ** 30
+    per_step = n * TRAIN_MB * 2
+    check(all(math.isfinite(x) for x in run["loss"] + run["grad_norm"]),
+          f"(b) non-finite loss or grad_norm: {run}")
+    check(run["loss"][-1] < run["loss"][0],
+          f"(b) loss did not fall: {run['loss']}")
+    check(run["launches"] == [per_step] * TRAIN_STEPS,
+          f"(b) flash launches a step {run['launches']}, not {n} layers x "
+          f"{TRAIN_MB} microbatches x 2 (forward, remat recompute)")
+    check(run["backward"] == run["plain"] == [n * TRAIN_MB] * TRAIN_STEPS,
+          f"(b) backward recomputes {run['backward']} / plain calls "
+          f"{run['plain']} a step, not one a layer a microbatch: the "
+          f"plain path ran outside FlashAttention's backward")
+    check(launches["flash_attention"] == per_step * TRAIN_STEPS and all(
+        v == 0 for k, v in launches.items() if k not in LM_ONLY),
+        f"(b) launches {launches}")
+    # one more step, traced (its launches are not the path's)
+    prof = profile_line(run.pop("step"))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_s = statistics.median(run["seconds"][1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+
+    # (c) the remat policies at TRAIN_REMAT_LAYERS layers of full width
+    cfg4 = dataclasses.replace(cfg, n_layers=TRAIN_REMAT_LAYERS)
+    model = Model(cfg4, device=dev)
+    remat = {}
+    for policy in ("full", "none", "dots"):
+        model.cfg = dataclasses.replace(cfg4, remat_policy=policy)
+        model.reset_parameters(gen.manual_seed(SEED))
+        torch.cuda.reset_peak_memory_stats()
+        _, metrics = make_train_step(model, TrainConfig(
+            microbatches=TRAIN_MB, opt=TRAIN_OPT))(init_train_state(model),
+                                                   batch)
+        remat[policy] = dict(loss=float(metrics["loss"]),
+                             grad_norm=float(metrics["grad_norm"]),
+                             peak=torch.cuda.max_memory_allocated() / 2 ** 30)
+        if policy == "full":
+            full = {k: p.detach().clone() for k, p in
+                    model.named_parameters()}
+        else:
+            remat[policy]["param_err"] = max(
+                float((p.detach() - full[k]).abs().max())
+                for k, p in model.named_parameters())
+            for key in ("loss", "grad_norm"):
+                got, want = remat[policy][key], remat["full"][key]
+                check(abs(got - want) <= TRAIN_REMAT_TOL * abs(want),
+                      f"(c) {policy} {key} {got} vs full {want}")
+            check(remat[policy]["param_err"] <= TRAIN_REMAT_TOL,
+                  f"(c) {policy}: parameters {remat[policy]['param_err']} "
+                  f"from full's")
+    del model, full
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the loop at one layer, its checkpoints under build/
+    cfg1 = dataclasses.replace(cfg, n_layers=1)
+    model = Model(cfg1, device=dev)
+    tcfg = TrainConfig(microbatches=TRAIN_MB, opt=TRAIN_OPT)
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+
+    def lcfg(name):
+        return LoopConfig(total_steps=TRAIN_LOOP_STEPS,
+                          ckpt_every=TRAIN_CKPT_EVERY, log_every=1000,
+                          keep=1, ckpt_dir=str(TRAIN_DIR / name), seed=SEED)
+
+    logs = []
+    t0 = time.perf_counter()
+    before = flash_cuda.launches
+    straight = train(model, data, tcfg, lcfg("straight"), log=logs.append)
+    try:
+        train(model, data, tcfg, lcfg("resumed"), log=logs.append,
+              fail_at_step=TRAIN_CRASH)
+        check(False, "(d) the injected failure did not happen")
+    except RuntimeError as e:
+        check("injected failure" in str(e), f"(d) {e}")
+    ckpt_bytes = sum(f.stat().st_size for f in
+                     (TRAIN_DIR / "resumed").rglob("*") if f.is_file())
+    # the same step-6 checkpoint for the planted resume below
+    shutil.copytree(TRAIN_DIR / "resumed", TRAIN_DIR / "lost",
+                    copy_function=os.link)
+    resumed = train(model, data, tcfg, lcfg("resumed"), log=logs.append)
+    loop_launches = flash_cuda.launches - before
+    loop_s = time.perf_counter() - t0
+    check(f"[resume] restored checkpoint at step {TRAIN_CKPT_EVERY}" in logs,
+          f"(d) no resume: {logs}")
+    tail = straight["loss"][-len(resumed["loss"]):]
+
+    def loss_err(losses):
+        return max(abs(a - b) / abs(b) for a, b in zip(losses, tail))
+
+    resume_err = loss_err(resumed["loss"])
+    check(len(resumed["loss"]) == TRAIN_LOOP_STEPS - TRAIN_CKPT_EVERY
+          and resume_err <= TRAIN_RESUME_TOL,
+          f"(d) resumed losses {resumed['loss']} vs straight {tail}")
+    check(loop_launches == 2 * TRAIN_MB * (
+        TRAIN_LOOP_STEPS + TRAIN_CRASH + TRAIN_LOOP_STEPS - TRAIN_CKPT_EVERY),
+        f"(d) {loop_launches} flash launches in the loops")
+
+    real_restore = train_loop.restore_for_mesh
+
+    def restore_losing_moments(*args, **kw):
+        saved, state, extra = real_restore(*args, **kw)
+        for key in ("m", "v"):
+            for t in state["opt"][key].values():
+                t.zero_()
+        return saved, state, extra
+
+    train_loop.restore_for_mesh = restore_losing_moments
+    try:
+        lost = train(model, data, tcfg, lcfg("lost"), log=logs.append)
+    finally:
+        train_loop.restore_for_mesh = real_restore
+    lost_err = loss_err(lost["loss"])
+    check(lost_err > TRAIN_RESUME_TOL,
+          f"(d) a resume that lost m and v reads {lost_err:.3g}, within "
+          f"{TRAIN_RESUME_TOL} of the straight run")
+    del model
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    check(not TRAIN_DIR.exists(), "(d) the checkpoints were not removed")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         LM_ARCH, "--smoke", "--steps", "3", "--batch", "4", "--seq", "64",
+         "--microbatches", "2", "--ckpt-dir", str(TRAIN_DIR / "cli")],
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        capture_output=True, text=True, timeout=300)
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    check(cli.returncode == 0 and "[train] done" in cli.stdout,
+          f"(d) the launcher failed: {cli.stdout[-2000:]} "
+          f"{cli.stderr[-2000:]}")
+
+    fmt = ", ".join
+    print(f"[16 train] {LM_ARCH} ({n} layers, d_model {cfg.d_model}, "
+          f"{cfg.param_count()} fp32 params, remat {cfg.remat_policy}); (a) "
+          f"one {TRAIN_SEQ}-token sequence, fused vs chain gradients, "
+          "relative L2 of the worst tensor: " + fmt(
+              f"{k} compute {g['err']:.3g} ({g['worst']}, tol "
+              f"{TRAIN_GRAD_TOL[getattr(torch, k)]}; loss fused "
+              f"{g['loss_fused']:.6f} chain {g['loss_chain']:.6f}), planted "
+              f"fault {g['fault']:.3g} ({g['fault_worst']})"
+              for k, g in grads.items())
+          + f"; {grad_s:.1f} s, peak {peak_a:.2f} GiB; (b) {TRAIN_STEPS} "
+          f"steps, {TRAIN_BATCH} x {TRAIN_SEQ} tokens in {TRAIN_MB} "
+          f"microbatches, bf16 compute: loss " + fmt(
+              f"{x:.4f}" for x in run["loss"]) + "; grad_norm " + fmt(
+              f"{x:.4f}" for x in run["grad_norm"])
+          + f"; step seconds " + fmt(f"{x:.3f}" for x in run["seconds"])
+          + f" (median of steps 2-{TRAIN_STEPS} {step_s:.3f} s = "
+          f"{tokens / step_s:.0f} tokens/s); flash launches {per_step} a "
+          f"step ({n} x {TRAIN_MB} x 2), plain path {n * TRAIN_MB} a step, "
+          f"all in FlashAttention's backward; peak device memory "
+          f"{peak_b:.2f} GiB; one more step traced: {prof}; (c) "
+          f"{TRAIN_REMAT_LAYERS} layers, one step: "
+          + fmt(f"{p} loss {r['loss']:.6f} grad_norm {r['grad_norm']:.6f} "
+                f"peak {r['peak']:.2f} GiB"
+                + (f" params vs full {r['param_err']:.3g}"
+                   if "param_err" in r else "")
+                for p, r in remat.items())
+          + f"; (d) loop at 1 layer, {TRAIN_LOOP_STEPS} steps, crash at "
+          f"{TRAIN_CRASH}, resumed from step {TRAIN_CKPT_EVERY}: max "
+          f"relative loss difference {resume_err:.3g} (tol "
+          f"{TRAIN_RESUME_TOL}; planted resume losing m and v "
+          f"{lost_err:.3g}), checkpoint {ckpt_bytes / 1e9:.2f} GB, "
+          f"{loop_s:.1f} s, checkpoints removed; launcher at smoke size ok "
+          f"| phase {time.perf_counter() - t_phase:.1f} s | launches "
+          + json.dumps({"flash_attention": launches["flash_attention"]
+                        + loop_launches}), flush=True)
+    return dict(launches={k: v + (loop_launches if k == "flash_attention"
+                                  else 0) for k, v in launches.items()})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("CUDA is not available: chip_smoke needs an NVIDIA GPU",
@@ -2244,13 +2623,27 @@ def main() -> int:
         print(f"[7 profile {label}] " + profile_line(run), flush=True)
     srv.close()
 
+    # 16. training qwen2.5-3b at full width and depth, after phase 14's
+    #     model, the static and payload engines and the server are freed
+    lm.pop("model")
+    served.pop("server")
+    del se, pay, srv, lm_serve
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[16 train] device memory allocated before the phase "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+    trained = train_phase(dev)
+    print(f"[16 train] total {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
     kernels = []
     for name, r in rows.items():
         src, replaces = SOURCES[name]
         n = ((launches[name] if name != "fold_splice" else 0)
              + pay_launches[name] + static_launches[name]
              + lf["launches"][name] + served["launches"][name]
-             + knobs["launches"][name] + lm["launches"][name])
+             + knobs["launches"][name] + lm["launches"][name]
+             + trained["launches"][name])
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": n,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],

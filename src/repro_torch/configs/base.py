@@ -25,9 +25,7 @@ WAITING = {
     "encoder_decoder": "item 4c (audio encoder-decoder)",
     "n_encoder_layers": "item 4c (audio encoder-decoder)",
     "encoder_seq": "item 4c (audio encoder-decoder)",
-    "remat_policy": "item 4b (training)",
     "cost_exact": "item 4d (the reference's cost probe is not ported)",
-    "seq_shard": "item 4b (sharding)",
 }
 # fields whose only ported value is this one
 DENSE = {"family": "dense", "block_pattern": ("attn",), "norm": "rmsnorm",
@@ -80,7 +78,9 @@ class ArchConfig:
     # sequence-sharded layout between blocks, turning per-layer activation
     # all-reduces into reduce-scatter+all-gather pairs (half the bytes) and
     # shrinking saved activations by the model-axis factor.  Only meaningful
-    # under a mesh context (dry-run / production); see §Perf.
+    # under a mesh; the port trains on one device, where the reference's
+    # constraint is a no-op too (its transformer.py::_seq_shard_constraint
+    # outside a mesh), so the port reads the flag and changes nothing.
     seq_shard: bool = False
 
     @property

@@ -21,6 +21,9 @@ parameter tree, as numpy arrays, becomes the port's ``state_dict``
 (:func:`lm_params_from_reference`), and a reference ``ArchConfig``'s
 fields the port's (:func:`arch_config_from_reference`);
 :data:`ATTENTION_IMPLS` maps the reference's attention ``impl`` names.
+A reference train state (parameters and AdamW's ``m``, ``v`` and
+``step``) becomes the port's through the same layout code
+(:func:`train_state_from_reference`).
 """
 from __future__ import annotations
 
@@ -181,3 +184,18 @@ def lm_params_from_reference(cfg, params: Dict) -> Dict[str, torch.Tensor]:
     for i in range(cfg.n_layers):
         sd.update(flat(f"blocks.{i}.", params["groups"]["b0_attn"], i))
     return sd
+
+
+def train_state_from_reference(cfg, state: Dict) -> Dict:
+    """The port's train state (``train/train_step.py``) from the
+    reference's, ``{"params": tree, "opt": {"m": tree, "v": tree,
+    "step": scalar}}`` as numpy (``jax.tree.map(np.asarray, state)``, or
+    a reference checkpoint restored): ``params``, ``m`` and ``v`` laid out
+    by :func:`lm_params_from_reference` (fp32 state-dict names, stacked
+    groups unstacked), ``step`` an int32 scalar; all on the CPU."""
+    opt = state["opt"]
+    return {"params": lm_params_from_reference(cfg, state["params"]),
+            "opt": {"m": lm_params_from_reference(cfg, opt["m"]),
+                    "v": lm_params_from_reference(cfg, opt["v"]),
+                    "step": torch.tensor(int(np.asarray(opt["step"])),
+                                         dtype=torch.int32)}}

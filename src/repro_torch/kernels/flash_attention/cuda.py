@@ -11,6 +11,17 @@ else (a non-contiguous input included: the caller makes it contiguous,
 nothing is copied here), allocates the output with ``torch.empty`` and
 launches on PyTorch's current stream.  It has no plain fallback: a failed launch
 raises.  ``launches`` counts the calls that launched the kernel.
+
+The kernel is a forward pass only, like the reference's Pallas kernel
+(which has no ``custom_vjp``: the reference trains through its XLA
+scan).  :class:`FlashAttention` carries gradients past it: its forward
+launches the kernel and saves q, k and v, and its backward recomputes
+``plain.flash_attention`` on them under autograd (the reference's one
+differentiable flash path, rematerialised block by block) and returns
+that function's gradients.  ``backward_calls`` counts those recomputes.
+``ops.flash_attention`` launches through it on every CUDA tensor; where
+autograd records nothing (grad mode off, as in serving, or no input
+that requires grad) it is one launch and no more.
 """
 from __future__ import annotations
 
@@ -20,14 +31,17 @@ from typing import Optional
 import torch
 
 from .. import cudalib
+from . import plain
 
-__all__ = ["flash_attention", "launches", "HEAD_DIMS", "DTYPES"]
+__all__ = ["flash_attention", "FlashAttention", "launches",
+           "backward_calls", "HEAD_DIMS", "DTYPES"]
 
 # every head dim of the reference's kernel sweep and arch configs
 HEAD_DIMS = (16, 32, 64, 128, 160, 256)
 DTYPES = (torch.bfloat16, torch.float32)
 
 launches = 0
+backward_calls = 0
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -75,3 +89,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     cudalib.check(err, "ctj_flash_attention")
     launches += 1
     return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """The kernel under autograd: ``FlashAttention.apply(q, k, v, causal,
+    window, q_offset)``.  Forward launches the kernel (one count of
+    ``launches``); backward recomputes the plain blocked softmax on the
+    saved inputs and differentiates it (one count of
+    ``backward_calls``, no launch)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        ctx.save_for_backward(q, k, v)
+        ctx.masks = dict(causal=causal, window=window, q_offset=q_offset)
+        return flash_attention(q, k, v, **ctx.masks)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        global backward_calls
+        backward_calls += 1
+        wanted = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            inputs = [x.detach().requires_grad_(w)
+                      for x, w in zip(ctx.saved_tensors, wanted)]
+            out = plain.flash_attention(*inputs, **ctx.masks)
+            grads = iter(torch.autograd.grad(
+                out, [x for x, w in zip(inputs, wanted) if w], grad_out))
+        return tuple(next(grads) if w else None for w in wanted) + (
+            None, None, None)

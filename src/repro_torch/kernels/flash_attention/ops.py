@@ -12,8 +12,11 @@ reference's names):
   * ``"ref"``: the dense oracle (``ref.py``), for tests.
 
 There is no fallback: a CUDA tensor under ``"fused"`` launches the
-kernel or raises.  The reference's ``"xla_unroll"`` (its cost-probe
-mode) has no counterpart.
+kernel or raises.  The launch goes through ``cuda.FlashAttention``,
+whose backward differentiates the plain path; with grad mode off or no
+input that requires grad (serving) it records no graph, and launches
+the kernel once all the same.  The reference's ``"xla_unroll"`` (its cost-probe mode) has no
+counterpart.
 """
 from __future__ import annotations
 
@@ -40,7 +43,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return ref.attention_ref(q, k, v, causal=causal, window=window,
                                  q_offset=q_offset)
     if impl == "fused" and q.is_cuda:
-        return cuda.flash_attention(q, k, v, causal=causal, window=window,
-                                    q_offset=q_offset)
+        return cuda.FlashAttention.apply(q, k, v, causal, window, q_offset)
     return plain.flash_attention(q, k, v, causal=causal, window=window,
                                  q_offset=q_offset, **kw)

@@ -12,6 +12,13 @@ masks (``kpos < S``, causal ``kpos <= qpos``, window
 output is ``acc / max(l, 1e-30)`` in q's dtype.  Memory stays
 O(B·H·block_q·block_k).  Every kv block is visited, masked or not, as
 in the reference.
+
+Under autograd (grad mode on and an input that requires grad) the
+backward keeps that bound as the reference's does (``ops.py:51``,
+``:85-94`` there, ``jax.checkpoint`` on both scan bodies): each q block
+runs under ``torch.utils.checkpoint`` and each kv step inside it too, so
+backward recomputes the (block_q, block_k) score blocks instead of
+saving all of them.
 """
 from __future__ import annotations
 
@@ -20,6 +27,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 NEG_INF = -1e30
 DEFAULT_BQ = 512   # the reference XLA path's blocks
@@ -48,30 +56,42 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     vg = F.pad(v, (0, 0, 0, 0, 0, nk * block_k - s)).float() \
         .reshape(b, nk, block_k, hkv, dh)
     scale = 1.0 / math.sqrt(dh)
-    blocks = []
-    for i in range(nq):
-        qblk = qg[:, i]                                  # (B, BQ, Hkv, G, Dh)
+    remat = torch.is_grad_enabled() and any(
+        x.requires_grad for x in (q, k, v))
+
+    def run(fn, *args):
+        if remat:
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
+    def kv_step(m, l, acc, qblk, kblk, vblk, qpos, j):
+        kpos = j * block_k + torch.arange(block_k, device=dev)
+        sc = torch.einsum("bqhgd,bkhd->bhgqk", qblk, kblk) * scale
+        mask = (kpos[None, :] < s)
+        if causal:
+            mask = mask & (kpos[None, :] <= qpos[:, None])
+        if window is not None:
+            mask = mask & (kpos[None, :] > qpos[:, None] - window)
+        sc = torch.where(mask, sc, NEG_INF)
+        m_c = torch.maximum(m, sc.amax(-1))
+        alpha = torch.exp(m - m_c)
+        p = torch.exp(sc - m_c[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhgqk,bkhd->bhgqd", p, vblk)
+        return m_c, l, acc
+
+    def q_block(qblk, kg, vg, i):
         qpos = q_offset + i * block_q + torch.arange(block_q, device=dev)
         m = torch.full((b, hkv, g, block_q), NEG_INF, device=dev)
         l = torch.zeros((b, hkv, g, block_q), device=dev)
         acc = torch.zeros((b, hkv, g, block_q, dh), device=dev)
         for j in range(nk):
-            kpos = j * block_k + torch.arange(block_k, device=dev)
-            sc = torch.einsum("bqhgd,bkhd->bhgqk", qblk, kg[:, j]) * scale
-            mask = (kpos[None, :] < s)
-            if causal:
-                mask = mask & (kpos[None, :] <= qpos[:, None])
-            if window is not None:
-                mask = mask & (kpos[None, :] > qpos[:, None] - window)
-            sc = torch.where(mask, sc, NEG_INF)
-            m_c = torch.maximum(m, sc.amax(-1))
-            alpha = torch.exp(m - m_c)
-            p = torch.exp(sc - m_c[..., None])
-            l = l * alpha + p.sum(-1)
-            acc = acc * alpha[..., None] + torch.einsum(
-                "bhgqk,bkhd->bhgqd", p, vg[:, j])
-            m = m_c
-        blocks.append(acc / torch.clamp(l, min=1e-30)[..., None])
+            m, l, acc = run(kv_step, m, l, acc, qblk, kg[:, j], vg[:, j],
+                            qpos, j)
+        return acc / torch.clamp(l, min=1e-30)[..., None]
+
+    blocks = [run(q_block, qg[:, i], kg, vg, i) for i in range(nq)]
     # (nq, B, Hkv, G, BQ, Dh) -> (B, T, H, Dh)
     out = torch.stack(blocks).permute(1, 0, 4, 2, 3, 5) \
         .reshape(b, nq * block_q, h, dh)[:, :t]

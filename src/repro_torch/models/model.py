@@ -1,4 +1,5 @@
-"""Model facade: parameters, prefill, decode and the full forward.
+"""Model facade: parameters, the training loss, prefill, decode and the
+full forward.
 
 The counterpart of the reference's ``repro/models/model.py`` as an
 ``nn.Module`` that owns its parameters (the reference keeps them in a
@@ -7,7 +8,9 @@ separate tree).  Parameters are fp32, laid out as the reference's
 state dict's names are ``embed.tok``, ``final_norm.scale``,
 ``unembed.w`` (untied only) and ``blocks.<i>.<ln1|attn|ln2|mlp>.<name>``
 (``convert.lm_params_from_reference`` builds one from the reference's
-tree).  ``loss`` waits for the training slice.
+tree).  ``loss`` is the reference's chunked cross-entropy, differentiable
+(``train/train_step.py`` takes its gradients); the serving methods run
+without autograd.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ from typing import Dict, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..core.frontier import resolve_device
@@ -27,9 +31,10 @@ from .kvcache import Caches, init_cache
 class Model(nn.Module):
     """A dense decoder LM on ``device`` (``"cuda"`` by default: without
     CUDA the constructor raises unless ``device="cpu"`` is given).
-    ``impl`` picks the prefill attention path (``ops.IMPLS``; the
-    reference's default is ``"xla"``, the port's ``"fused"``, the CUDA
-    kernel).  A config that sets a field the port does not honour raises
+    ``impl`` picks the attention path of prefill, the full forward and
+    the loss (``ops.IMPLS``; the reference's default is ``"xla"``, the
+    port's ``"fused"``, the CUDA kernel, whose gradients come from the
+    plain path).  A config that sets a field the port does not honour raises
     ``NotImplementedError`` (``ArchConfig.check_ported``).  The
     constructor initialises the parameters from a ``torch.Generator``
     seeded 0 on the model's device."""
@@ -64,9 +69,53 @@ class Model(nn.Module):
         for p in self.parameters():
             S.init_(p, generator)
 
-    # -- serving --------------------------------------------------------------
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, dtype=torch.long, device=self.device)
+
+    # -- training -----------------------------------------------------------
+    loss_chunk: int = 512
+
+    def loss(self, batch: Dict) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Masked mean cross-entropy of ``batch["targets"]`` (B, T) given
+        ``batch["tokens"]`` (B, T), plus the auxiliary loss: (loss,
+        metrics ``loss``, ``ce``, ``aux``, ``tokens``, detached).  The
+        reference's chunked loss: chunks of ``loss_chunk`` positions (T
+        when that does not divide T), each chunk's (B, c, V) fp32 logits
+        under ``torch.utils.checkpoint`` when grad is enabled, so backward
+        recomputes them and the (B, T, V) logits never exist at once.
+        ``batch["mask"]`` (B, T) weights the targets, ones by default;
+        the mean divides by max(mask sum, 1)."""
+        targets = self._tokens(batch["targets"])
+        hidden, aux = T.forward_hidden(
+            self.cfg, self, {"tokens": self._tokens(batch["tokens"])},
+            impl=self.impl)
+        mask = batch.get("mask")
+        mask = torch.ones(targets.shape, device=self.device) \
+            if mask is None else torch.as_tensor(
+                mask, dtype=torch.float32, device=self.device)
+        t = hidden.shape[1]
+        c = self.loss_chunk if t % self.loss_chunk == 0 else t
+        remat = torch.is_grad_enabled()
+        nll_sum = torch.zeros((), device=self.device)
+        mask_sum = torch.zeros((), device=self.device)
+        for i in range(0, t, c):
+            args = (hidden[:, i:i + c], targets[:, i:i + c], mask[:, i:i + c])
+            nll = checkpoint(self._chunk_nll, *args, use_reentrant=False) \
+                if remat else self._chunk_nll(*args)
+            nll_sum = nll_sum + nll
+            mask_sum = mask_sum + args[2].sum()
+        ce = nll_sum / torch.clamp(mask_sum, min=1.0)
+        loss = ce + aux
+        return loss, {"loss": loss.detach(), "ce": ce.detach(),
+                      "aux": aux.detach(), "tokens": mask_sum.detach()}
+
+    def _chunk_nll(self, h, targets, mask) -> torch.Tensor:
+        """Summed masked negative log-likelihood of one chunk."""
+        logp = torch.log_softmax(T.logits_fn(self.cfg, self, h), dim=-1)
+        nll = -logp.gather(-1, targets[..., None])[..., 0]
+        return (nll * mask).sum()
+
+    # -- serving --------------------------------------------------------------
 
     @torch.no_grad()
     def forward(self, batch: Dict) -> torch.Tensor:

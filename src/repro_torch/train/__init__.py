@@ -1,1 +1,2 @@
-"""LM serving steps (``serve_step``); training waits for its slice."""
+"""LM steps and loops: serving (``serve_step``), the train step
+(``train_step``) and the fault-tolerant loop (``loop``)."""

@@ -38,11 +38,15 @@ def test_imports_without_jax_and_reference():
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
     assert len(MODULES) >= 20
-    # the host engines and the FOLD / EMIT chains are among them
+    # the host engines, the FOLD / EMIT chains and the training modules
+    # are among them
     assert {f"repro_torch.core.{m}" for m in (
         "trie", "lftj_ref", "bruteforce", "clftj_ref", "yannakakis")} | {
         "repro_torch.kernels.fold.chain",
-        "repro_torch.kernels.emit.chain"} <= set(MODULES)
+        "repro_torch.kernels.emit.chain"} | {f"repro_torch.{m}" for m in (
+            "optim.adamw", "train.train_step", "train.loop",
+            "checkpoint.ckpt", "runtime.fault", "runtime.elastic",
+            "sharding.rules", "launch.train")} <= set(MODULES)
 
 
 IMPORT_RE = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
@@ -190,3 +194,21 @@ def test_lm_defaults_to_cuda():
     out = greedy_generate(model, {"tokens": np.zeros((1, 4), int)}, 2)
     assert out.shape == (1, 2) and out.device.type == "cpu"
     assert all(p.device.type == "cpu" for p in model.parameters())
+
+
+def test_training_defaults_to_cuda(tmp_path):
+    """Training runs on the card by default: without CUDA the launcher
+    raises (as ``Model``, which ``make_train_step`` and ``train`` take,
+    does) unless ``--device cpu`` is given; then the loop trains on the
+    CPU.  A model-parallel mesh raises, naming its ROADMAP item."""
+    from repro_torch.launch import train as launch
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is available here: the default runs on the card")
+    args = ["--arch", "qwen2.5-3b", "--smoke", "--steps", "2", "--batch",
+            "2", "--seq", "8", "--ckpt-dir", str(tmp_path / "ck")]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        launch.main(args)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        launch.main(args + ["--device", "cpu", "--model-parallel", "2"])
+    hist = launch.main(args + ["--device", "cpu"])
+    assert len(hist["loss"]) == 2 and all(np.isfinite(hist["loss"]))

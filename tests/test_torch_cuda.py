@@ -800,6 +800,95 @@ def test_flash_kernel_refuses_what_it_does_not_take(dev):
     assert flash_cuda.launches == before
 
 
+GRAD_CASES = [FLASH_CASES[3], FLASH_CASES[6],
+              (2, 512, 512, 16, 2, 128, True, None, 0),
+              (1, 300, 300, 8, 2, 64, True, 100, 0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", GRAD_CASES)
+def test_fused_attention_gradients_match_chain(dev, case, dtype):
+    """``impl="fused"`` on CUDA q, k, v that require grad: one kernel
+    launch in the forward pass (none in backward, which recomputes the
+    plain path once, ``backward_calls``), the kernel's output within the
+    sweep's tolerance of the chain's, and q, k, v gradients equal to
+    ``impl="chain"``'s within the same tolerance (both differentiate the
+    same plain blocked softmax on the same inputs)."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    kw = dict(causal=case[6], window=case[7], q_offset=case[8])
+    base = _flash_inputs(case, dtype, dev)
+    w = torch.randn(base[0].shape, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev, dtype=dtype)
+    outs, grads = [], []
+    for impl in ("fused", "chain"):
+        q, k, v = (x.clone().requires_grad_() for x in base)
+        before = (flash_cuda.launches, flash_cuda.backward_calls)
+        out = flash_ops.flash_attention(q, k, v, impl=impl, **kw)
+        grads.append(torch.autograd.grad((out * w).float().sum(), (q, k, v)))
+        torch.cuda.synchronize()
+        n = int(impl == "fused")
+        assert (flash_cuda.launches, flash_cuda.backward_calls) == (
+            before[0] + n, before[1] + n)
+        assert out.requires_grad
+        outs.append(out.detach().float())
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(outs[0], outs[1], rtol=tol, atol=tol)
+    for what, a, b in zip("qkv", *grads):
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol,
+                                   msg=f"d{what}")
+
+
+def test_model_loss_and_train_step_on_the_card_match_cpu(dev):
+    """qwen2.5-3b at smoke size in fp32: ``Model.loss`` on the card (the
+    kernel in every layer's forward and again in its remat recompute,
+    2 launches a layer; the plain path once a layer in backward) gives
+    the CPU model's loss and gradients within 1e-4; a train step with
+    microbatches=2 launches 2 x 2 a layer and gives the CPU step's
+    metrics and parameters within 1e-4."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model
+    from repro_torch.train.train_step import (TrainConfig, init_train_state,
+                                              make_train_step)
+    cfg = dataclasses.replace(get_arch("qwen2.5-3b-smoke"),
+                              dtype_compute="float32")
+    cpu = Model(cfg, device="cpu")
+    gpu = Model(cfg, device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(1)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (4, 16)),
+             "targets": rng.integers(0, cfg.vocab, (4, 16))}
+    n = cfg.n_layers
+    before = (flash_cuda.launches, flash_cuda.backward_calls)
+    losses = []
+    for model in (gpu, cpu):
+        loss, _ = model.loss(batch)
+        loss.backward()
+        losses.append(float(loss.detach()))
+    torch.cuda.synchronize()
+    assert (flash_cuda.launches, flash_cuda.backward_calls) == (
+        before[0] + 2 * n, before[1] + n)
+    assert losses[0] == pytest.approx(losses[1], rel=1e-4)
+    for (name, pg), pc in zip(gpu.named_parameters(), cpu.parameters()):
+        torch.testing.assert_close(pg.grad.cpu(), pc.grad, rtol=1e-4,
+                                   atol=1e-6, msg=name)
+    metrics = []
+    for model in (gpu, cpu):
+        model.zero_grad(set_to_none=True)
+        before = flash_cuda.launches
+        step = make_train_step(model, TrainConfig(microbatches=2))
+        _, m = step(init_train_state(model), batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if model is gpu:
+            torch.cuda.synchronize()
+            assert flash_cuda.launches == before + 2 * 2 * n
+    for key in metrics[1]:
+        assert metrics[0][key] == pytest.approx(metrics[1][key], rel=1e-4)
+    for (name, pg), pc in zip(gpu.named_parameters(), cpu.parameters()):
+        torch.testing.assert_close(pg.detach().cpu(), pc.detach(), rtol=1e-4,
+                                   atol=1e-6, msg=name)
+
+
 def test_lm_on_the_card_matches_cpu(dev):
     """qwen2.5-3b at smoke size in fp32: the card's prefill (the kernel,
     one launch a layer), decode and greedy tokens equal the CPU model's

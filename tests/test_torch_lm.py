@@ -239,8 +239,8 @@ def test_other_families_name_their_roadmap_item():
 @pytest.mark.parametrize("field,value", [
     ("n_experts", 4), ("top_k", 2), ("window", 16), ("d_rnn", 64),
     ("n_image_tokens", 8), ("encoder_decoder", True),
-    ("n_encoder_layers", 2), ("encoder_seq", 16), ("remat_policy", "dots"),
-    ("cost_exact", True), ("seq_shard", True), ("family", "moe"),
+    ("n_encoder_layers", 2), ("encoder_seq", 16),
+    ("cost_exact", True), ("family", "moe"),
     ("block_pattern", ("attn", "local")), ("norm", "layernorm"),
     ("act", "gelu")])
 def test_model_refuses_fields_it_does_not_honour(field, value):
