@@ -39,7 +39,13 @@ backward) against the plain attention's in fp32 and bf16 compute beside
 a planted fault, eight AdamW steps of ``make_train_step`` on 4 x 2048
 tokens in two microbatches, the three remat policies at four layers,
 and the fault-tolerant loop (crash and resume from a checkpoint) at one
-layer.  Phases print one line each; then come the
+layer; then the other five block families (phase 17): recurrentgemma-2b
+(RG-LRU and a local-attention ring), rwkv6-7b, phi3.5-moe and qwen3-moe
+(depth cut to 4 and 2 layers), llama-3.2-vision (one pattern group of 5
+layers, image cross attention) and whisper-tiny (the encoder-decoder),
+each at full width with random weights, ``greedy_generate`` of 32
+tokens, its flash launches counted, checked against ``impl="chain"`` and
+against a full forward.  Phases print one line each; then come the
 card's name and power limit (as nvidia-smi prints them), a JSON object
 with each kernel's launches, error, times and bound, and as the last line
 
@@ -101,6 +107,7 @@ from repro_torch.serve.canonical import rename_query  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.data.tokens import DataConfig, batch_at  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.kvcache import pad_caches  # noqa: E402
 from repro_torch.optim.adamw import OptConfig  # noqa: E402
 from repro_torch.train import loop as train_loop  # noqa: E402
@@ -212,8 +219,8 @@ LM_TOL_FP32 = 1e-3
 LM_DECODE_TOL_FP32 = 0.1
 # the kernel against its plain version: the reference sweep's seven
 # cases (tests/test_kernels.py), qwen2.5-3b's prefill, a ragged length, a
-# chunked prefill and stablelm-12b's head dim.  b, t, s, h, hkv, dh,
-# causal, window, q_offset
+# chunked prefill, stablelm-12b's head dim and phase 17's shapes.  b, t,
+# s, h, hkv, dh, causal, window, q_offset
 FLASH_CASES = [
     (1, 8, 8, 4, 2, 16, True, None, 0),
     (2, 16, 16, 4, 4, 32, True, None, 0),
@@ -226,6 +233,14 @@ FLASH_CASES = [
     (1, 1000, 1000, 16, 2, 128, True, None, 0),
     (1, 1024, 2048, 16, 2, 128, True, None, 1024),
     (1, 512, 512, 32, 8, 160, True, None, 0),
+    # phase 17's shapes: recurrentgemma's local prefill (twice the
+    # window), the VLM's cross prefill and cross decode step, whisper's
+    # encoder and its cross decode step
+    (2, 4096, 4096, 10, 1, 256, True, 2048, 0),
+    (1, 2048, 1601, 64, 8, 128, False, None, 0),
+    (1, 1, 1601, 64, 8, 128, False, None, 0),
+    (4, 1500, 1500, 6, 6, 64, False, None, 0),
+    (4, 1, 1500, 6, 6, 64, False, None, 0),
 ]
 # the reference sweep's tolerance (absolute and relative): the kernel and
 # the plain version sum in other orders; a bf16 output may round to a
@@ -1766,14 +1781,59 @@ def flash_pairs(t: int, s: int, causal: bool, window, q_offset: int) -> int:
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
+# phase 17's flash shapes timed beside qwen2.5-3b's prefill (PERF.md
+# rows 5'): FLASH_CASES index, label
+FLASH_FAMILY_ROWS = [(11, "recurrentgemma local prefill"),
+                     (12, "VLM cross prefill"), (13, "VLM cross decode step"),
+                     (14, "whisper encoder")]
+
+
+def flash_row(case, q, k, v, err) -> dict:
+    """Times of the kernel on one case's bf16 inputs: CUDA events and
+    device busy, the plain version, SDPA (the library's attention, timed
+    only: the port never calls it; a window is a boolean mask there),
+    and the bound (the unmasked pairs' FLOPs at the tensor cores' peak,
+    or the inputs read and the output written once)."""
+    b, t, s, h, hkv, dh, causal, window, q_offset = case
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    pairs = flash_pairs(t, s, causal, window, q_offset)
+    flops = 4 * b * h * dh * pairs
+    moved = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+    by_ops, by_bytes = flops / TC_OPS_PER_S * 1e3, moved / HBM_BYTES_PER_S * 1e3
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    mask = None
+    if window is not None:
+        qpos = q_offset + torch.arange(t, device=q.device)[:, None]
+        kpos = torch.arange(s, device=q.device)[None, :]
+        mask = (kpos > qpos - window) & (kpos <= qpos if causal else True)
+    sdpa_kw = dict(enable_gqa=hkv != h)
+    if mask is not None:
+        sdpa_kw["attn_mask"] = mask
+    else:
+        sdpa_kw["is_causal"] = causal
+    return dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: flash_cuda.flash_attention(q, k, v, **kw)),
+        **busy(lambda: flash_cuda.flash_attention(q, k, v, **kw)),
+        plain_ms=time_ms(lambda: flash_plain.flash_attention(q, k, v, **kw)),
+        library_ms=time_ms(lambda: sdpa(qt, kt, vt, **sdpa_kw)),
+        bound_ms=max(by_ops, by_bytes),
+        bound_by="operations" if by_ops >= by_bytes else "bytes",
+        note=(f"B={b} T={t} S={s} H={h} Hkv={hkv} Dh={dh} "
+              f"{'causal' if causal else 'non-causal'}"
+              + (f" window {window}" if window else "")
+              + f" bf16, {flops / 1e9:.1f} GFLOP, {moved / 2 ** 20:.1f} MiB"))
+
+
 def flash_phase(dev) -> dict:
     """Phase 14, part 1: the flash kernel against its plain version on
     every FLASH_CASES case in bf16 and fp32, within FLASH_TOL; times at
-    qwen2.5-3b's prefill shape in bf16 (the model's dtype): the kernel by
-    CUDA events and device busy time, the plain version, and SDPA (the
-    library's attention, timed only: the port never calls it)."""
-    lines, worst = [], {}
+    qwen2.5-3b's prefill shape in bf16 (the model's dtype), and at phase
+    17's shapes (FLASH_FAMILY_ROWS), by ``flash_row``."""
+    worst, inputs = {}, {}
     main_case = FLASH_CASES[7]
+    timed = {main_case} | {FLASH_CASES[i] for i, _ in FLASH_FAMILY_ROWS}
     for case in FLASH_CASES:
         b, t, s, h, hkv, dh, causal, window, q_offset = case
         rng = np.random.default_rng(list(case[:6]) + [q_offset])
@@ -1788,35 +1848,29 @@ def flash_phase(dev) -> dict:
             check(close_excess(got, want, tol) <= 0, f"flash {case} {dtype}: "
                   f"max abs error {err} outside {tol} abs + {tol} rel")
             worst[dtype] = max(worst.get(dtype, 0.0), err)
-            if case == main_case and dtype == torch.bfloat16:
-                main = (q, k, v, kw, err)
-    q, k, v, kw, err = main
-    b, t, s, h, hkv, dh = main_case[:6]
-    pairs = flash_pairs(t, s, *main_case[6:])
-    flops = 4 * b * h * dh * pairs
-    moved = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
-    by_ops, by_bytes = flops / TC_OPS_PER_S * 1e3, moved / HBM_BYTES_PER_S * 1e3
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    row = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: flash_cuda.flash_attention(q, k, v, **kw)),
-        **busy(lambda: flash_cuda.flash_attention(q, k, v, **kw)),
-        plain_ms=time_ms(lambda: flash_plain.flash_attention(q, k, v, **kw)),
-        library_ms=time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
-                                        enable_gqa=True)),
-        bound_ms=max(by_ops, by_bytes),
-        bound_by="operations" if by_ops >= by_bytes else "bytes",
-        note=(f"B={b} T=S={t} H={h} Hkv={hkv} Dh={dh} causal bf16, "
-              f"{flops / 1e9:.1f} GFLOP, {moved / 2 ** 20:.1f} MiB"))
+            if case in timed and dtype == torch.bfloat16:
+                inputs[case] = (q, k, v, err)
+            del got, want
+    row = flash_row(main_case, *inputs[main_case])
+    family = {label: flash_row(FLASH_CASES[i], *inputs[FLASH_CASES[i]])
+              for i, label in FLASH_FAMILY_ROWS}
+    del inputs
+
+    def fmt(r):
+        return (f"{r['ms']:.4f} ms, device busy {r['busy_ms']:.4f} ms "
+                f"(plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} "
+                f"ms, bound {r['bound_ms']:.6f} ms by {r['bound_by']}), max "
+                f"abs error {r['max_abs_err']:.3g}")
     print(f"[14 lm] flash kernel vs plain on {len(FLASH_CASES)} cases x "
           f"{{bf16, fp32}}: max abs error "
           + ", ".join(f"{str(d)[6:]} {e:.3g} (tol {FLASH_TOL[d]})"
                       for d, e in worst.items())
-          + f"; at qwen2.5-3b's prefill ({row['note']}): {row['ms']:.4f} ms, "
-          f"device busy {row['busy_ms']:.4f} ms (plain {row['plain_ms']:.4f} "
-          f"ms, SDPA {row['library_ms']:.4f} ms, bound {row['bound_ms']:.6f} "
-          f"ms by {row['bound_by']}), max abs error {err:.3g}", flush=True)
+          + f"; at qwen2.5-3b's prefill ({row['note']}): {fmt(row)}",
+          flush=True)
+    print("[14 lm] flash at phase 17's shapes: " + "; ".join(
+        f"{label} ({r['note']}): {fmt(r)}" for label, r in family.items()),
+        flush=True)
+    row["family"] = family
     return row
 
 
@@ -1828,13 +1882,14 @@ def close_excess(got: torch.Tensor, want: torch.Tensor, tol: float,
     return float(((got - want).abs() - tol - rel * want.abs()).max())
 
 
-def decode_replay(model, prompt: torch.Tensor, toks: torch.Tensor):
-    """The greedy tokens replayed (teacher forcing): prefill the prompt,
-    decode toks[:, :-1]; (every step's logits (B, steps, V), prefill s,
-    decode s)."""
+def decode_replay(model, batch: dict, toks: torch.Tensor):
+    """The greedy tokens replayed (teacher forcing): prefill the batch's
+    prompt (with its image or audio embeds), decode toks[:, :-1];
+    (every step's logits (B, steps, V), prefill s, decode s)."""
+    prompt = batch["tokens"]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    lg, caches = model.prefill({"tokens": prompt})
+    lg, caches = model.prefill(batch)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     caches = pad_caches(model.cfg, caches, toks.shape[1])
@@ -1849,10 +1904,12 @@ def decode_replay(model, prompt: torch.Tensor, toks: torch.Tensor):
     return torch.stack(steps, dim=1), prefill_s, time.perf_counter() - t0
 
 
-def forward_at_steps(model, prompt: torch.Tensor, toks: torch.Tensor):
-    """The full forward over prompt + toks[:, :-1]: the logits at every
-    position that ``decode_replay`` predicts from (B, steps, V)."""
-    full = model({"tokens": torch.cat([prompt, toks[:, :-1]], dim=1)})
+def forward_at_steps(model, batch: dict, toks: torch.Tensor):
+    """The full forward over the prompt + toks[:, :-1]: the logits at
+    every position that ``decode_replay`` predicts from (B, steps, V)."""
+    prompt = batch["tokens"]
+    full = model(dict(batch, tokens=torch.cat([prompt, toks[:, :-1]],
+                                              dim=1)))
     return full[:, prompt.shape[1] - 1:].clone()
 
 
@@ -1895,13 +1952,14 @@ def lm_phase(dev) -> dict:
           f"the LM launched join kernels: {launches}")
 
     toks = out.to(dev)
-    steps, prefill_s, decode_s = decode_replay(model, prompt, toks)
+    steps, prefill_s, decode_s = decode_replay(model, {"tokens": prompt},
+                                               toks)
     check(bool(torch.isfinite(steps).all()), "non-finite logits")
     check(torch.equal(steps.argmax(-1).cpu().to(torch.int32), out),
           "the replayed logits' argmax differs from the greedy tokens")
     top2 = steps.topk(2, dim=-1).values
     margin = (top2[..., 0] - top2[..., 1]).cpu()
-    want = forward_at_steps(model, prompt, toks)
+    want = forward_at_steps(model, {"tokens": prompt}, toks)
     dec_err = float((steps - want).abs().max())
     check(close_excess(steps, want, LM_TOL) <= 0,
           f"prefill + decode vs forward: max abs error {dec_err} outside "
@@ -1912,8 +1970,8 @@ def lm_phase(dev) -> dict:
     # bf16 cache's rounding, and the kernel's prefill against the plain
     # attention's to fp32 rounding
     model.cfg = dataclasses.replace(cfg, dtype_compute="float32")
-    steps32, _, _ = decode_replay(model, prompt, toks)
-    want = forward_at_steps(model, prompt, toks)
+    steps32, _, _ = decode_replay(model, {"tokens": prompt}, toks)
+    want = forward_at_steps(model, {"tokens": prompt}, toks)
     dec_err32 = float((steps32 - want).abs().max())
     check(dec_err32 <= LM_DECODE_TOL_FP32,
           f"fp32 compute: prefill + decode vs forward max abs error "
@@ -2349,6 +2407,398 @@ def train_phase(dev) -> dict:
                                   else 0) for k, v in launches.items()})
 
 
+# phase 17: the other five block families at full width, bf16 compute
+# (the configs' own), weights from a seeded torch.Generator with every
+# zero- or one-initialised leaf redrawn (FAMILY_REDRAW; left at init they
+# hide whole paths: the cross gate's tanh(0) = 0, RWKV's zero token shift
+# and bonus).  name, layers run (None: all), batch, prompt, flash launches
+# of a prefill and of a decode step.  Depth is cut where the fp32 weights
+# would not fit beside the work: phi3.5-moe's 32 layers are 42B
+# parameters (168 GB), one of qwen3-moe's 94 layers holds 2.4B in its
+# experts (9.7 GB), llama-3.2-vision's 100 layers are 88B; its 5 are one
+# pattern group, four "attn" and one "cross".  recurrentgemma's prompt is
+# twice its 2048-token window, so the ring wraps in prefill and again in
+# decode; whisper's decoder has 448 positions, its prompt 384 + 32.
+FAMILY_CELLS = [
+    ("recurrentgemma-2b", None, 2, 4096, 8, 0),
+    ("rwkv6-7b", None, 2, 2048, 0, 0),
+    ("phi3.5-moe-42b-a6.6b", 4, 2, 2048, 4, 0),
+    ("qwen3-moe-235b-a22b", 2, 2, 2048, 2, 0),
+    ("llama-3.2-vision-90b", 5, 1, 2048, 5, 1),
+    ("whisper-tiny", None, 4, 384, 12, 4),
+]
+FAMILY_STEPS = 32
+# the MoE configs' decode vs forward: a prompt of this many tokens at
+# capacity_factor = n_experts / top_k, where no choice drops (a decode
+# step never drops; a prefill over capacity does)
+MOE_CHECK_PROMPT = 256
+# each zero- or one-initialised leaf, by name: (mean, std) of a normal
+# draw, or "unit" for uniform [0, 1) (tests/test_torch_families.py)
+FAMILY_REDRAW = {
+    "bq": (0, 0.5), "bk": (0, 0.5), "bv": (0, 0.5), "scale": (1, 0.1),
+    "gn_scale": (1, 0.1), "bias": (0, 0.1), "bi": (0, 0.1), "bo": (0, 0.1),
+    "conv_b": (0, 0.1), "gate": (0, 0.5), "u": (0, 0.5), "mu_r": "unit",
+    "mu_k": "unit", "mu_v": "unit", "mu_g": "unit", "mu_w": "unit",
+    "c_mu_k": "unit", "c_mu_r": "unit"}
+# bf16 bounds (absolute + relative) of fused vs chain prefill logits (the
+# MoE's with the fused routing pinned) and of decode vs the full
+# forward, per config, each about twice the larger of the two readings
+# an H100 80GB HBM3 at 700 W gave (fused vs chain, decode vs forward):
+# recurrentgemma 0.1157, 0.1616; rwkv6 0 (no attention), 0.2148;
+# phi3.5-moe 0.1207 (0.6146 on its own routing, 696 of 4,096 tokens
+# routed otherwise), 0.1582; qwen3-moe 0.0565 (0.2248, 856 tokens),
+# 0.1140; llama-3.2-vision 0.1563, 0.1679; whisper 0.0129, 0.0151.  In
+# fp32 compute fused vs chain is held to LM_TOL_FP32 (readings 1.3e-6 to
+# 8.7e-5) and decode vs forward, which differ by the bf16 caches, to
+# FAMILY_DECODE_TOL_FP32 (absolute), again about twice the readings:
+# 0.001022, 7.27e-5, 0.0946, 0.0870, 0.1301, 3.43e-4.
+FAMILY_TOL = {"recurrentgemma-2b": 0.3, "rwkv6-7b": 0.4,
+              "phi3.5-moe-42b-a6.6b": 0.3, "qwen3-moe-235b-a22b": 0.25,
+              "llama-3.2-vision-90b": 0.35, "whisper-tiny": 0.03}
+FAMILY_DECODE_TOL_FP32 = {"recurrentgemma-2b": 0.002, "rwkv6-7b": 2e-4,
+                          "phi3.5-moe-42b-a6.6b": 0.2,
+                          "qwen3-moe-235b-a22b": 0.2,
+                          "llama-3.2-vision-90b": 0.25, "whisper-tiny": 1e-3}
+# a router near-tie: the K-th and (K+1)-th probabilities closer than this
+# fraction of the K-th (two bf16 roundings)
+NEAR_TIE = 2 ** -7
+
+
+def redraw_(model, gen) -> int:
+    """Redraw every zero- or one-initialised parameter of ``model`` from
+    ``gen`` (FAMILY_REDRAW); returns how many."""
+    n = 0
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.spec.init not in ("zeros", "ones"):
+                continue
+            how = FAMILY_REDRAW[name.rsplit(".", 1)[1]]
+            if how == "unit":
+                p.uniform_(0.0, 1.0, generator=gen)
+            else:
+                p.normal_(how[0], how[1], generator=gen)
+            n += 1
+    return n
+
+
+class RouteCapture:
+    """Records every MoE layer's routing while it is on: for each call of
+    ``moe.moe_ffn``, the router's output (``moe.route``: probabilities,
+    gates, expert ids, ranks, capacity) in ``routes``, and in ``calls``
+    each token's chosen experts with their kept flags, sorted (B, T, K),
+    and the margin between its K-th and (K+1)-th router probabilities
+    relative to the K-th (B, T).  With ``pin`` (another capture's
+    ``routes``), call i routes as that capture's call i did: the same
+    experts, ranks and gates, whatever its own router says."""
+
+    def __init__(self, pin=None):
+        self.pin = pin
+
+    def __enter__(self):
+        self.calls, self.routes = [], []
+        self.real_ffn, self.real_route = moe_mod.moe_ffn, moe_mod.route
+
+        def spy(cfg, p, x):
+            r = self.real_route(cfg, p, x) if self.pin is None \
+                else self.pin[len(self.routes)]
+            self.routes.append(r)
+            probs, _, ids, rank, cap = r
+            b, t, k = x.shape[0], x.shape[1], cfg.top_k
+            # a dropped choice reads as expert -1
+            kept = torch.where(rank < cap, ids, -1).reshape(b, t, k)
+            top = probs.topk(k + 1, dim=-1).values
+            margin = (top[..., k - 1] - top[..., k]) / top[..., k - 1]
+            self.calls.append((kept.sort(-1).values, margin))
+            moe_mod.route = lambda *args: r
+            try:
+                return self.real_ffn(cfg, p, x)
+            finally:
+                moe_mod.route = self.real_route
+
+        moe_mod.moe_ffn = spy
+        return self
+
+    def __exit__(self, *exc):
+        moe_mod.moe_ffn, moe_mod.route = self.real_ffn, self.real_route
+
+
+def route_flips(a: list, b: list, n_layers: int) -> tuple:
+    """Compare two captures of the same positions (each layer's calls,
+    in call order, concatenated over time: a prefill, or a prefill and
+    its decode steps, or a full forward): (flipped (B, N), True where a
+    token's kept experts differ in any layer; near-ties, the (layer,
+    token) pairs whose margin is below NEAR_TIE in either capture)."""
+    def per_layer(calls):
+        return [(torch.cat([r for r, _ in calls[i::n_layers]], 1),
+                 torch.cat([m for _, m in calls[i::n_layers]], 1))
+                for i in range(n_layers)]
+    flipped, near = None, 0
+    for (ra, ma), (rb, mb) in zip(per_layer(a), per_layer(b)):
+        diff = (ra != rb).any(-1)
+        flipped = diff if flipped is None else flipped | diff
+        near += int((torch.minimum(ma, mb) < NEAR_TIE).sum())
+    return flipped, near
+
+
+def masked_excess(got, want, keep, tol: float) -> tuple:
+    """(close_excess over the rows of got/want (B, N, V) or (B, V) where
+    ``keep`` (B, N) or (B,) is True, their max abs error, rows kept)."""
+    got, want = got[keep], want[keep]
+    if got.numel() == 0:
+        return -1.0, 0.0, 0
+    return (close_excess(got, want, tol), float((got - want).abs().max()),
+            int(keep.sum()))
+
+
+class FlashTally:
+    """Counts the flash kernel's calls by shape (q, k, causal, window,
+    dtype) while on, passing each call to the wrapper, which counts its
+    launch as always."""
+
+    def __enter__(self):
+        self.real, self.shapes = flash_cuda.flash_attention, {}
+
+        def spy(q, k, v, **kw):
+            key = (tuple(q.shape), tuple(k.shape), kw.get("causal", True),
+                   kw.get("window"), str(q.dtype)[6:])
+            self.shapes[key] = self.shapes.get(key, 0) + 1
+            return self.real(q, k, v, **kw)
+
+        flash_cuda.flash_attention = spy
+        return self
+
+    def __exit__(self, *exc):
+        flash_cuda.flash_attention = self.real
+
+
+def family_run(dev, name: str, depth, batch_n: int, prompt_len: int,
+               n_pre: int, n_dec: int) -> dict:
+    """One config of phase 17 (see ``family_phase``)."""
+    full = get_arch(name)
+    cfg = full if depth is None else dataclasses.replace(full,
+                                                         n_layers=depth)
+    kinds = cfg.layer_kinds()
+    attn = sum(k in ("attn", "local", "moe", "cross", "dec") for k in kinds)
+    per_prefill = attn + kinds.count("dec") + (
+        cfg.n_encoder_layers if cfg.encoder_decoder else 0)
+    per_step = kinds.count("cross") + kinds.count("dec")
+    check((per_prefill, per_step) == (n_pre, n_dec),
+          f"{name}: {per_prefill} / {per_step} attention layers a prefill / "
+          f"decode step, the table says {n_pre} / {n_dec}")
+    n_moe = kinds.count("moe")
+    gen = torch.Generator(device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev)
+    model.reset_parameters(gen.manual_seed(SEED))
+    n_redrawn = redraw_(model, gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    check(model.param_count() == cfg.param_count(),
+          f"{name}: {model.param_count()} parameters, its specs "
+          f"{cfg.param_count()}")
+    data = batch_at(DataConfig(vocab=cfg.vocab, seq_len=prompt_len,
+                               global_batch=batch_n, seed=SEED), 0)
+    batch = {"tokens": torch.from_numpy(data["tokens"]).to(dev)}
+    if cfg.family == "vlm":
+        batch["image_embeds"] = torch.randn(
+            (batch_n, cfg.n_image_tokens, cfg.d_model), generator=gen,
+            device=dev)
+    if cfg.encoder_decoder:
+        batch["audio_embeds"] = torch.randn(
+            (batch_n, cfg.encoder_seq, cfg.d_model), generator=gen,
+            device=dev)
+
+    # greedy_generate: the flash launches of one prefill and 31 steps
+    reset_launches()
+    out, gen_s = host_synced(
+        lambda: greedy_generate(model, batch, FAMILY_STEPS))
+    launches = read_launches()
+    want_launches = n_pre + (FAMILY_STEPS - 1) * n_dec
+    check(out.shape == (batch_n, FAMILY_STEPS) and bool(
+        ((out >= 0) & (out < cfg.vocab)).all()), f"{name}: tokens {out.shape}")
+    check(launches["flash_attention"] == want_launches,
+          f"{name}: greedy_generate launched the flash kernel "
+          f"{launches['flash_attention']} times, not {want_launches}")
+    check(all(n == 0 for k, n in launches.items() if k not in LM_ONLY),
+          f"{name}: the LM launched join kernels: {launches}")
+    toks = out.to(dev)
+
+    # the replay: timed prefill and decode steps, every step's logits
+    with RouteCapture() as fused_routes:
+        steps, prefill_s, decode_s = decode_replay(model, batch, toks)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(bool(torch.isfinite(steps).all()), f"{name}: non-finite logits")
+    check(torch.equal(steps.argmax(-1).cpu().to(torch.int32), out),
+          f"{name}: the replayed logits' argmax differs from the greedy "
+          "tokens")
+    res = dict(name=name, layers=cfg.n_layers, params=model.param_count(),
+               redrawn=n_redrawn, init_s=init_s, gen_s=gen_s,
+               prefill_s=prefill_s,
+               decode_ms=1e3 * decode_s / (FAMILY_STEPS - 1),
+               peak_gib=peak_gib, flash=launches["flash_attention"])
+    tol = FAMILY_TOL[name]
+
+    def fused_vs_chain(lg_fused, fused, what, bound):
+        """The chain prefill's last-position logits against the fused
+        ones (``fused``: the fused prefill's RouteCapture).  With MoE
+        layers the chain prefill runs twice: on its own routing, where
+        rows whose last token was routed otherwise are left out and
+        counted (in bf16 a near-tie that rounds the other way reroutes a
+        token, and its changed state reroutes others in later layers),
+        and with the fused prefill's routing pinned, which is held to
+        ``bound`` on every row."""
+        before = flash_cuda.launches
+        model.impl = "chain"
+        with RouteCapture() as rc:
+            lg_chain, _ = model.prefill(batch)
+        out = dict(flips=0, near=0)
+        if n_moe:
+            flipped, out["near"] = route_flips(fused.calls[:n_moe],
+                                               rc.calls, n_moe)
+            out["flips"] = int(flipped.sum())
+            _, out["own_err"], out["own_rows"] = masked_excess(
+                lg_fused, lg_chain, ~flipped[:, -1], bound)
+            with RouteCapture(pin=fused.routes[:n_moe]):
+                lg_chain, _ = model.prefill(batch)
+        model.impl = "fused"
+        check(flash_cuda.launches == before,
+              f"{name}: impl='chain' launched the flash kernel")
+        out["err"] = float((lg_fused - lg_chain).abs().max())
+        check(close_excess(lg_fused, lg_chain, bound) <= 0,
+              f"{name} {what}: fused vs chain prefill logits max abs error "
+              f"{out['err']} outside {bound} abs + {bound} rel")
+        return out
+
+    def decode_vs_forward(steps, fused_calls, check_batch, what, bound,
+                          rel):
+        """Every replayed step's logits against the full forward's,
+        positions whose own token was routed otherwise left out."""
+        with RouteCapture() as rc:
+            want = forward_at_steps(model, check_batch, toks)
+        keep = torch.ones(steps.shape[:2], dtype=torch.bool, device=dev)
+        flips = near = 0
+        if n_moe:
+            flipped, near = route_flips(fused_calls, rc.calls, n_moe)
+            p = check_batch["tokens"].shape[1]
+            keep = ~flipped[:, p - 1:]
+            flips = int(flipped.sum())
+        excess, err, rows = masked_excess(steps, want, keep, bound)
+        if rel:
+            ok = excess <= 0
+        else:
+            ok = err <= bound
+        check(ok, f"{name} {what}: decode vs forward max abs error {err} "
+              f"outside {bound} abs" + (f" + {bound} rel" if rel else ""))
+        check(rows > 0, f"{name} {what}: no position compared")
+        return dict(err=err, rows=rows, of=int(keep.numel()), flips=flips,
+                    near=near)
+
+    res["bf16_chain"] = fused_vs_chain(steps[:, 0], fused_routes, "bf16",
+                                       tol)
+    if n_moe:
+        # decode vs forward where nothing drops: a shorter prompt at
+        # capacity_factor = n_experts / top_k
+        check_batch = {"tokens": batch["tokens"][:, :MOE_CHECK_PROMPT]}
+        model.cfg = dataclasses.replace(
+            cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+        with RouteCapture() as rc:
+            steps, _, _ = decode_replay(model, check_batch, toks)
+        check_calls = rc.calls
+    else:
+        check_batch, check_calls = batch, []
+    res["bf16_decode"] = decode_vs_forward(steps, check_calls, check_batch,
+                                           "bf16", tol, True)
+    base_cfg = model.cfg
+    del steps
+
+    # the same weights in fp32 compute
+    model.cfg = dataclasses.replace(cfg, dtype_compute="float32")
+    with RouteCapture() as rc:
+        lg32, _ = model.prefill(batch)
+    res["fp32_chain"] = fused_vs_chain(lg32, rc, "fp32", LM_TOL_FP32)
+    model.cfg = dataclasses.replace(base_cfg, dtype_compute="float32")
+    with RouteCapture() as rc:
+        steps32, _, _ = decode_replay(model, check_batch, toks)
+    res["fp32_decode"] = decode_vs_forward(
+        steps32, rc.calls, check_batch, "fp32", FAMILY_DECODE_TOL_FP32[name],
+        False)
+    model.cfg = cfg
+    del model, steps32
+    gc.collect()
+    torch.cuda.empty_cache()
+    # every launch of the run: the counts were reset before its greedy
+    # generation, and nothing launched before that
+    res["launches"] = read_launches()
+    return res
+
+
+def family_phase(dev) -> dict:
+    """Phase 17: the reference's other five block families served at full
+    width on the card, one config at a time (FAMILY_CELLS), its memory
+    freed before the next: weights from a seeded torch.Generator with the
+    zero/one leaves redrawn, bf16 compute; ``greedy_generate`` for
+    FAMILY_STEPS tokens (the flash launches of one prefill and of
+    FAMILY_STEPS - 1 decode steps, the table's counts); a replay of the
+    tokens (timed prefill and decode steps; finite logits whose argmax
+    is the greedy token); the fused prefill's logits against
+    ``impl="chain"``'s (FAMILY_TOL in bf16, LM_TOL_FP32 in fp32
+    compute; an MoE's chain prefill with the fused prefill's routing
+    pinned, and once more on its own routing, reported); every decode
+    step against the full forward over prompt and tokens (FAMILY_TOL in
+    bf16, FAMILY_DECODE_TOL_FP32 absolute in fp32; the MoE configs on
+    MOE_CHECK_PROMPT tokens at capacity_factor = n_experts / top_k,
+    where a position whose own token's kept experts differ between the
+    two runs, a router near-tie rounded the other way, is left out and
+    counted).  Prints a line per config and the flash calls by shape."""
+    total = dict.fromkeys(WRAPPERS, 0)
+    runs = []
+    with FlashTally() as tally:
+        for cell in FAMILY_CELLS:
+            r = family_run(dev, *cell)
+            for k in total:
+                total[k] += r["launches"][k]
+            runs.append(r)
+
+            def cmp(d, what):
+                s = f"{what} {d['err']:.4g}"
+                if "own_err" in d:
+                    s += (f" with the fused routing pinned (on its own "
+                          f"routing {d['own_err']:.4g} over {d['own_rows']} "
+                          f"rows whose last token kept its experts; "
+                          f"{d['flips']} tokens routed otherwise, "
+                          f"{d['near']} router near-ties)")
+                elif "of" in d and (d["flips"] or d["near"]):
+                    s += (f" ({d['rows']} of {d['of']} positions compared, "
+                          f"{d['flips']} tokens routed otherwise left out, "
+                          f"{d['near']} router near-ties)")
+                return s
+            print(f"[17 families] {r['name']} ({r['layers']} layers, "
+                  f"{r['params']} fp32 params, {r['redrawn']} zero/one "
+                  f"leaves redrawn): init {r['init_s']:.3f} s; "
+                  f"greedy_generate of {FAMILY_STEPS} tokens {r['gen_s']:.3f} "
+                  f"s, {r['flash']} flash launches; prefill "
+                  f"{r['prefill_s']:.3f} s; decode {r['decode_ms']:.3f} "
+                  f"ms/step; peak {r['peak_gib']:.2f} GiB; max abs error: "
+                  + "; ".join([
+                      cmp(r["bf16_chain"], "fused vs chain bf16"),
+                      cmp(r["fp32_chain"], "fp32"),
+                      cmp(r["bf16_decode"], "decode vs forward bf16"),
+                      cmp(r["fp32_decode"], "fp32")])
+                  + f" (bounds {FAMILY_TOL[r['name']]} abs + rel bf16; "
+                  f"{LM_TOL_FP32} abs + rel, "
+                  f"{FAMILY_DECODE_TOL_FP32[r['name']]} abs fp32)",
+                  flush=True)
+    check(sum(tally.shapes.values()) == total["flash_attention"],
+          f"phase 17 counted {total['flash_attention']} flash launches, "
+          f"its calls {sum(tally.shapes.values())}")
+    shapes = sorted(tally.shapes.items(), key=lambda kv: -kv[1])
+    print(f"[17 families] {total['flash_attention']} flash calls, by (q "
+          "shape, k shape, causal, window, dtype): "
+          + "; ".join(f"{k}: {n}" for k, n in shapes), flush=True)
+    return dict(launches=total, runs=runs)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("CUDA is not available: chip_smoke needs an NVIDIA GPU",
@@ -2599,9 +3049,11 @@ def main() -> int:
     lm = lm_phase(dev)
     print(f"[14 lm] total {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # 7. where the time goes (one more, traced pass of each path; the
-    #    chain count at ca-GrQc scale, a warm query on phase 13's server,
-    #    an LM prefill and 8 decode steps)
+    # 7. where the time goes (one more, traced pass of a path: the count
+    #    and the chain count at ca-GrQc scale, an evaluation, a static
+    #    evaluation, an LM prefill and 8 decode steps; the wiki-Vote
+    #    count, the warm payload pass and the warm served query are not
+    #    traced, for the script's time)
     def lm_serve():
         lm_model = lm["model"]
         lg, caches = lm_model.prefill({"tokens": lm["prompt"]})
@@ -2612,13 +3064,11 @@ def main() -> int:
             tok = lg.argmax(-1)[:, None]
 
     for label, run in (
-            ("count", lambda: engine.count(q, db, capacity=C)),
+            ("count-grqc", lambda: engine.count(q, db2, capacity=C)),
             ("evaluate", lambda: engine.evaluate(q, db2, capacity=C)),
-            ("payload-warm", lambda: list(pay.evaluate())),
             ("static-evaluate", lambda: se.evaluate_static()),
             ("chain-count-grqc",
              lambda: engine.count(q, db2, capacity=C, **CHAIN)),
-            ("serve-warm", lambda: srv.evaluate(served["query"])),
             ("lm-prefill-decode8", lm_serve)):
         print(f"[7 profile {label}] " + profile_line(run), flush=True)
     srv.close()
@@ -2636,6 +3086,12 @@ def main() -> int:
     print(f"[16 train] total {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
+    # 17. the other five block families at full width, one config at a
+    #     time
+    fam = family_phase(dev)
+    print(f"[17 families] total {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
     kernels = []
     for name, r in rows.items():
         src, replaces = SOURCES[name]
@@ -2643,7 +3099,7 @@ def main() -> int:
              + pay_launches[name] + static_launches[name]
              + lf["launches"][name] + served["launches"][name]
              + knobs["launches"][name] + lm["launches"][name]
-             + trained["launches"][name])
+             + trained["launches"][name] + fam["launches"][name])
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": n,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],

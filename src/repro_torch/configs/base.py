@@ -4,9 +4,10 @@ A copy of the reference's ``repro/configs/base.py`` (it imports no JAX):
 every architecture is an ``ArchConfig`` instance, one module per arch.
 The fields are the reference's, all of them, so a reference config
 carries across field for field (``convert.arch_config_from_reference``);
-the port's model code reads the dense ones (``block_pattern=("attn",)``),
-and :meth:`check_ported` refuses a config that sets one it does not
-honour.  :meth:`param_count` counts through the port's ``models/specs.py``.
+the port's model honours every one but ``cost_exact``, and
+:meth:`check_ported` refuses a config that sets it.
+:meth:`param_count` and :meth:`active_param_count` count through the
+port's ``models/specs.py``.
 """
 from __future__ import annotations
 
@@ -15,21 +16,10 @@ from typing import Optional, Tuple
 
 # fields the port's model does not honour yet, with the ROADMAP item that
 # ports them (Queue 1): a config that sets one away from its default is
-# refused.  The widths that only those blocks read (capacity_factor,
-# router_aux_coef, conv_width, rwkv_head_dim) and max_seq, which no model
-# code reads, carry across as data.
+# refused.  max_seq, which no model code reads, carries across as data.
 WAITING = {
-    "n_experts": "item 4c (MoE)", "top_k": "item 4c (MoE)",
-    "window": "item 4c (local attention)", "d_rnn": "item 4c (RG-LRU)",
-    "n_image_tokens": "item 4c (VLM cross attention)",
-    "encoder_decoder": "item 4c (audio encoder-decoder)",
-    "n_encoder_layers": "item 4c (audio encoder-decoder)",
-    "encoder_seq": "item 4c (audio encoder-decoder)",
     "cost_exact": "item 4d (the reference's cost probe is not ported)",
 }
-# fields whose only ported value is this one
-DENSE = {"family": "dense", "block_pattern": ("attn",), "norm": "rmsnorm",
-         "act": "silu"}
 
 
 @dataclass(frozen=True)
@@ -105,25 +95,32 @@ class ArchConfig:
 
     def check_ported(self) -> None:
         """Raise ``NotImplementedError`` naming the first field this config
-        sets that the port's model does not honour (``WAITING``,
-        ``DENSE``)."""
+        sets that the port's model does not honour (``WAITING``)."""
         for f in fields(self):
             value = getattr(self, f.name)
             if f.name in WAITING and value != f.default:
                 raise NotImplementedError(
                     f"{self.name}: {f.name}={value!r} is not ported yet "
                     f"(ROADMAP Queue 1, {WAITING[f.name]})")
-            if f.name in DENSE and value != DENSE[f.name]:
-                raise NotImplementedError(
-                    f"{self.name}: {f.name}={value!r}; the port runs "
-                    f"{DENSE[f.name]!r} only (ROADMAP Queue 1, item 4c)")
 
     # ------------------------------------------------------------------
     def param_count(self) -> int:
         """Exact parameter count of this config, from its specs (no
-        allocation)."""
+        allocation).  MoE counts all experts; :meth:`active_param_count`
+        counts the routed-active ones."""
         from ..models.specs import model_specs, count_params
         return count_params(model_specs(self))
+
+    def active_param_count(self) -> int:
+        """Parameters a token runs through: every expert of each ``"moe"``
+        layer replaced by ``top_k`` of them (the reference's count)."""
+        total = self.param_count()
+        if self.n_experts and self.top_k:
+            from ..models.specs import expert_params
+            all_e, per_e = expert_params(self)
+            total = total - all_e + self.top_k * per_e * len(
+                [k for k in self.layer_kinds() if k == "moe"])
+        return total
 
     def smoke(self) -> "ArchConfig":
         """Reduced same-family config for CPU smoke tests."""

@@ -158,10 +158,14 @@ def lm_params_from_reference(cfg, params: Dict) -> Dict[str, torch.Tensor]:
     """The port's ``Model`` state dict from the reference's parameter tree
     (nested dicts of numpy arrays, as ``Model.init`` gives them).  Each
     weight keeps its layout (``wq`` (D, H, Dh), ...), so both packages
-    compute the same einsums; the dense block's stack under
-    ``groups["b0_attn"]`` (leading axis = layer) is unstacked into
-    ``blocks.<layer>``.  Tensors are fp32 on the CPU
-    (``load_state_dict`` copies them to the model's device)."""
+    compute the same einsums.  The reference stacks the layers of its
+    repeated pattern per pattern entry: layer ``g·len(pattern) + j`` is
+    entry ``g`` of ``groups["b<j>_<kind>"]``, and the remainder layers
+    after them are ``rem["r<j>_<kind>"]``; all of them become
+    ``blocks.<layer>``.  ``img_proj`` keeps its name, and the encoder's
+    stack ``encoder.groups.b0_enc`` becomes ``encoder.blocks.<i>`` beside
+    ``encoder.final_norm`` and ``encoder.in_proj``.  Tensors are fp32 on
+    the CPU (``load_state_dict`` copies them to the model's device)."""
     def t(a) -> torch.Tensor:
         return torch.from_numpy(np.array(a, dtype=np.float32))
 
@@ -173,16 +177,25 @@ def lm_params_from_reference(cfg, params: Dict) -> Dict[str, torch.Tensor]:
                 yield f"{prefix}{name}", t(leaf if index is None
                                            else np.asarray(leaf)[index])
 
-    sd = dict(flat("embed.", params["embed"]))
-    sd.update(flat("final_norm.", params["final_norm"]))
-    if "unembed" in params:
-        sd.update(flat("unembed.", params["unembed"]))
-    if cfg.pattern != ("attn",):
-        raise NotImplementedError(
-            f"pattern {cfg.pattern}: only the dense block is ported "
-            "(ROADMAP Queue 1, item 4c)")
-    for i in range(cfg.n_layers):
-        sd.update(flat(f"blocks.{i}.", params["groups"]["b0_attn"], i))
+    sd = {}
+    for top in ("embed", "final_norm", "unembed", "img_proj"):
+        if top in params:
+            sd.update(flat(f"{top}.", params[top]))
+    pat = cfg.pattern
+    for g in range(cfg.n_groups):
+        for j, kind in enumerate(pat):
+            sd.update(flat(f"blocks.{g * len(pat) + j}.",
+                           params["groups"][f"b{j}_{kind}"], g))
+    for j, kind in enumerate(pat[: cfg.n_rem_layers]):
+        sd.update(flat(f"blocks.{cfg.n_groups * len(pat) + j}.",
+                       params["rem"][f"r{j}_{kind}"]))
+    if "encoder" in params:
+        enc = params["encoder"]
+        for i in range(cfg.n_encoder_layers):
+            sd.update(flat(f"encoder.blocks.{i}.", enc["groups"]["b0_enc"],
+                           i))
+        sd.update(flat("encoder.final_norm.", enc["final_norm"]))
+        sd.update(flat("encoder.in_proj.", enc["in_proj"]))
     return sd
 
 

@@ -1,2 +1,2 @@
-"""LM substrate: the dense architectures' model, caches and layers."""
+"""LM substrate: the model, caches, layers and blocks of every family."""
 from .model import Model

@@ -4,13 +4,19 @@ full forward.
 The counterpart of the reference's ``repro/models/model.py`` as an
 ``nn.Module`` that owns its parameters (the reference keeps them in a
 separate tree).  Parameters are fp32, laid out as the reference's
-(``wq`` (D, H, Dh), ...), with the layers unstacked into ``blocks``; the
-state dict's names are ``embed.tok``, ``final_norm.scale``,
-``unembed.w`` (untied only) and ``blocks.<i>.<ln1|attn|ln2|mlp>.<name>``
-(``convert.lm_params_from_reference`` builds one from the reference's
-tree).  ``loss`` is the reference's chunked cross-entropy, differentiable
-(``train/train_step.py`` takes its gradients); the serving methods run
-without autograd.
+(``wq`` (D, H, Dh), ...), with the layers unstacked into ``blocks`` in
+layer order; the state dict's names are ``embed.tok``,
+``final_norm.<scale|bias>``, ``unembed.w`` (untied only),
+``blocks.<i>.<part>.<name>`` (``ln1``, ``attn``, ``mlp``, ``moe``,
+``xattn``, ``gate``, ``rec``, ``mix``, ...), ``img_proj.w`` (VLM) and
+``encoder.{blocks.<i>.<part>.<name>, final_norm.<name>, in_proj.w}``
+(encoder-decoder); ``convert.lm_params_from_reference`` builds one
+from the reference's tree.  A batch holds ``tokens`` and, for the VLM,
+``image_embeds`` (B, n_image_tokens, D) or, for the audio model,
+``audio_embeds`` (B, encoder_seq, D).  ``loss`` is the reference's
+chunked cross-entropy plus the MoE router's auxiliary loss,
+differentiable (``train/train_step.py`` takes its gradients); the
+serving methods run without autograd.
 """
 from __future__ import annotations
 
@@ -29,7 +35,7 @@ from .kvcache import Caches, init_cache
 
 
 class Model(nn.Module):
-    """A dense decoder LM on ``device`` (``"cuda"`` by default: without
+    """A decoder LM of any of the reference's families on ``device`` (``"cuda"`` by default: without
     CUDA the constructor raises unless ``device="cpu"`` is given).
     ``impl`` picks the attention path of prefill, the full forward and
     the loss (``ops.IMPLS``; the reference's default is ``"xla"``, the
@@ -56,6 +62,16 @@ class Model(nn.Module):
         self.blocks = nn.ModuleList(
             S.param_tree(S.block_specs(cfg, kind), self.device)
             for kind in cfg.layer_kinds())
+        if "img_proj" in top:
+            self.img_proj = S.param_tree(top["img_proj"], self.device)
+        if "encoder" in top:
+            enc = top["encoder"]
+            self.encoder = nn.ModuleDict({
+                "blocks": nn.ModuleList(
+                    S.param_tree(S.block_specs(cfg, "enc"), self.device)
+                    for _ in range(cfg.n_encoder_layers)),
+                "final_norm": S.param_tree(enc["final_norm"], self.device),
+                "in_proj": S.param_tree(enc["in_proj"], self.device)})
         self.reset_parameters(
             torch.Generator(device=self.device).manual_seed(0))
 
@@ -63,14 +79,23 @@ class Model(nn.Module):
         return sum(p.numel() for p in self.parameters())
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """Fill every parameter from its spec (normal(0, 0.02), ones,
-        zeros) with ``generator``, which must live on the model's device,
+        """Fill every parameter from its spec (normal(0, scale), ones,
+        zeros, or uniform on [-8, -4) for RG-LRU and RWKV decays) with
+        ``generator``, which must live on the model's device,
         in the state dict's order."""
         for p in self.parameters():
             S.init_(p, generator)
 
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, dtype=torch.long, device=self.device)
+
+    def _inputs(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        """The batch's tokens and modality embeds on the model's device."""
+        out = {"tokens": self._tokens(batch["tokens"])}
+        for key in ("image_embeds", "audio_embeds"):
+            if key in batch:
+                out[key] = torch.as_tensor(batch[key], device=self.device)
+        return out
 
     # -- training -----------------------------------------------------------
     loss_chunk: int = 512
@@ -86,9 +111,8 @@ class Model(nn.Module):
         ``batch["mask"]`` (B, T) weights the targets, ones by default;
         the mean divides by max(mask sum, 1)."""
         targets = self._tokens(batch["targets"])
-        hidden, aux = T.forward_hidden(
-            self.cfg, self, {"tokens": self._tokens(batch["tokens"])},
-            impl=self.impl)
+        hidden, aux = T.forward_hidden(self.cfg, self, self._inputs(batch),
+                                       impl=self.impl)
         mask = batch.get("mask")
         mask = torch.ones(targets.shape, device=self.device) \
             if mask is None else torch.as_tensor(
@@ -119,21 +143,25 @@ class Model(nn.Module):
 
     @torch.no_grad()
     def forward(self, batch: Dict) -> torch.Tensor:
-        """Logits (B, T, V) in fp32 over the whole sequence."""
-        return T.forward(self.cfg, self, {"tokens": self._tokens(
-            batch["tokens"])}, impl=self.impl)
+        """Logits (B, T, V) in fp32 over the whole sequence
+        (``transformer.forward`` also gives the auxiliary loss)."""
+        return T.forward(self.cfg, self, self._inputs(batch),
+                         impl=self.impl)[0]
 
     @torch.no_grad()
     def prefill(self, batch: Dict) -> Tuple[torch.Tensor, Caches]:
-        """(last-position logits (B, V), caches) of ``batch["tokens"]``."""
-        return T.prefill(self.cfg, self, {"tokens": self._tokens(
-            batch["tokens"])}, impl=self.impl)
+        """(last-position logits (B, V), caches) of ``batch["tokens"]``
+        (with its image or audio embeds)."""
+        return T.prefill(self.cfg, self, self._inputs(batch),
+                         impl=self.impl)
 
     @torch.no_grad()
     def decode(self, caches: Caches, tokens, pos: int,
                ) -> Tuple[torch.Tensor, Caches]:
         """One token (B, 1) at absolute position ``pos``: (logits (B, V),
-        caches, updated in place)."""
+        caches).  The KV and ring caches are updated in place; the
+        recurrent states are replaced in the returned caches.  The
+        cross caches hold what decode needs of the image or audio."""
         return T.decode_step(self.cfg, self, caches, self._tokens(tokens),
                              pos, impl=self.impl)
 

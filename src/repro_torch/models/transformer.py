@@ -1,15 +1,18 @@
 """Model assembly: block dispatch, the layer loop, forward/prefill/decode.
 
-The counterpart of the reference's ``repro/models/transformer.py`` for the
-dense ``"attn"`` block.  The reference scans over stacked layer groups
-(``jax.lax.scan``) and wraps the scanned body in ``jax.checkpoint`` for
-training; here the layers are an ``nn.ModuleList``, :func:`apply_stack`
-is a plain loop, and in train mode with grad enabled each scanned layer
-runs under ``torch.utils.checkpoint`` as ``cfg.remat_policy`` says
+The counterpart of the reference's ``repro/models/transformer.py``, every
+block kind of its ``apply_block`` (``:45-141``).  The reference scans
+over stacked layer groups (``jax.lax.scan``), then runs the remainder
+layers unrolled (recurrentgemma's 26 = 8·3 + 2), and wraps the scanned
+body in ``jax.checkpoint`` for training; here the layers are an
+``nn.ModuleList`` in layer order, :func:`apply_stack` is a plain loop,
+and in train mode with grad enabled each layer the reference scans runs
+under ``torch.utils.checkpoint`` as ``cfg.remat_policy`` says
 (:func:`_remat`).  ``cfg.seq_shard`` changes nothing, as the reference's
 constraint does outside a mesh.  ``params`` is a
 :class:`~.model.Model`: its ``embed``, ``final_norm``, optional
-``unembed`` and ``blocks``.
+``unembed``, ``blocks``, ``img_proj`` (VLM) and ``encoder`` (whose own
+``blocks`` the same loop runs, :func:`_context`).
 """
 from __future__ import annotations
 
@@ -22,6 +25,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..configs.base import ArchConfig
 from . import layers as L
+from . import moe as M
+from . import rglru as RG
+from . import rwkv6 as RW
 from .kvcache import Caches
 
 _aten = torch.ops.aten
@@ -33,33 +39,122 @@ DOTS = (_aten.mm.default, _aten.bmm.default, _aten.addmm.default)
 def apply_block(cfg: ArchConfig, kind: str, p, x: torch.Tensor,
                 ctx: Dict[str, Any], cache: Optional[Dict],
                 ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
-    """Returns (x, new_cache_or_None, aux_loss): a dense block's auxiliary
-    loss is a zero fp32 scalar."""
-    if kind != "attn":
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (ROADMAP Queue 1, "
-            "item 4c)")
+    """Returns (x, new_cache_or_None, aux_loss): the auxiliary loss is a
+    zero fp32 scalar but for a ``"moe"`` block's router loss."""
     mode = ctx["mode"]              # train | prefill | decode
-    new_cache: Optional[Dict] = None
-    h = L.norm(cfg, p["ln1"], x)
-    if mode == "decode":
-        a, new_cache = L.decode_attention(cfg, p["attn"], h, cache,
-                                          ctx["pos"])
-    else:
-        a, kv = L.attention(cfg, p["attn"], h, positions=ctx["positions"],
-                            impl=ctx["impl"])
-        if mode == "prefill":
-            new_cache = _build_cache(kv)
-    x = x + a
-    h = L.norm(cfg, p["ln2"], x)
+    impl = ctx["impl"]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + L.mlp(cfg, p["mlp"], h), new_cache, aux
+    new_cache: Optional[Dict] = None
+
+    if kind in ("attn", "local", "moe", "enc", "dec"):
+        h = L.norm(cfg, p["ln1"], x)
+        window = cfg.window if kind == "local" else None
+        if mode == "decode":
+            a, new_cache = L.decode_attention(cfg, p["attn"], h, cache,
+                                              ctx["pos"], window=window)
+        else:
+            a, kv = L.attention(cfg, p["attn"], h,
+                                positions=ctx["positions"],
+                                causal=kind != "enc", window=window,
+                                impl=impl)
+            if mode == "prefill" and kind != "enc":
+                new_cache = _build_cache(kind, kv, window)
+        x = x + a
+        if kind == "dec":
+            h = L.norm(cfg, p["lnx"], x)
+            if mode == "decode":
+                a, _ = L.cross_attention(cfg, p["xattn"], h, None, impl=impl,
+                                         kv=(cache["xk"], cache["xv"]))
+            else:
+                a, xkv = L.cross_attention(cfg, p["xattn"], h,
+                                           ctx["enc_out"], impl=impl)
+                if mode == "prefill":
+                    new_cache["xk"] = xkv["k"].to(torch.bfloat16)
+                    new_cache["xv"] = xkv["v"].to(torch.bfloat16)
+            x = x + a
+        h = L.norm(cfg, p["ln2"], x)
+        if kind == "moe":
+            f, aux = M.moe_ffn(cfg, p["moe"], h)
+        else:
+            f = L.mlp(cfg, p["mlp"], h)
+        return x + f, new_cache, aux
+
+    if kind == "cross":
+        h = L.norm(cfg, p["ln1"], x)
+        if mode == "decode":
+            a, _ = L.cross_attention(cfg, p["xattn"], h, None, impl=impl,
+                                     kv=(cache["k"], cache["v"]))
+            new_cache = cache
+        else:
+            a, xkv = L.cross_attention(cfg, p["xattn"], h, ctx["img"],
+                                       impl=impl)
+            if mode == "prefill":
+                new_cache = {"k": xkv["k"].to(torch.bfloat16),
+                             "v": xkv["v"].to(torch.bfloat16)}
+        x = x + torch.tanh(p["gate"].to(x.dtype)) * a
+        h = L.norm(cfg, p["ln2"], x)
+        return x + L.mlp(cfg, p["mlp"], h), new_cache, aux
+
+    if kind == "rglru":
+        h = L.norm(cfg, p["ln1"], x)
+        rec_cache = None
+        if mode != "train":
+            rec_cache = cache if cache is not None else _zero_rec(cfg, x)
+        a, new_cache = RG.rglru_block(cfg, p["rec"], h, cache=rec_cache)
+        x = x + a
+        h = L.norm(cfg, p["ln2"], x)
+        return x + L.mlp(cfg, p["mlp"], h), new_cache, aux
+
+    if kind == "rwkv":
+        h = L.norm(cfg, p["ln1"], x)
+        if mode == "decode":
+            a, s_new, sh_t = RW.rwkv_time_mix_step(
+                cfg, p["mix"], h, state=cache["s"],
+                shift_prev=cache["shift_t"])
+        else:
+            a, s_new, sh_t = RW.rwkv_time_mix(cfg, p["mix"], h)
+        x = x + a
+        h = L.norm(cfg, p["ln2"], x)
+        f, sh_c = RW.rwkv_channel_mix(
+            cfg, p["mix"], h,
+            shift_prev=cache["shift_c"] if mode == "decode" else None)
+        x = x + f
+        if mode != "train":
+            new_cache = {"s": s_new, "shift_t": sh_t, "shift_c": sh_c}
+        return x, new_cache, aux
+
+    raise ValueError(kind)
 
 
-def _build_cache(kv: Dict) -> Dict:
+def _zero_rec(cfg: ArchConfig, x: torch.Tensor) -> Dict:
+    """An RG-LRU prefill's starting state: zeros, not None (reference
+    ``:144-148``), so the prefill returns its cache."""
+    R = cfg.d_rnn or cfg.d_model
+    return {"h": torch.zeros((x.shape[0], R), dtype=torch.float32,
+                             device=x.device),
+            "conv": torch.zeros((x.shape[0], cfg.conv_width - 1, R),
+                                dtype=torch.bfloat16, device=x.device)}
+
+
+def _build_cache(kind: str, kv: Dict, window: Optional[int]) -> Dict:
     """Prefill keys/values (B, T, Hkv, Dh) as the serving cache: bf16
-    whatever the compute dtype, as in the reference."""
-    return {"k": kv["k"].to(torch.bfloat16), "v": kv["v"].to(torch.bfloat16)}
+    whatever the compute dtype, as in the reference (``:151-166``).  A
+    ``"local"`` block keeps a ring of ``window`` slots: slot i holds
+    position ``(T-1) - ((T-1-i) % window)``, the newest one congruent to
+    i, with ``kpos`` that position; a slot no position reached is zero
+    with ``kpos`` -1."""
+    k, v = kv["k"].to(torch.bfloat16), kv["v"].to(torch.bfloat16)
+    if kind != "local":
+        return {"k": k, "v": v}
+    T = k.shape[1]
+    w = window or T              # ring always has `window` slots
+    i = torch.arange(w, device=k.device)
+    pidx = (T - 1) - ((T - 1 - i) % w)
+    valid = pidx >= 0
+    safe = torch.clamp(pidx, 0, T - 1)
+    keep = valid[None, :, None, None]
+    return {"k": k[:, safe] * keep, "v": v[:, safe] * keep,
+            "kpos": torch.where(valid, pidx, -1).to(torch.int32)}
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -83,17 +178,25 @@ def _remat(cfg: ArchConfig, fn):
 
 def apply_stack(cfg: ArchConfig, params, x: torch.Tensor,
                 ctx: Dict[str, Any], caches: Optional[Caches] = None,
+                pattern: Optional[Tuple[str, ...]] = None,
                 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Caches]]:
-    """Returns (x, aux_total, new_caches): a cache a layer in prefill and
-    decode, None in the full forward.  In train mode with grad enabled,
-    the layers the reference scans (``n_groups * len(pattern)``, all of
-    a dense stack) run under :func:`_remat`; the remainder layers do
-    not, as in the reference."""
+    """Runs ``params.blocks`` in order.  Returns (x, aux_total,
+    new_caches): a cache a layer in prefill and decode, None in the full
+    forward.  The layers' kinds are ``cfg.layer_kinds()`` (the pattern's
+    groups, then the unrolled remainder), or ``pattern`` repeated over
+    the blocks (the encoder's ``("enc",)``).  In train mode with grad
+    enabled, the layers the reference scans (the whole groups) run under
+    :func:`_remat`; the remainder layers do not, as in the reference."""
+    if pattern is None:
+        kinds = cfg.layer_kinds()
+        scanned = cfg.n_groups * len(cfg.pattern)
+    else:
+        kinds = pattern * (len(params.blocks) // len(pattern))
+        scanned = len(kinds)
     new_caches = []
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     train = ctx["mode"] == "train" and torch.is_grad_enabled()
-    scanned = cfg.n_groups * len(cfg.pattern)
-    for i, (kind, p) in enumerate(zip(cfg.layer_kinds(), params.blocks)):
+    for i, (kind, p) in enumerate(zip(kinds, params.blocks)):
         cache = caches[i] if caches is not None else None
         if train and i < scanned:
             def layer(h, kind=kind, p=p):
@@ -124,23 +227,46 @@ def logits_fn(cfg: ArchConfig, params, x: torch.Tensor) -> torch.Tensor:
     return xf @ params.unembed["w"]
 
 
+def _context(cfg: ArchConfig, params, batch: Dict, mode: str,
+             impl: str) -> Dict[str, Any]:
+    """Modality frontends (reference ``:258-278``): the image embeds
+    projected by ``img_proj``, or the audio embeds through ``in_proj``,
+    the encoder's (non-causal) stack in train mode and its final norm.
+    In decode the cross keys and values live in the cache, so neither is
+    computed."""
+    ctx: Dict[str, Any] = {"mode": mode, "impl": impl}
+    if mode == "decode":
+        return ctx
+    dt = L.cdt(cfg)
+    if "image_embeds" in batch:
+        img = batch["image_embeds"].to(dt)
+        ctx["img"] = img @ params.img_proj["w"].to(dt)
+    if "audio_embeds" in batch:
+        enc = params.encoder
+        h = batch["audio_embeds"].to(dt) @ enc.in_proj["w"].to(dt)
+        ectx = {"mode": "train", "impl": impl,
+                "positions": torch.arange(h.shape[1], device=h.device)}
+        h, _, _ = apply_stack(cfg, enc, h, ectx, pattern=("enc",))
+        ctx["enc_out"] = L.norm(cfg, enc.final_norm, h)
+    return ctx
+
+
 def forward_hidden(cfg: ArchConfig, params, batch: Dict, *,
                    impl: str = "fused") -> Tuple[torch.Tensor, torch.Tensor]:
     """Backbone forward: (final-norm hidden state (B, T, D), aux_loss)."""
     tokens = batch["tokens"]
     x = embed(cfg, params, tokens)
-    ctx = {"mode": "train", "impl": impl,
-           "positions": torch.arange(tokens.shape[1], device=x.device)}
+    ctx = _context(cfg, params, batch, "train", impl)
+    ctx["positions"] = torch.arange(tokens.shape[1], device=x.device)
     x, aux, _ = apply_stack(cfg, params, x, ctx)
     return L.norm(cfg, params.final_norm, x), aux
 
 
 def forward(cfg: ArchConfig, params, batch: Dict, *,
-            impl: str = "fused") -> torch.Tensor:
-    """Full forward: logits (B, T, V) in fp32.  (The reference also
-    returns the auxiliary loss, which dense blocks make zero.)"""
-    hidden, _ = forward_hidden(cfg, params, batch, impl=impl)
-    return logits_fn(cfg, params, hidden)
+            impl: str = "fused") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full forward: (logits (B, T, V) in fp32, aux_loss)."""
+    hidden, aux = forward_hidden(cfg, params, batch, impl=impl)
+    return logits_fn(cfg, params, hidden), aux
 
 
 def prefill(cfg: ArchConfig, params, batch: Dict, *,
@@ -148,8 +274,8 @@ def prefill(cfg: ArchConfig, params, batch: Dict, *,
     """Prefill: returns (last-position logits (B, V), caches)."""
     tokens = batch["tokens"]
     x = embed(cfg, params, tokens)
-    ctx = {"mode": "prefill", "impl": impl,
-           "positions": torch.arange(tokens.shape[1], device=x.device)}
+    ctx = _context(cfg, params, batch, "prefill", impl)
+    ctx["positions"] = torch.arange(tokens.shape[1], device=x.device)
     x, _, caches = apply_stack(cfg, params, x, ctx)
     x = L.norm(cfg, params.final_norm, x[:, -1:])
     return logits_fn(cfg, params, x)[:, 0], caches

@@ -25,7 +25,9 @@ def make_decode_step(model: Model):
 
 
 def greedy_generate(model: Model, batch: Dict, steps: int) -> torch.Tensor:
-    """Greedy decoding: the argmax of the prefill's logits, then ``steps
+    """Greedy decoding of ``batch["tokens"]`` (with the batch's image or
+    audio embeds, which the prefill reads and the caches keep): the
+    argmax of the prefill's logits, then ``steps
     - 1`` decode steps that each feed the last token back.  Returns the
     ``steps`` tokens (B, steps) as int32 on the CPU."""
     logits, caches = model.prefill(batch)

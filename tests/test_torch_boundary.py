@@ -38,15 +38,17 @@ def test_imports_without_jax_and_reference():
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
     assert len(MODULES) >= 20
-    # the host engines, the FOLD / EMIT chains and the training modules
-    # are among them
+    # the host engines, the FOLD / EMIT chains, the training modules and
+    # the block families are among them
     assert {f"repro_torch.core.{m}" for m in (
         "trie", "lftj_ref", "bruteforce", "clftj_ref", "yannakakis")} | {
         "repro_torch.kernels.fold.chain",
         "repro_torch.kernels.emit.chain"} | {f"repro_torch.{m}" for m in (
             "optim.adamw", "train.train_step", "train.loop",
             "checkpoint.ckpt", "runtime.fault", "runtime.elastic",
-            "sharding.rules", "launch.train")} <= set(MODULES)
+            "sharding.rules", "launch.train", "models.moe", "models.rglru",
+            "models.rwkv6", "configs.whisper_tiny",
+            "configs.recurrentgemma_2b")} <= set(MODULES)
 
 
 IMPORT_RE = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)

@@ -738,6 +738,14 @@ FLASH_CASES = [
     (1, 300, 300, 32, 8, 160, True, None, 0),
     (1, 300, 300, 8, 2, 64, True, 100, 0),
     (1, 100, 130, 4, 1, 256, False, None, 0),
+    # the block families' shapes at full width: recurrentgemma's local
+    # prefill (twice its window), llama-3.2-vision's cross prefill and
+    # cross decode step, whisper's encoder and cross decode step
+    (2, 4096, 4096, 10, 1, 256, True, 2048, 0),
+    (1, 2048, 1601, 64, 8, 128, False, None, 0),
+    (1, 1, 1601, 64, 8, 128, False, None, 0),
+    (4, 1500, 1500, 6, 6, 64, False, None, 0),
+    (4, 1, 1500, 6, 6, 64, False, None, 0),
 ]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
@@ -999,3 +1007,68 @@ def test_chain_evaluate_launches_no_fold_or_emit_kernel(dev):
         assert c["fold_calls_chain"] == fused.counters["fold_calls_cuda"] > 0
         assert c["emit_calls_chain"] == fused.counters["emit_calls_cuda"] > 0
         assert c["fold_calls_cuda"] == c["emit_calls_cuda"] == 0
+
+
+FAMILY_NAMES = ["recurrentgemma-2b", "qwen3-moe-235b-a22b",
+                "phi3.5-moe-42b-a6.6b", "llama-3.2-vision-90b", "rwkv6-7b",
+                "whisper-tiny"]
+
+
+@pytest.mark.parametrize("name", FAMILY_NAMES)
+def test_block_families_on_the_card_match_cpu(dev, name):
+    """Each block family at smoke size in fp32 (window 8, so the ring
+    wraps; capacity_factor 8, so nothing drops): the full forward, the
+    prefill and six decode steps on the card (the kernel in every
+    attention of a prefill and in each cross attention of a step) equal
+    the CPU model's within 1e-4; the flash launches are the config's
+    attention layers."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model
+    from repro_torch.models import transformer as T
+    from repro_torch.models.kvcache import pad_caches
+    cfg = dataclasses.replace(get_arch(name + "-smoke"),
+                              dtype_compute="float32", capacity_factor=8.0,
+                              window=8 if "gemma" in name else None)
+    cpu = Model(cfg, device="cpu")
+    gpu = Model(cfg, device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(2)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (2, 18))}
+    if cfg.family == "vlm":
+        batch["image_embeds"] = rng.standard_normal(
+            (2, cfg.n_image_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.encoder_decoder:
+        batch["audio_embeds"] = rng.standard_normal(
+            (2, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    kinds = cfg.layer_kinds()
+    per_prefill = sum(k != "rglru" and k != "rwkv" for k in kinds) + \
+        kinds.count("dec") + cfg.n_encoder_layers
+    per_step = kinds.count("cross") + kinds.count("dec")
+    with torch.no_grad():
+        want, want_aux = T.forward(cfg, cpu, cpu._inputs(batch))
+        before = flash_cuda.launches
+        got, aux = T.forward(cfg, gpu, gpu._inputs(batch))
+        torch.cuda.synchronize()
+        assert flash_cuda.launches == before + per_prefill
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-5, atol=1e-7)
+    prompt = dict(batch, tokens=batch["tokens"][:, :12])
+    runs = []
+    for model in (gpu, cpu):
+        before = flash_cuda.launches
+        lg, caches = model.prefill(prompt)
+        caches = pad_caches(cfg, caches, 6)
+        steps = [lg]
+        for i in range(12, 18):
+            lg, caches = model.decode(caches, batch["tokens"][:, i:i + 1], i)
+            steps.append(lg)
+        runs.append((torch.stack(steps, 1).cpu(), caches,
+                     flash_cuda.launches - before))
+    assert runs[0][2] == per_prefill + 6 * per_step and runs[1][2] == 0
+    torch.testing.assert_close(runs[0][0], runs[1][0], rtol=1e-4, atol=1e-4)
+    for c_gpu, c_cpu in zip(runs[0][1], runs[1][1]):
+        for key in c_cpu:
+            torch.testing.assert_close(c_gpu[key].cpu().float(),
+                                       c_cpu[key].float(), rtol=2 ** -7,
+                                       atol=1e-4, msg=key)
