@@ -45,7 +45,16 @@ layer; then the other five block families (phase 17): recurrentgemma-2b
 layers, image cross attention) and whisper-tiny (the encoder-decoder),
 each at full width with random weights, ``greedy_generate`` of 32
 tokens, its flash launches counted, checked against ``impl="chain"`` and
-against a full forward.  Phases print one line each; then come the
+against a full forward; then training over a mesh (phase 18):
+qwen2.5-3b at full width, depth cut to 4 of 36 layers, on a (data 2,
+model 2) mesh in four processes on the one card (a gloo group; the
+script starts them as ``chip_smoke.py --mesh-worker RANK WORLD DIR``),
+every collective DTensor calls probed on CUDA tensors, the mesh step in
+fp32 and bf16 compute against the same steps in this process beside a
+planted fault (the data-axis gradient all-reduce skipped), each rank's
+flash launches, each rank's placed state bytes against the dry-run's on
+a fake group, and the checkpoint restored onto (4, 1) bit for bit with
+its next step against the straight run's.  Phases print one line each; then come the
 card's name and power limit (as nvidia-smi prints them), a JSON object
 with each kernel's launches, error, times and bound, and as the last line
 
@@ -219,8 +228,8 @@ LM_TOL_FP32 = 1e-3
 LM_DECODE_TOL_FP32 = 0.1
 # the kernel against its plain version: the reference sweep's seven
 # cases (tests/test_kernels.py), qwen2.5-3b's prefill, a ragged length, a
-# chunked prefill, stablelm-12b's head dim and phase 17's shapes.  b, t,
-# s, h, hkv, dh, causal, window, q_offset
+# chunked prefill, stablelm-12b's head dim, phase 17's shapes and phase
+# 18's.  b, t, s, h, hkv, dh, causal, window, q_offset
 FLASH_CASES = [
     (1, 8, 8, 4, 2, 16, True, None, 0),
     (2, 16, 16, 4, 4, 32, True, None, 0),
@@ -241,6 +250,10 @@ FLASH_CASES = [
     (1, 1, 1601, 64, 8, 128, False, None, 0),
     (4, 1500, 1500, 6, 6, 64, False, None, 0),
     (4, 1, 1500, 6, 6, 64, False, None, 0),
+    # phase 18's: one mesh rank's microbatch of qwen2.5-3b (a row of
+    # MESH_BATCH / data 2 / MESH_MB, its 16 / 2 query heads over 2 / 2 KV
+    # heads)
+    (1, 2048, 2048, 8, 1, 128, True, None, 0),
 ]
 # the reference sweep's tolerance (absolute and relative): the kernel and
 # the plain version sum in other orders; a bf16 output may round to a
@@ -2799,6 +2812,521 @@ def family_phase(dev) -> dict:
     return dict(launches=total, runs=runs)
 
 
+# phase 18: qwen2.5-3b trained over a (data 2, model 2) mesh in four
+# processes on the one card (a gloo group; NCCL refuses two ranks on one
+# GPU), against the same steps in this process
+MESH_WORLD = 4
+MESH_SHAPE, MESH_ELASTIC = (2, 2), (4, 1)
+MESH_LAYERS = 4             # of qwen2.5-3b's 36: the cut
+MESH_STEPS, MESH_MB = 2, 2
+MESH_BATCH, MESH_SEQ = 4, 2048
+MESH_TIMEOUT_S = 600
+MESH_DEVICE = "cuda"        # the card the ranks share (device 0)
+# the c10d collectives DTensor's redistributions come down to; the mesh
+# runs fail if DTensor asks for a Shard(i) -> Shard(j) all-to-all (its
+# own functional op, which the path never needs)
+MESH_COLLECTIVES = ("all_reduce", "all_gather_into_tensor",
+                    "reduce_scatter_tensor", "broadcast", "all_to_all_single")
+# (c) bounds on the mesh run against this process's run from the same
+# state and batches: relative error of each step's loss and grad norm,
+# and the relative L2 error of every parameter after the last step
+# (``attn.bk`` aside: its gradient is 0 in exact arithmetic, the
+# softmax dropping a constant shift of a query's scores, so its AdamW
+# update is rounding noise scaled to the step: within 2 * lr * steps
+# absolute).  The first run on an H100 read 7.73e-8, 0 and 6.6e-5 (a
+# q bias) in fp32, 2.78e-5, 1.32e-4 and 0.0931 (a q bias) in bf16; the
+# bounds are about ten times the fp32 readings and twice the bf16 ones.
+# The planted fault (the data-axis gradient all-reduce skipped: each
+# data rank steps on its half of the batch) read 0.298 on the grad norm
+# of its first step; it must read MESH_FAULT_MIN times the fp32 bound
+MESH_TOL = {"float32": dict(loss=1e-6, grad_norm=1e-6, param=1e-3),
+            "bfloat16": dict(loss=1e-4, grad_norm=5e-4, param=0.2)}
+MESH_FAULT_MIN = 1e4
+
+
+def mesh_cfg(dtype: str):
+    return dataclasses.replace(get_arch(LM_ARCH), n_layers=MESH_LAYERS,
+                               dtype_compute=dtype)
+
+
+def mesh_batches(cfg, n: int) -> list:
+    data = DataConfig(vocab=cfg.vocab, seq_len=MESH_SEQ,
+                      global_batch=MESH_BATCH, seed=SEED)
+    return [batch_at(data, s) for s in range(n)]
+
+
+def mesh_reference(dev, work: Path) -> dict:
+    """Phase 18 (b): MESH_STEPS steps of ``make_train_step`` without a
+    mesh, per compute dtype; each step's loss and grad norm, and the
+    parameters after the last written to ``work/ref_<dtype>/``."""
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = mesh_cfg(dtype)
+        model = Model(cfg)
+        step = make_train_step(model, TrainConfig(microbatches=MESH_MB,
+                                                  opt=TRAIN_OPT))
+        state = init_train_state(model)
+        rec = dict(loss=[], grad_norm=[], seconds=[])
+        for batch in mesh_batches(cfg, MESH_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            rec["loss"].append(float(metrics["loss"]))
+            rec["grad_norm"].append(float(metrics["grad_norm"]))
+            rec["seconds"].append(time.perf_counter() - t0)
+        ref = work / f"ref_{dtype}"
+        ref.mkdir()
+        for name, p in state["params"].items():
+            np.save(ref / f"{name}.npy", host(p.detach()))
+        out[dtype] = rec
+        del model, step, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_dryrun() -> dict:
+    """Phase 18 (e), the dry-run's side: the (config, mesh, rules) of the
+    mesh run on a fake group of MESH_WORLD ranks, per compute dtype."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import ShapeCase
+    dryrun.fake_group(MESH_WORLD)
+    try:
+        mesh = init_device_mesh("cpu", MESH_SHAPE,
+                                mesh_dim_names=("data", "model"))
+        case = ShapeCase("mesh", "train", MESH_SEQ, MESH_BATCH)
+        return {dtype: dryrun.run_cell(mesh_cfg(dtype), case, mesh,
+                                       microbatches=MESH_MB, fsdp="tp")
+                for dtype in ("float32", "bfloat16")}
+    finally:
+        dist.destroy_process_group()
+
+
+def skip_data_reduction(grads, params):
+    """The planted fault of phase 18 (c): each gradient's partial sum over
+    the data axis kept as this rank's own, not all-reduced."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    out = []
+    for g, p in zip(grads, params):
+        names = g.device_mesh.mesh_dim_names
+        where = [Replicate() if n == "data" and isinstance(pl, Partial)
+                 else pl for n, pl in zip(names, g.placements)]
+        g = DTensor.from_local(g.to_local(), g.device_mesh, where,
+                               run_check=False)
+        out.append(g.redistribute(p.device_mesh, p.placements))
+    return out
+
+
+def requested_bytes() -> int:
+    """The bytes the CUDA caching allocator was asked for and holds now
+    (``memory_allocated()`` counts its blocks: each request rounded up
+    to 512 bytes, and a large one whole 2 MiB-rounded segment when the
+    rest would be 1 MiB or less)."""
+    return torch.cuda.memory_stats().get("requested_bytes.all.current", 0)
+
+
+def mesh_param_errors(state, ref: Path, rank: int) -> dict:
+    """Every parameter's relative L2 error against the reference's (on
+    rank 0; every rank takes part in the gathers), and the largest
+    absolute one of ``attn.bk``."""
+    errs, bk = {}, 0.0
+    for name, p in state["params"].items():
+        full = p.detach().full_tensor()
+        if rank:
+            continue
+        want = torch.from_numpy(np.load(ref / f"{name}.npy")).to(full.device)
+        if name.endswith("attn.bk"):
+            bk = max(bk, float((full - want).abs().max()))
+            continue
+        errs[name] = float((full - want).norm() / want.norm())
+    return dict(errs=errs, bk=bk)
+
+
+def gloo_cuda_all_gather(real):
+    """``real`` (a functional all-gather: tensor, gather dim, group, tag)
+    with a CUDA tensor of a gloo group gathered by c10d's
+    ``all_gather_into_tensor`` instead; anything else goes to ``real``.
+    Phase 18's ranks share one card, so they share a gloo group (NCCL
+    takes one rank a card); gloo runs each c10d collective on CUDA
+    tensors, but PyTorch 2.11's functional all-gather (which DTensor's
+    redistributions call) crashes the process on a CUDA tensor of a gloo
+    group (a segmentation fault in ``wait_tensor``; PERF.md)."""
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+    from torch._C._distributed_c10d import _resolve_process_group
+
+    def gather(self, gather_dim, group, tag=""):
+        if not self.is_cuda:
+            return real(self, gather_dim, group, tag)
+        pg = _resolve_process_group(funcol._resolve_group_name(group, tag))
+        if dist.get_backend(pg) != "gloo":
+            return real(self, gather_dim, group, tag)
+        n, x = pg.size(), self.contiguous()
+        out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+        dist.all_gather_into_tensor(out, x, group=pg)
+        if gather_dim != 0:
+            out = torch.cat(torch.chunk(out, n, dim=0), dim=gather_dim)
+        return out
+    return gather
+
+
+def route_gloo_cuda_gathers() -> None:
+    """The functional all-gathers of this process through
+    :func:`gloo_cuda_all_gather` (phase 18's ranks, before any DTensor)."""
+    import torch.distributed._functional_collectives as funcol
+    for name in ("all_gather_single", "all_gather_tensor"):
+        real = getattr(funcol, name, None)
+        if real is not None:
+            setattr(funcol, name, gloo_cuda_all_gather(real))
+
+
+def mesh_probe(dev) -> dict:
+    """Phase 18 (a): every collective DTensor may call, on CUDA tensors of
+    this gloo group, each result checked: c10d's MESH_COLLECTIVES, and
+    the functional all-reduce, reduce-scatter and all-gather that
+    DTensor's redistributions call (the all-gather as this process routes
+    it, :func:`route_gloo_cuda_gathers`)."""
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+    rank, world = dist.get_rank(), dist.get_world_size()
+    group = dist.group.WORLD
+    n = 8 * world
+    base = torch.arange(n, dtype=torch.float32, device=dev)
+    x = base + rank
+    total = base * world + sum(range(world))
+    gathered = torch.cat([base + r for r in range(world)])
+    mine = slice(8 * rank, 8 * rank + 8)
+
+    def wait(t):
+        return t.wait() if isinstance(t, funcol.AsyncCollectiveTensor) else t
+
+    def c10d(name):
+        if name == "all_reduce":
+            y = x.clone()
+            dist.all_reduce(y)
+            return y, total
+        if name == "all_gather_into_tensor":
+            y = torch.empty(n * world, device=dev)
+            dist.all_gather_into_tensor(y, x)
+            return y, gathered
+        if name == "reduce_scatter_tensor":
+            y = torch.empty(8, device=dev)
+            dist.reduce_scatter_tensor(y, x)
+            return y, total[mine]
+        if name == "broadcast":
+            y = x.clone()
+            dist.broadcast(y, 0)
+            return y, base
+        y = torch.empty_like(x)
+        dist.all_to_all_single(y, x)
+        return y, torch.cat([base[mine] + r for r in range(world)])
+
+    calls = {name: (lambda name=name: c10d(name)) for name in MESH_COLLECTIVES}
+    calls["functional all_reduce"] = lambda: (
+        wait(funcol.all_reduce(x, "sum", group)), total)
+    calls["functional reduce_scatter"] = lambda: (
+        wait(funcol.reduce_scatter_tensor(x, "sum", 0, group)), total[mine])
+    gather = getattr(funcol, "all_gather_single", None) or \
+        funcol.all_gather_tensor
+    calls["functional all_gather (routed)"] = lambda: (
+        wait(gather(x, 0, group)), gathered)
+    out = {}
+    for name, call in calls.items():
+        print(f"[18 mesh] rank {rank}: {name}", flush=True)
+        got, want = call()
+        torch.cuda.synchronize()
+        out[name] = bool(torch.equal(got, want))
+    return out
+
+
+def mesh_worker(rank: int, world: int, work: str) -> int:
+    """One rank of phase 18 (``chip_smoke.py --mesh-worker RANK WORLD
+    DIR``), on card 0 in a gloo group, doing what ``DIR/case.json``
+    says: ``train`` (the probe, then the mesh runs: fp32 and bf16
+    compute, and the planted fault; the fp32 run saves a checkpoint
+    after its last step and takes one more) or ``elastic`` (restore that
+    checkpoint onto MESH_ELASTIC and take the one more step).  Writes
+    DIR/<mode><R>.json; a crash prints its Python stack (faulthandler)."""
+    import faulthandler
+    import torch.distributed as dist
+    import torch.distributed.tensor._collective_utils as dtensor_comm
+    import torch.distributed.tensor.placement_types as dtensor_places
+    from repro_torch.checkpoint.ckpt import CheckpointManager
+    from repro_torch.launch.dryrun import local_bytes
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.runtime.elastic import restore_for_mesh
+    from repro_torch.sharding.rules import constrain_batch
+    from repro_torch.train import train_step as ts
+    faulthandler.enable()
+    torch.cuda.set_device(0)
+    dev = torch.device(MESH_DEVICE)
+    work = Path(work)
+    mode = json.loads((work / "case.json").read_text())["mode"]
+    dist.init_process_group("gloo", init_method=f"file://{work / mode}",
+                            rank=rank, world_size=world)
+    res = dict(rank=rank)
+
+    def no_alltoall(*a, **k):
+        raise RuntimeError("phase 18: DTensor asked for an all-to-all")
+    dtensor_comm.shard_dim_alltoall = no_alltoall
+    dtensor_places.shard_dim_alltoall = no_alltoall
+    cudalib.load()
+    ckpt = CheckpointManager(str(work / "ckpt"), async_save=False)
+    batches = mesh_batches(mesh_cfg("float32"), MESH_STEPS + 1)
+
+    def run(mesh, state, steps, mb):
+        """Take ``steps`` on ``state`` (``{"model", "state"}``; the state
+        is replaced by the stepped one): each step's loss, grad norm and
+        seconds, the flash launches and the peak."""
+        step = ts.make_train_step(state["model"], TrainConfig(
+            microbatches=mb, opt=TRAIN_OPT), mesh)
+        st = state["state"]
+        rec = dict(loss=[], grad_norm=[], seconds=[])
+        torch.cuda.reset_peak_memory_stats()
+        flash_cuda.launches = 0
+        for batch in steps:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, metrics = step(st, batch)
+            rec["loss"].append(float(metrics["loss"]))
+            rec["grad_norm"].append(float(metrics["grad_norm"]))
+            rec["seconds"].append(time.perf_counter() - t0)
+        rec["launches"] = flash_cuda.launches
+        rec["peak"] = torch.cuda.max_memory_allocated()
+        state["state"] = st
+        return rec
+
+    route_gloo_cuda_gathers()
+    if mode == "train":
+        mesh = make_local_mesh(MESH_SHAPE[1])
+        res["probe"] = mesh_probe(dev)
+        # a smoke-size state placed and freed first: the process's first
+        # placement also frees a few hundred bytes it held (640 on an
+        # H100), which the byte count of (e) must not see
+        init_train_state(Model(get_arch(LM_ARCH).smoke()), mesh)
+        for label, dtype in (("float32", "float32"),
+                             ("bfloat16", "bfloat16"),
+                             ("fault", "float32")):
+            print(f"[18 mesh] rank {rank}: {label} run", flush=True)
+            gc.collect()        # the probe's tensors, a run's leftovers
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            asked = requested_bytes()
+            model = Model(mesh_cfg(dtype))
+            st = init_train_state(model, mesh)
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated() - base
+            asked = requested_bytes() - asked
+            leaves = (list(st["params"].values())
+                      + [t for k in ("m", "v")
+                         for t in st["opt"][k].values()]
+                      + [st["opt"]["step"]])
+            placed = [constrain_batch(torch.from_numpy(v).to(dev), mesh)
+                      for v in batches[0].values()]
+            rec = dict(held=held, asked=asked,
+                       state_bytes=sum(local_bytes(t) for t in leaves),
+                       batch_bytes=sum(local_bytes(t) for t in placed))
+            del placed, leaves
+            holder = dict(model=model, state=st)
+            del st
+            real = ts.reduce_grads
+            if label == "fault":
+                ts.reduce_grads = skip_data_reduction
+            steps = 1 if label == "fault" else MESH_STEPS
+            try:
+                rec.update(run(mesh, holder, batches[:steps],
+                               MESH_MB))
+            finally:
+                ts.reduce_grads = real
+            rec["peak"] -= base
+            if label != "fault":
+                rec.update(mesh_param_errors(holder["state"],
+                                             work / f"ref_{dtype}", rank))
+            if label == "float32":
+                ckpt.save(MESH_STEPS, holder["state"])
+                rec["straight"] = run(mesh, holder,
+                                      batches[MESH_STEPS:], MESH_MB)
+            res[label] = rec
+            del model, holder
+            gc.collect()
+            torch.cuda.empty_cache()
+    else:
+        mesh = make_local_mesh(MESH_ELASTIC[1])
+        model = Model(mesh_cfg("float32"))
+        at, st, _ = restore_for_mesh(ckpt, model, mesh)
+        res["restored_at"] = at
+        if rank == 0:
+            with np.load(work / "ckpt" / f"step_{at:010d}" /
+                         "arrays.npz") as saved:
+                res["bit_equal"] = all(
+                    np.array_equal(host(p.detach().full_tensor()),
+                                   saved[f"params||{name}"])
+                    for name, p in st["params"].items())
+        holder = dict(model=model, state=st)
+        del st
+        # MESH_ELASTIC's data axis of 4 leaves each rank one of the 4
+        # rows: one microbatch
+        res["step"] = run(mesh, holder, batches[MESH_STEPS:], 1)
+        res["placements"] = sorted({str(p.placements) for p in
+                                    holder["state"]["params"].values()})
+    (work / f"{mode}{rank}.json").write_text(json.dumps(res))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def mesh_workers(work: Path, mode: str) -> tuple:
+    """Start MESH_WORLD ranks of ``mode``; (their results or None, exit
+    codes, output tails, seconds)."""
+    (work / "case.json").write_text(json.dumps({"mode": mode}))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-worker",
+         str(r), str(MESH_WORLD), str(work)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(MESH_WORLD)]
+    try:
+        outs = [p.communicate(timeout=MESH_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    files = [work / f"{mode}{r}.json" for r in range(MESH_WORLD)]
+    res = [json.loads(f.read_text()) if f.exists() else None for f in files]
+    return res, [p.returncode for p in procs], outs, \
+        time.perf_counter() - t0
+
+
+def rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def mesh_phase(dev) -> dict:
+    """Phase 18: qwen2.5-3b at full width, MESH_LAYERS layers, trained over
+    a MESH_SHAPE (data, model) mesh in MESH_WORLD processes on the one
+    card: (a) the collectives DTensor calls, on CUDA tensors of a gloo
+    group; (b) the steps without a mesh here; (c) the mesh runs in fp32
+    and bf16 compute against (b), and a planted fault; (d) each rank's
+    flash launches; (e) each rank's placed state bytes against the
+    dry-run's on a fake group; (f) the fp32 run's checkpoint restored
+    onto MESH_ELASTIC bit for bit, its next step against the straight
+    run's."""
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / f"chip_smoke_mesh_{int(time.time() * 1e3)}"
+    work.mkdir(parents=True)
+    try:
+        ref = mesh_reference(dev, work)
+        t_ref = time.perf_counter() - t_phase
+        dry = mesh_dryrun()
+        res, rcs, outs, train_s = mesh_workers(work, "train")
+        for r, (rc, o) in enumerate(zip(rcs, outs)):
+            check(rc == 0, f"mesh rank {r} exited {rc}:\n{o[-6000:]}")
+        el, rcs, outs, elastic_s = mesh_workers(work, "elastic")
+        for r, (rc, o) in enumerate(zip(rcs, outs)):
+            check(rc == 0, f"elastic rank {r} exited {rc}:\n{o[-4000:]}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for r in res:
+        check(all(r["probe"].values()),
+              f"(a) rank {r['rank']}: a collective gave a wrong result on "
+              f"CUDA tensors of the gloo group: {r['probe']}")
+    want_launches = MESH_LAYERS * MESH_MB * 2 * MESH_STEPS
+    lines = []
+    for label in ("float32", "bfloat16"):
+        tol = MESH_TOL[label]
+        want = ref[label]
+        for r in res:
+            got = r[label]
+            check(got["launches"] == want_launches,
+                  f"(d) {label} rank {r['rank']}: {got['launches']} flash "
+                  f"launches, not {want_launches}")
+            state_bytes = dry[label]["argument_bytes"] \
+                - dry[label]["batch_bytes"]
+            check(got["asked"] == got["state_bytes"] == state_bytes
+                  and got["batch_bytes"] == dry[label]["batch_bytes"],
+                  f"(e) {label} rank {r['rank']}: the allocator holds "
+                  f"{got['asked']} B asked for the state "
+                  f"({got['state_bytes']} B of shards, "
+                  f"{got['held']} B of blocks), batch "
+                  f"{got['batch_bytes']} B, against the dry-run's "
+                  f"{dry[label]}")
+            for s in range(MESH_STEPS):
+                check(rel(got["loss"][s], want["loss"][s]) <= tol["loss"]
+                      and rel(got["grad_norm"][s], want["grad_norm"][s])
+                      <= tol["grad_norm"],
+                      f"(c) {label} rank {r['rank']} step {s + 1}: loss "
+                      f"{got['loss'][s]} / {want['loss'][s]}, grad norm "
+                      f"{got['grad_norm'][s]} / {want['grad_norm'][s]}")
+        errs = res[0][label]["errs"]
+        worst = max(errs, key=errs.get)
+        check(errs[worst] <= tol["param"]
+              and res[0][label]["bk"] <= 2 * TRAIN_OPT.lr * MESH_STEPS,
+              f"(c) {label}: parameter {worst} relative L2 error "
+              f"{errs[worst]}, attn.bk {res[0][label]['bk']}")
+        g = res[0][label]
+        lines.append(
+            f"{label}: loss {[round(x, 6) for x in g['loss']]} (one "
+            f"process {[round(x, 6) for x in want['loss']]}), worst rel "
+            f"loss {max(rel(a, b) for a, b in zip(g['loss'], want['loss'])):.3g}"
+            f", grad norm {max(rel(a, b) for a, b in zip(g['grad_norm'], want['grad_norm'])):.3g}"
+            f", param {errs[worst]:.3g} ({worst}), bk abs {g['bk']:.3g}; "
+            f"step s {[round(x, 3) for x in g['seconds']]} (one process "
+            f"{[round(x, 3) for x in want['seconds']]}); peak GiB a rank "
+            + ", ".join(f"{r[label]['peak'] / 2 ** 30:.3f}" for r in res)
+            + f" (dry-run {dry[label]['peak_bytes'] / 2 ** 30:.3f})")
+    fault = res[0]["fault"]
+    f_gn = rel(fault["grad_norm"][0], ref["float32"]["grad_norm"][0])
+    check(f_gn >= MESH_FAULT_MIN * MESH_TOL["float32"]["grad_norm"],
+          f"(c) the planted fault's grad norm reads only {f_gn} from the "
+          f"one-process step's")
+    straight = res[0]["float32"]["straight"]
+    step3 = el[0]["step"]
+    check(all(r["restored_at"] == MESH_STEPS for r in el)
+          and el[0]["bit_equal"],
+          "(f) the restored parameters are not the saved ones bit for bit")
+    check(rel(step3["loss"][0], straight["loss"][0])
+          <= MESH_TOL["float32"]["loss"]
+          and rel(step3["grad_norm"][0], straight["grad_norm"][0])
+          <= MESH_TOL["float32"]["grad_norm"],
+          f"(f) step {MESH_STEPS + 1} after the restore: {step3} against "
+          f"the straight run's {straight}")
+    elastic_launches = MESH_LAYERS * 1 * 2
+    for r in el:
+        check(r["step"]["launches"] == elastic_launches,
+              f"(d) elastic rank {r['rank']}: {r['step']['launches']} "
+              f"flash launches, not {elastic_launches}")
+    launches = sum(r[k]["launches"] + (r[k]["straight"]["launches"]
+                                       if k == "float32" else 0)
+                   for r in res for k in ("float32", "bfloat16", "fault")) \
+        + sum(r["step"]["launches"] for r in el)
+    print(f"[18 mesh] {LM_ARCH} full width, {MESH_LAYERS} of 36 layers (the "
+          f"cut), mesh (data, model) {MESH_SHAPE} in {MESH_WORLD} processes "
+          f"on one card (gloo), {MESH_BATCH} x {MESH_SEQ} tokens, "
+          f"microbatches {MESH_MB}, remat full, AdamW lr {TRAIN_OPT.lr}: "
+          f"(a) collectives on CUDA tensors {res[0]['probe']}, DTensor "
+          f"asked for no all-to-all; (c) " + "; ".join(lines)
+          + f"; planted fault (data-axis all-reduce skipped), step 1: "
+          f"grad norm {f_gn:.3g} ({f_gn / MESH_TOL['float32']['grad_norm']:.3g} "
+          f"times the bound); "
+          f"(d) flash launches a rank a run {want_launches} = "
+          f"{MESH_LAYERS} layers x {MESH_MB} microbatches x 2 x "
+          f"{MESH_STEPS} steps; (e) state bytes a rank asked of the "
+          f"allocator {res[0]['float32']['asked']} = the dry-run's "
+          f"argument bytes less the batch's, on every rank "
+          f"(memory_allocated {res[0]['float32']['held']}: its blocks), "
+          f"batch {res[0]['float32']['batch_bytes']} B apart; (f) "
+          f"restored onto "
+          f"{MESH_ELASTIC} {el[0]['placements']} bit for bit, step "
+          f"{MESH_STEPS + 1} loss {step3['loss'][0]:.6f} (straight "
+          f"{straight['loss'][0]:.6f}); seconds: reference {t_ref:.1f}, "
+          f"mesh runs {train_s:.1f}, elastic "
+          f"{elastic_s:.1f}, phase {time.perf_counter() - t_phase:.1f}",
+          flush=True)
+    return {"launches": {"flash_attention": launches}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("CUDA is not available: chip_smoke needs an NVIDIA GPU",
@@ -3092,6 +3620,11 @@ def main() -> int:
     print(f"[17 families] total {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
+    # 18. training over a (data, model) mesh in four processes on the card
+    meshed = mesh_phase(dev)
+    print(f"[18 mesh] total {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
     kernels = []
     for name, r in rows.items():
         src, replaces = SOURCES[name]
@@ -3099,7 +3632,8 @@ def main() -> int:
              + pay_launches[name] + static_launches[name]
              + lf["launches"][name] + served["launches"][name]
              + knobs["launches"][name] + lm["launches"][name]
-             + trained["launches"][name] + fam["launches"][name])
+             + trained["launches"][name] + fam["launches"][name]
+             + meshed["launches"].get(name, 0))
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": n,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -3120,4 +3654,7 @@ if __name__ == "__main__":
                              sys.argv[4]))
     if sys.argv[1:2] == ["--serve-worker"]:
         sys.exit(serve_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        sys.exit(mesh_worker(int(sys.argv[2]), int(sys.argv[3]),
+                             sys.argv[4]))
     sys.exit(main())

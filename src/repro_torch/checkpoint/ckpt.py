@@ -9,7 +9,12 @@ never corrupts the latest checkpoint.  A background thread makes saves
 non-blocking; ``wait()`` joins it (called before the next save, before a
 restore and at the end of a run).  ``keep`` bounds the checkpoints kept.
 Saved values are whole (unsharded) tensors, so a checkpoint restores onto
-any device (``runtime/elastic.py``).
+any device or mesh (``runtime/elastic.py``).  A state placed on a mesh
+(DTensor leaves) is gathered whole on every rank (``full_tensor()``, a
+collective: every rank calls ``save``); rank 0 alone copies each to the
+host, the gathered tensor dropped as soon as it is copied, and writes
+them.  A restore given ``shardings`` places each leaf on their mesh,
+every rank keeping its own shard.
 """
 from __future__ import annotations
 
@@ -35,17 +40,31 @@ def _leaves(tree, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[str, Any]]:
         yield _SEP.join(prefix), tree
 
 
-def _to_host(leaf) -> np.ndarray:
+def _to_host(leaf, keep: bool = True) -> Optional[np.ndarray]:
     """A host copy of a leaf (never a view of a tensor that later steps
-    write in place)."""
+    write in place); a DTensor is gathered whole first (a collective:
+    every rank gathers), and only a rank that ``keep``s it copies it to
+    the host (None otherwise)."""
+    if hasattr(leaf, "device_mesh"):
+        leaf = leaf.full_tensor()
+    if not keep:
+        return None
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().to("cpu", copy=True).numpy()
     return np.array(leaf)
 
 
-def _rebuild(like, data, prefix: Tuple[str, ...] = ()):
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() \
+        else 0
+
+
+def _rebuild(like, data, shardings=None, prefix: Tuple[str, ...] = ()):
     if isinstance(like, dict):
-        return {name: _rebuild(sub, data, prefix + (str(name),))
+        return {name: _rebuild(sub, data,
+                               None if shardings is None else shardings[name],
+                               prefix + (str(name),))
                 for name, sub in like.items()}
     key = _SEP.join(prefix)
     arr = data[key]
@@ -53,7 +72,10 @@ def _rebuild(like, data, prefix: Tuple[str, ...] = ()):
     if tuple(arr.shape) != shape:
         raise ValueError(f"{key}: checkpoint has shape {arr.shape}, "
                          f"expected {shape}")
-    return torch.from_numpy(arr)
+    if shardings is None:
+        return torch.from_numpy(arr)
+    from ..sharding.rules import place
+    return place(torch.from_numpy(arr), shardings)
 
 
 class CheckpointManager:
@@ -69,9 +91,13 @@ class CheckpointManager:
     def save(self, step: int, state, extra: Optional[Dict] = None) -> None:
         """Write ``state`` as step ``step``; its leaves are copied to the
         host before this returns, the file is written on a thread when
-        ``async_save``."""
+        ``async_save``.  Over a mesh every rank calls this and only rank
+        0 writes."""
         self.wait()
-        arrays = {k: _to_host(v) for k, v in _leaves(state)}
+        writer = _rank() == 0
+        arrays = {k: _to_host(v, writer) for k, v in _leaves(state)}
+        if not writer:
+            return
         meta = {"step": int(step), "extra": extra or {}}
 
         def write():
@@ -125,20 +151,26 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, like, step: Optional[int] = None,
+    def restore(self, like, step: Optional[int] = None, shardings=None,
                 ) -> Tuple[int, Any, Dict]:
         """(step, state, extra): the checkpoint at ``step`` (the latest by
         default) in the structure of ``like`` (a nested dict whose leaves
         are tensors, arrays or shapes, which the saved arrays must
-        match), as CPU tensors of the saved dtypes."""
+        match), as CPU tensors of the saved dtypes; or, given
+        ``shardings`` (a ``rules.NamedSharding`` a leaf, keyed as
+        ``like``), as DTensors placed on their mesh (the reference's
+        ``shardings``)."""
         self.wait()
+        if shardings is not None:
+            import torch.distributed as dist
+            dist.barrier()      # rank 0's write is on disk for every rank
         if step is None:
             step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
         path = os.path.join(self.dir, f"step_{step:010d}")
         with np.load(os.path.join(path, "arrays.npz")) as data:
-            state = _rebuild(like, data)
+            state = _rebuild(like, data, shardings)
         with open(os.path.join(path, "meta.json")) as f:
             meta = json.load(f)
         return meta["step"], state, meta["extra"]

@@ -18,7 +18,7 @@ from typing import Optional, Tuple
 # ports them (Queue 1): a config that sets one away from its default is
 # refused.  max_seq, which no model code reads, carries across as data.
 WAITING = {
-    "cost_exact": "item 4d (the reference's cost probe is not ported)",
+    "cost_exact": "item 4f (the reference's cost probe is not ported)",
 }
 
 

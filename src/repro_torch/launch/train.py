@@ -3,11 +3,15 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b --smoke \\
         --steps 50 --batch 8 --seq 64 --device cpu
 
-The counterpart of the reference's ``repro/launch/train.py`` on one
-device: it runs on the card (``--device cuda``, the default, raises
-without CUDA) unless ``--device cpu`` is given.  The reference's mesh
-(``--model-parallel``) waits for training on several cards: any value
-but 1 raises.
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --arch qwen2.5-3b --model-parallel 2
+
+The counterpart of the reference's ``repro/launch/train.py``.  It runs on
+the card (``--device cuda``, the default, raises without CUDA) unless
+``--device cpu`` is given.  Started by ``torchrun`` (``WORLD_SIZE`` in
+the environment) it joins the process group (NCCL on cards, one a rank;
+gloo with ``--device cpu``) and trains over a (world / N, N) ``("data",
+"model")`` mesh, ``--model-parallel N``; alone, with N 1, on one device.
 """
 from __future__ import annotations
 
@@ -22,6 +26,21 @@ from ..models import Model
 from ..optim.adamw import OptConfig
 from ..train.loop import LoopConfig, train
 from ..train.train_step import TrainConfig
+from .mesh import make_local_mesh
+
+
+def _join_group(device: str):
+    """The process group ``torchrun`` describes, or None when this is the
+    only process."""
+    import torch
+    import torch.distributed as dist
+    from ..core.frontier import resolve_device
+    if int(os.environ.get("WORLD_SIZE", "1")) == 1:
+        return None
+    if resolve_device(device).type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    dist.init_process_group("nccl" if device == "cuda" else "gloo")
+    return dist
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
@@ -41,28 +60,37 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
-    if args.model_parallel != 1:
-        raise NotImplementedError(
-            f"--model-parallel {args.model_parallel}: training on several "
-            "cards is not ported yet (ROADMAP Queue 1, item 4e)")
 
     name = args.arch + ("-smoke" if args.smoke else "")
     cfg = get_arch(name)
+    dist = _join_group(args.device)
+    if dist is None and args.model_parallel != 1:
+        raise ValueError(f"--model-parallel {args.model_parallel} needs "
+                         "several processes (start under torchrun)")
     model = Model(cfg, device=args.device)
-    print(f"[train] {cfg.name}: {model.param_count() / 1e6:.1f}M params on "
-          f"{model.device}")
+    mesh = None if dist is None else make_local_mesh(
+        args.model_parallel, device_type=model.device.type)
+    rank0 = dist is None or dist.get_rank() == 0
+    say = print if rank0 else (lambda *a, **k: None)
+    say(f"[train] {cfg.name}: {model.param_count() / 1e6:.1f}M params on "
+        f"{model.device}" + ("" if mesh is None else f", mesh {mesh}"))
     data = DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                       global_batch=args.batch)
-    hist = train(
-        model, data,
-        TrainConfig(microbatches=args.microbatches,
-                    opt=OptConfig(lr=args.lr, warmup_steps=10,
-                                  decay_steps=args.steps)),
-        LoopConfig(total_steps=args.steps, ckpt_every=args.ckpt_every,
-                   log_every=10, ckpt_dir=args.ckpt_dir))
+    try:
+        hist = train(
+            model, data,
+            TrainConfig(microbatches=args.microbatches,
+                        opt=OptConfig(lr=args.lr, warmup_steps=10,
+                                      decay_steps=args.steps)),
+            LoopConfig(total_steps=args.steps, ckpt_every=args.ckpt_every,
+                       log_every=10, ckpt_dir=args.ckpt_dir),
+            mesh=mesh, log=say)
+    finally:
+        if dist is not None:
+            dist.destroy_process_group()
     if hist["loss"]:
-        print(f"[train] done: loss {hist['loss'][0]:.3f} -> "
-              f"{hist['loss'][-1]:.3f}")
+        say(f"[train] done: loss {hist['loss'][0]:.3f} -> "
+            f"{hist['loss'][-1]:.3f}")
     return hist
 
 

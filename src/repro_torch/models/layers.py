@@ -23,6 +23,20 @@ from ..configs.base import ArchConfig
 from ..kernels.flash_attention import ops as fa_ops
 
 
+def settle(x: torch.Tensor) -> torch.Tensor:
+    """Over a mesh, the residual stream's placement for ``x`` (a sublayer's
+    output before it joins the stream): its batch split over the data
+    (and pod) axes, every other dimension whole on each rank, so the
+    partial sums a matmul over a split dimension leaves are all-reduced
+    here (the row-parallel reduction of tensor parallelism), not left to
+    the next op to place as it likes.  A plain tensor is returned as it
+    is."""
+    if not hasattr(x, "device_mesh"):
+        return x
+    from ..sharding.rules import constrain_batch
+    return constrain_batch(x, x.device_mesh)
+
+
 def cdt(cfg: ArchConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype_compute == "bfloat16" \
         else torch.float32
@@ -134,32 +148,93 @@ def decode_attention(cfg: ArchConfig, p, x: torch.Tensor, cache: Dict,
     no Pallas kernel either).
     """
     dt = cdt(cfg)
-    b = x.shape[0]
     q, k_new, v_new = _proj_qkv(cfg, p, x)          # T == 1
     positions = torch.tensor([pos], device=x.device)
     q = rope(q, positions, cfg.rope_theta)
     k_new = rope(k_new, positions, cfg.rope_theta)
-    k, v = cache["k"], cache["v"]
-    S = k.shape[1]
-    slot = pos % S if window is not None else min(pos, S - 1)
-    k[:, slot] = k_new[:, 0].to(k.dtype)
-    v[:, slot] = v_new[:, 0].to(v.dtype)
-    if window is not None:
-        kpos = cache["kpos"]
-        kpos[slot] = pos
-        mask = (kpos <= pos) & (kpos > pos - window) & (kpos >= 0)
+    if hasattr(q, "device_mesh"):
+        o = _decode_on_mesh(q, k_new, v_new, cache, pos, window)
     else:
-        mask = torch.arange(S, device=x.device) <= pos
-    hkv, dh = k.shape[2], q.shape[-1]
-    g = cfg.n_heads // hkv
-    qq = q.reshape(b, 1, hkv, g, dh).float()
+        o = _decode_core(q, k_new, v_new, cache["k"], cache["v"],
+                         cache.get("kpos"), pos, window)
+    out = torch.einsum("bthk,hkd->btd", o.to(dt), p["wo"].to(dt))
+    return out, cache
+
+
+def _decode_core(q, k_new, v_new, k, v, kpos, pos: int,
+                 window: Optional[int], lo: int = 0, seq: int = 0,
+                 group=None) -> torch.Tensor:
+    """:func:`decode_attention` on plain tensors, from the cache write to
+    the heads' output (B, 1, H, Dh) in q's dtype.  ``k``/``v`` hold cache
+    slots ``lo .. lo + S_l`` of ``seq`` (all of them by default); with
+    ``group`` the other slots lie on its other ranks, and the softmax is
+    split: each rank's max, sum and weighted values are combined by
+    all-reduces (max, sum, sum) over the group."""
+    b, _, h, dh = q.shape
+    s_l = k.shape[1]
+    seq = seq or s_l
+    slot = pos % seq if window is not None else min(pos, seq - 1)
+    if lo <= slot < lo + s_l:
+        k[:, slot - lo] = k_new[:, 0].to(k.dtype)
+        v[:, slot - lo] = v_new[:, 0].to(v.dtype)
+    if window is not None:
+        kpos[slot] = pos
+        kp = kpos[lo: lo + s_l]
+        mask = (kp <= pos) & (kp > pos - window) & (kp >= 0)
+    else:
+        mask = torch.arange(lo, lo + s_l, device=q.device) <= pos
+    hkv = k.shape[2]
+    qq = q.reshape(b, 1, hkv, h // hkv, dh).float()
     sc = torch.einsum("bthgd,bshd->bhgts", qq, k.float()) / math.sqrt(dh)
     sc = torch.where(mask, sc, -1e30)
-    pr = torch.softmax(sc, dim=-1)
+    if group is None:
+        pr = torch.softmax(sc, dim=-1)
+        o = torch.einsum("bhgts,bshd->bthgd", pr, v.float())
+        return o.reshape(b, 1, h, dh).to(q.dtype)
+    import torch.distributed as dist
+    m = sc.amax(-1, keepdim=True)
+    m_all = m.clone()
+    dist.all_reduce(m_all, op=dist.ReduceOp.MAX, group=group)
+    pr = torch.exp(sc - m_all) * mask
+    total = pr.sum(-1, keepdim=True)
+    dist.all_reduce(total, group=group)
     o = torch.einsum("bhgts,bshd->bthgd", pr, v.float())
-    o = o.reshape(b, 1, cfg.n_heads, dh).to(dt)
-    out = torch.einsum("bthk,hkd->btd", o, p["wo"].to(dt))
-    return out, cache
+    dist.all_reduce(o, group=group)
+    o = o / total.permute(0, 3, 1, 2, 4)
+    return o.reshape(b, 1, h, dh).to(q.dtype)
+
+
+def _decode_on_mesh(q, k_new, v_new, cache: Dict, pos: int,
+                    window: Optional[int]) -> torch.Tensor:
+    """:func:`decode_attention`'s core over a mesh: every rank takes all
+    heads of its batch rows (q, k_new and v_new gathered over
+    ``"model"``), and the cache stays where it is placed, written in
+    place on the rank that holds the new slot; a cache whose positions
+    are split over ``"model"`` (the dry-run's ``kv_seq``) takes the
+    split softmax of :func:`_decode_core`."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    names = mesh.mesh_dim_names
+    k = cache["k"]
+    rows = [Replicate() if n == "model" else pl
+            for n, pl in zip(names, k.placements)]
+    split = "model" in names and k.placements[names.index("model")] == Shard(1)
+    group = mesh.get_group("model") if split else None
+    m = mesh.size(names.index("model")) if split else 1
+    q, k_new, v_new = (t.redistribute(mesh, rows) for t in (q, k_new, v_new))
+    kpos = cache.get("kpos")
+
+    def local(ql, knl, vnl, kl, vl, *kposl):
+        lo = mesh.get_local_rank("model") * kl.shape[1] if split else 0
+        return _decode_core(ql, knl, vnl, kl, vl, kposl[0] if kposl else None,
+                            pos, window, lo=lo, seq=kl.shape[1] * m,
+                            group=group)
+    args = (q, k_new, v_new, k, cache["v"]) + (() if kpos is None else
+                                                (kpos,))
+    return local_map(local, out_placements=rows,
+                     in_placements=tuple(list(a.placements) for a in args),
+                     device_mesh=mesh)(*args)
 
 
 def mlp(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
@@ -170,4 +245,4 @@ def mlp(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
         h = F.silu(x @ p["wg"].to(dt)) * (x @ p["wi"].to(dt))
         return h @ p["wo"].to(dt)
     h = F.gelu(x @ p["wi"].to(dt) + p["bi"].to(dt), approximate="tanh")
-    return h @ p["wo"].to(dt) + p["bo"].to(dt)
+    return settle(h @ p["wo"].to(dt)) + p["bo"].to(dt)

@@ -16,13 +16,22 @@ from the reference's tree.  A batch holds ``tokens`` and, for the VLM,
 ``audio_embeds`` (B, encoder_seq, D).  ``loss`` is the reference's
 chunked cross-entropy plus the MoE router's auxiliary loss,
 differentiable (``train/train_step.py`` takes its gradients); the
-serving methods run without autograd.
+serving methods run without autograd.  The shape-only methods of the
+reference's dry-run (``param_shapes``, ``logical_axes``, ``cache_shapes``)
+read the parameters' specs and shapes, keyed by state-dict name
+(``convert`` maps these names to the reference's tree paths): on a model
+built with ``device="meta"`` nothing is allocated.  Over a mesh
+(``train/train_step.py``) the parameters are DTensors, placed by the
+logical-axis rules; the model's code runs on them unchanged under
+:meth:`Model.spmd`.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple, Union
+import contextlib
+from typing import Dict, List, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -31,7 +40,7 @@ from ..core.frontier import resolve_device
 from ..kernels.flash_attention.ops import IMPLS
 from . import specs as S
 from . import transformer as T
-from .kvcache import Caches, init_cache
+from .kvcache import Caches, block_cache_shapes, init_cache
 
 
 class Model(nn.Module):
@@ -43,7 +52,8 @@ class Model(nn.Module):
     plain path).  A config that sets a field the port does not honour raises
     ``NotImplementedError`` (``ArchConfig.check_ported``).  The
     constructor initialises the parameters from a ``torch.Generator``
-    seeded 0 on the model's device."""
+    seeded 0 on the model's device; on ``device="meta"`` it builds
+    shapes only, uninitialised, for the dry-run."""
 
     def __init__(self, cfg: ArchConfig, *, impl: str = "fused",
                  device: Union[str, torch.device] = "cuda"):
@@ -53,7 +63,8 @@ class Model(nn.Module):
             raise ValueError(f"attention impl {impl!r}: one of {IMPLS}")
         self.cfg = cfg
         self.impl = impl
-        self.device = resolve_device(device)
+        meta = torch.device(device).type == "meta"
+        self.device = torch.device("meta") if meta else resolve_device(device)
         top = S.model_specs(cfg)
         self.embed = S.param_tree(top["embed"], self.device)
         self.final_norm = S.param_tree(top["final_norm"], self.device)
@@ -72,11 +83,40 @@ class Model(nn.Module):
                     for _ in range(cfg.n_encoder_layers)),
                 "final_norm": S.param_tree(enc["final_norm"], self.device),
                 "in_proj": S.param_tree(enc["in_proj"], self.device)})
-        self.reset_parameters(
-            torch.Generator(device=self.device).manual_seed(0))
+        if not meta:
+            self.reset_parameters(
+                torch.Generator(device=self.device).manual_seed(0))
 
+    # -- parameters ---------------------------------------------------------
     def param_count(self) -> int:
         return sum(p.numel() for p in self.parameters())
+
+    def param_shapes(self) -> Dict[str, S.TensorSpec]:
+        """Every parameter's (global) shape and dtype (fp32), by name."""
+        return {name: S.TensorSpec(tuple(p.shape), torch.float32)
+                for name, p in self.named_parameters()}
+
+    def logical_axes(self) -> Dict[str, S.Logical]:
+        """Every parameter's logical axes (its spec's), by name."""
+        return {name: p.spec.logical for name, p in self.named_parameters()}
+
+    def cache_shapes(self, batch: int, seq: int
+                     ) -> List[Dict[str, S.TensorSpec]]:
+        """The serving caches' shapes and dtypes, one dict a layer (as
+        :meth:`init_cache` would allocate them)."""
+        return [{name: S.TensorSpec(*sd) for name, sd in
+                 block_cache_shapes(self.cfg, kind, batch, seq).items()}
+                for kind in self.cfg.layer_kinds()]
+
+    def spmd(self):
+        """The context the model's code runs in over a mesh: plain tensors
+        made inside it (masks, positions, scalars) count as replicated
+        (``implicit_replication``).  A no-op for a model whose parameters
+        are plain tensors."""
+        if not hasattr(self.embed._parameters["tok"], "device_mesh"):
+            return contextlib.nullcontext()
+        from torch.distributed.tensor.experimental import implicit_replication
+        return implicit_replication()
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Fill every parameter from its spec (normal(0, scale), ones,
@@ -134,10 +174,16 @@ class Model(nn.Module):
                       "aux": aux.detach(), "tokens": mask_sum.detach()}
 
     def _chunk_nll(self, h, targets, mask) -> torch.Tensor:
-        """Summed masked negative log-likelihood of one chunk."""
-        logp = torch.log_softmax(T.logits_fn(self.cfg, self, h), dim=-1)
-        nll = -logp.gather(-1, targets[..., None])[..., 0]
-        return (nll * mask).sum()
+        """Summed masked negative log-likelihood of one chunk: the fp32
+        log-softmax's entry at each target (``F.cross_entropy``; over a
+        mesh, :func:`_rows_cross_entropy`)."""
+        logits = T.logits_fn(self.cfg, self, h).flatten(0, 1)
+        targets = targets.flatten()
+        if hasattr(logits, "device_mesh"):
+            nll = _rows_cross_entropy(logits, targets)
+        else:
+            nll = F.cross_entropy(logits, targets, reduction="none")
+        return (nll * mask.flatten()).sum()
 
     # -- serving --------------------------------------------------------------
 
@@ -167,3 +213,60 @@ class Model(nn.Module):
 
     def init_cache(self, batch: int, seq: int) -> Caches:
         return init_cache(self.cfg, batch, seq, self.device)
+
+
+def _rows_cross_entropy(logits, targets):
+    """Per-row cross-entropy of DTensor logits (N, V), each rank on its own
+    rows (the batch split).  A head split over the vocabulary computes
+    it on its own columns (:class:`_VocabParallelNLL`: three all-reduces
+    of one number a row over ``"model"``, the counterpart of
+    ``loss_parallel``, which takes one-dimensional meshes only in
+    PyTorch 2.11); a whole vocabulary takes ``F.cross_entropy``."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = logits.device_mesh
+    rows = list(targets.placements)
+    if Shard(1) not in logits.placements:
+        fn, where = (lambda lg, t: F.cross_entropy(lg, t, reduction="none"),
+                     rows)
+    else:
+        group = mesh.get_group("model")
+        where = [Shard(1) if n == "model" else p
+                 for n, p in zip(mesh.mesh_dim_names, rows)]
+
+        def fn(lg, t):
+            lo = mesh.get_local_rank("model") * lg.shape[1]
+            return _VocabParallelNLL.apply(lg, t, lo, group)
+    return local_map(fn, out_placements=rows, in_placements=(where, rows),
+                     device_mesh=mesh, redistribute_inputs=True)(
+                         logits, targets)
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """-log softmax(logits)[target] of each row, the vocabulary split over
+    a process group: ``logits`` (N, V / ranks) fp32 are this rank's
+    columns ``lo ..``, ``target`` (N,) global ids.  The row max, the
+    sum of exponentials and the target's logit are all-reduced (max,
+    sum, sum); backward is local (softmax minus the one-hot)."""
+
+    @staticmethod
+    def forward(ctx, logits, target, lo, group):
+        import torch.distributed as dist
+        m = logits.max(dim=-1).values
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        e = torch.exp(logits - m[:, None])
+        total = e.sum(-1)
+        dist.all_reduce(total, group=group)
+        inside = (target >= lo) & (target < lo + logits.shape[1])
+        col = torch.where(inside, target - lo, 0)
+        picked = (logits.gather(1, col[:, None])[:, 0] - m) * inside
+        dist.all_reduce(picked, group=group)
+        ctx.save_for_backward(e, total, col, inside)
+        return torch.log(total) - picked
+
+    @staticmethod
+    def backward(ctx, grad):
+        e, total, col, inside = ctx.saved_tensors
+        g = e / total[:, None]
+        g.scatter_add_(1, col[:, None], -inside[:, None].to(g.dtype))
+        return g * grad[:, None], None, None, None

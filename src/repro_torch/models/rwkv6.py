@@ -74,18 +74,28 @@ def rwkv_time_mix(cfg: ArchConfig, p, x: torch.Tensor, *,
     logw = _heads(logw, dh)                                   # (B,H,T,dh)
     u = p["u"].reshape(H, dh).float()
     r, k, v = r.float(), k.float(), v.float()
-    if state is None:
-        state = torch.zeros((B, H, dh, dh), dtype=torch.float32,
-                            device=x.device)
+    if hasattr(r, "device_mesh"):
+        y, S = _on_local_heads(r, k, v, logw, u, state)
+    else:
+        y, S = _chunks(r, k, v, logw, u, state)
+    y = y.transpose(1, 2).reshape(B, T, D)
+    return _out(p, y, g, dt), S, x[:, -1].float()
 
+
+def _chunks(r, k, v, logw, u, state):
+    """The chunk loop: r, k, v, logw (B, H, T, dh) fp32, u (H, dh), the
+    carried state (B, H, dh, dh) or None (zeros) -> y (B, H, T, dh) and
+    the last state."""
+    B, H, T, dh = r.shape
+    S = state if state is not None else torch.zeros(
+        (B, H, dh, dh), dtype=torch.float32, device=r.device)
     L = min(CHUNK, T)
     nC = -(-T // L)
     pad = nC * L - T
     if pad:
         r, k, v, logw = (F.pad(a, (0, 0, 0, pad)) for a in (r, k, v, logw))
-    tri = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device),
+    tri = torch.tril(torch.ones((L, L), dtype=torch.bool, device=r.device),
                      diagonal=-1)
-    S = state
     ys = []
     for c in range(nC):
         sl = slice(c * L, (c + 1) * L)
@@ -106,9 +116,43 @@ def rwkv_time_mix(cfg: ArchConfig, p, x: torch.Tensor, *,
         S = torch.exp(lpL[:, :, 0, :, None]) * S + \
             torch.einsum("bhsd,bhse->bhde", kd, vc)
         ys.append(y)
-    y = torch.cat(ys, dim=2)[:, :, :T]                        # (B,H,T,dh)
-    y = y.transpose(1, 2).reshape(B, T, D)
-    return _out(p, y, g, dt), S, x[:, -1].float()
+    return torch.cat(ys, dim=2)[:, :, :T], S
+
+
+def _on_local_heads(r, k, v, logw, u, state):
+    """:func:`_chunks` of DTensors, on each rank's own rows and heads
+    through ``local_map``: a head's recurrence reads no other head and a
+    row's no other row, so the loop runs on the local tensors, one op a
+    step where each DTensor op would be a dispatch of its own.  The batch
+    is split over the data (and pod) axes as the batch is, the heads
+    over ``"model"`` when that divides them (else every rank of the axis
+    runs all heads); u's gradient comes back partial over the batch's
+    axes (each rank's rows' share)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    from ..sharding import rules
+
+    mesh = r.device_mesh
+    names = mesh.mesh_dim_names
+    b, h = r.shape[:2]
+    m = mesh.size(names.index("model")) if "model" in names else 1
+    split = m > 1 and h % m == 0
+    batch_axes = rules.batch_sharding(mesh, b)
+    batch_axes = rules.target_axes(batch_axes[0]) if batch_axes else ()
+    rows = [Shard(0) if n in batch_axes else
+            Shard(1) if n == "model" and split else Replicate()
+            for n in names]
+    heads = [Shard(0) if n == "model" and split else Replicate()
+             for n in names]
+    u_grad = [Partial() if n in batch_axes else pl
+              for n, pl in zip(names, heads)]
+    s_place = None if state is None else rows
+    return local_map(_chunks, out_placements=(rows, rows),
+                     in_placements=(rows, rows, rows, rows, heads, s_place),
+                     in_grad_placements=(rows, rows, rows, rows, u_grad,
+                                         s_place),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        r, k, v, logw, u, state)
 
 
 def rwkv_channel_mix(cfg: ArchConfig, p, x: torch.Tensor, *,

@@ -20,6 +20,7 @@ import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -59,7 +60,7 @@ def apply_block(cfg: ArchConfig, kind: str, p, x: torch.Tensor,
                                 impl=impl)
             if mode == "prefill" and kind != "enc":
                 new_cache = _build_cache(kind, kv, window)
-        x = x + a
+        x = x + L.settle(a)
         if kind == "dec":
             h = L.norm(cfg, p["lnx"], x)
             if mode == "decode":
@@ -71,13 +72,13 @@ def apply_block(cfg: ArchConfig, kind: str, p, x: torch.Tensor,
                 if mode == "prefill":
                     new_cache["xk"] = xkv["k"].to(torch.bfloat16)
                     new_cache["xv"] = xkv["v"].to(torch.bfloat16)
-            x = x + a
+            x = x + L.settle(a)
         h = L.norm(cfg, p["ln2"], x)
         if kind == "moe":
             f, aux = M.moe_ffn(cfg, p["moe"], h)
         else:
             f = L.mlp(cfg, p["mlp"], h)
-        return x + f, new_cache, aux
+        return x + L.settle(f), new_cache, aux
 
     if kind == "cross":
         h = L.norm(cfg, p["ln1"], x)
@@ -91,9 +92,9 @@ def apply_block(cfg: ArchConfig, kind: str, p, x: torch.Tensor,
             if mode == "prefill":
                 new_cache = {"k": xkv["k"].to(torch.bfloat16),
                              "v": xkv["v"].to(torch.bfloat16)}
-        x = x + torch.tanh(p["gate"].to(x.dtype)) * a
+        x = x + torch.tanh(p["gate"].to(x.dtype)) * L.settle(a)
         h = L.norm(cfg, p["ln2"], x)
-        return x + L.mlp(cfg, p["mlp"], h), new_cache, aux
+        return x + L.settle(L.mlp(cfg, p["mlp"], h)), new_cache, aux
 
     if kind == "rglru":
         h = L.norm(cfg, p["ln1"], x)
@@ -101,9 +102,9 @@ def apply_block(cfg: ArchConfig, kind: str, p, x: torch.Tensor,
         if mode != "train":
             rec_cache = cache if cache is not None else _zero_rec(cfg, x)
         a, new_cache = RG.rglru_block(cfg, p["rec"], h, cache=rec_cache)
-        x = x + a
+        x = x + L.settle(a)
         h = L.norm(cfg, p["ln2"], x)
-        return x + L.mlp(cfg, p["mlp"], h), new_cache, aux
+        return x + L.settle(L.mlp(cfg, p["mlp"], h)), new_cache, aux
 
     if kind == "rwkv":
         h = L.norm(cfg, p["ln1"], x)
@@ -113,12 +114,12 @@ def apply_block(cfg: ArchConfig, kind: str, p, x: torch.Tensor,
                 shift_prev=cache["shift_t"])
         else:
             a, s_new, sh_t = RW.rwkv_time_mix(cfg, p["mix"], h)
-        x = x + a
+        x = x + L.settle(a)
         h = L.norm(cfg, p["ln2"], x)
         f, sh_c = RW.rwkv_channel_mix(
             cfg, p["mix"], h,
             shift_prev=cache["shift_c"] if mode == "decode" else None)
-        x = x + f
+        x = x + L.settle(f)
         if mode != "train":
             new_cache = {"s": s_new, "shift_t": sh_t, "shift_c": sh_c}
         return x, new_cache, aux
@@ -215,8 +216,46 @@ def embed(cfg: ArchConfig, params, tokens: torch.Tensor) -> torch.Tensor:
     """The tokens' rows of the fp32 table, in the compute dtype.  The
     reference casts the whole table and then gathers; gathering first
     gives the same values (the cast is elementwise) without a copy of the
-    table."""
-    return params.embed["tok"][tokens].to(L.cdt(cfg))
+    table.  Over a mesh a vocabulary-sharded table is read in place, each
+    rank its own rows (:func:`_vocab_parallel_rows`), not gathered."""
+    table = params.embed["tok"]
+    if hasattr(table, "device_mesh") and table.placements != \
+            type(table.placements)(_replicated(table)):
+        return L.settle(_vocab_parallel_rows(tokens, table)).to(L.cdt(cfg))
+    return L.settle(F.embedding(tokens, table)).to(L.cdt(cfg))
+
+
+def _replicated(t) -> list:
+    from torch.distributed.tensor import Replicate
+    return [Replicate()] * t.device_mesh.ndim
+
+
+def _vocab_parallel_rows(tokens, table):
+    """The embedding of ``tokens`` (split over the batch axes) from a
+    ``table`` whose rows are split over ``"model"`` (and whole over the
+    other axes): each rank looks up the tokens its rows hold, zeros for
+    the others, and the result is a partial sum over ``"model"``; each
+    rank's gradient lands on its own rows, partial over the batch axes."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = table.device_mesh
+    names = mesh.mesh_dim_names
+    tok_place = list(tokens.placements)
+    out_place = [Partial() if n == "model" else p
+                 for n, p in zip(names, tok_place)]
+    grad_place = [Partial() if isinstance(p, Shard) else q
+                  for p, q in zip(tok_place, table.placements)]
+
+    def rows(tok, tab):
+        lo = mesh.get_local_rank("model") * tab.shape[0]
+        inside = (tok >= lo) & (tok < lo + tab.shape[0])
+        out = F.embedding(torch.where(inside, tok - lo, 0), tab)
+        return out * inside[..., None].to(out.dtype)
+
+    return local_map(rows, out_placements=out_place,
+                     in_placements=(tok_place, list(table.placements)),
+                     in_grad_placements=(tok_place, grad_place),
+                     device_mesh=mesh)(tokens, table)
 
 
 def logits_fn(cfg: ArchConfig, params, x: torch.Tensor) -> torch.Tensor:
@@ -240,10 +279,10 @@ def _context(cfg: ArchConfig, params, batch: Dict, mode: str,
     dt = L.cdt(cfg)
     if "image_embeds" in batch:
         img = batch["image_embeds"].to(dt)
-        ctx["img"] = img @ params.img_proj["w"].to(dt)
+        ctx["img"] = L.settle(img @ params.img_proj["w"].to(dt))
     if "audio_embeds" in batch:
         enc = params.encoder
-        h = batch["audio_embeds"].to(dt) @ enc.in_proj["w"].to(dt)
+        h = L.settle(batch["audio_embeds"].to(dt) @ enc.in_proj["w"].to(dt))
         ectx = {"mode": "train", "impl": impl,
                 "positions": torch.arange(h.shape[1], device=h.device)}
         h, _, _ = apply_stack(cfg, enc, h, ectx, pattern=("enc",))

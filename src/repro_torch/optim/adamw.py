@@ -11,12 +11,20 @@ returns new trees it writes the parameters, ``m`` and ``v`` in place
 under ``torch.no_grad()`` (a full-width state is four copies of the
 parameters; new ones would be more).  Plain tensor ops: the reference
 has no kernel here.
+
+On DTensor parameters (training over a mesh) ``m`` and ``v`` are
+DTensors placed as the state's shardings say (as the parameters, by
+default), ``step`` a replicated one; the update runs in the caller's
+``implicit_replication`` (``Model.spmd``): every elementwise op stays on
+the local shards, the global gradient norm reduces over every shard, and
+moments placed otherwise than their parameter (ZeRO-1) are redistributed
+to it.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Mapping, Tuple, Union
+from typing import Dict, Mapping, Optional, Tuple, Union
 
 import torch
 
@@ -47,16 +55,37 @@ def schedule(cfg: OptConfig, step: Union[int, torch.Tensor]) -> torch.Tensor:
     return torch.where(step < cfg.warmup_steps, warm, cfg.lr * cos)
 
 
-def init_state(params: Mapping[str, torch.Tensor]) -> Dict:
+def init_state(params: Mapping[str, torch.Tensor],
+               shardings: Optional[Dict] = None) -> Dict:
     """Zero fp32 ``m`` and ``v`` shaped like each parameter, on its
-    device, and ``step`` 0 (int32, on the first parameter's device)."""
-    def zeros():
-        return {name: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
+    device, and ``step`` 0 (int32, on the first parameter's device).
+    For DTensor parameters ``shardings`` (``{"m": {name: NamedSharding},
+    "v": ..., "step": ...}``, ``train_step.state_shardings(...)["opt"]``)
+    places each; each rank allocates only its own shards."""
+    step = torch.zeros((), dtype=torch.int32,
+                       device=next(iter(params.values())).device)
+
+    def zeros(key):
+        if shardings is None:
+            return {name: torch.zeros(p.shape, dtype=torch.float32,
+                                      device=p.device)
+                    for name, p in params.items()}
+        return {name: _placed_zeros(p, shardings[key][name])
                 for name, p in params.items()}
-    device = next(iter(params.values())).device
-    return {"m": zeros(), "v": zeros(),
-            "step": torch.zeros((), dtype=torch.int32, device=device)}
+    if shardings is not None:
+        from ..sharding.rules import place
+        step = place(step, shardings["step"])
+    return {"m": zeros("m"), "v": zeros("v"), "step": step}
+
+
+def _placed_zeros(p, sharding):
+    """Zero fp32 ``m`` or ``v`` of DTensor ``p`` placed by ``sharding``:
+    only the local shard is allocated where the placements are ``p``'s."""
+    if list(p.placements) == list(sharding.placements):
+        return torch.zeros_like(p, dtype=torch.float32)
+    from ..sharding.rules import place
+    return place(torch.zeros(p.shape, dtype=torch.float32, device=p.device),
+                 sharding)
 
 
 def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
@@ -84,12 +113,21 @@ def update(cfg: OptConfig, params: Mapping[str, torch.Tensor],
     bc2 = 1 - b2 ** step.float()
     for name, p in params.items():
         m, v = state["m"][name], state["v"][name]
-        g = grads[name].float() * scale
+        g = grads[name].float()
+        if hasattr(m, "device_mesh") and m.placements != g.placements:
+            g = g.redistribute(m.device_mesh, m.placements)
+        g = g * scale
         m.mul_(b1).add_((1 - b1) * g)
         v.mul_(b2).add_((1 - b2) * g * g)
         del g
+        pf = p.float()
+        if hasattr(m, "device_mesh") and m.placements != p.placements:
+            pf = pf.redistribute(m.device_mesh, m.placements)
         step_dir = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps) \
-            + cfg.weight_decay * p.float()
-        p.copy_(p.float() - lr * step_dir)
+            + cfg.weight_decay * pf
+        new = pf - lr * step_dir
+        if hasattr(m, "device_mesh") and m.placements != p.placements:
+            new = new.redistribute(p.device_mesh, p.placements)
+        p.copy_(new)
     return params, {"m": state["m"], "v": state["v"], "step": step}, \
         {"grad_norm": gnorm, "lr": lr}

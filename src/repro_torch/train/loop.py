@@ -1,9 +1,9 @@
 """Training loop with checkpoint/restart, preemption handling and a
 straggler watch.
 
-The counterpart of the reference's ``repro/train/loop.py`` on one device
-(its ``mesh`` argument waits for the multi-card slice, ROADMAP Queue 1,
-item 4e).  The step runs eagerly (the reference jits it).
+The counterpart of the reference's ``repro/train/loop.py``, on one device
+or over a mesh (``mesh``: the step is built with it and the state placed
+on it).  The step runs eagerly (the reference jits it).
 """
 from __future__ import annotations
 
@@ -19,7 +19,8 @@ from ..checkpoint.ckpt import CheckpointManager
 from ..data import tokens as dtok
 from ..runtime.elastic import restore_for_mesh
 from ..runtime.fault import PreemptionGuard, StragglerWatch
-from .train_step import TrainConfig, init_train_state, make_train_step
+from .train_step import (TrainConfig, init_train_state, make_train_step,
+                         place_train_state)
 
 
 @dataclass
@@ -34,19 +35,22 @@ class LoopConfig:
 
 
 def train(model, data_cfg: dtok.DataConfig, tcfg: TrainConfig,
-          lcfg: LoopConfig, log: Callable[[str], None] = print,
+          lcfg: LoopConfig, mesh=None, log: Callable[[str], None] = print,
           fail_at_step: Optional[int] = None) -> Dict[str, List[float]]:
-    """Run (or resume) training of ``model`` on its device.
-    ``fail_at_step`` injects a crash (tests).
+    """Run (or resume) training of ``model`` on its device, or over
+    ``mesh`` (every rank runs this; each takes its shard of every
+    global batch).  ``fail_at_step`` injects a crash (tests).
 
     Returns the metric history.  Restart-safe: rerunning with the same
     ckpt_dir resumes from the latest checkpoint and reproduces the same
     data stream (the pipeline is a pure function of step).  A fresh start
     draws the parameters from a ``torch.Generator`` seeded ``lcfg.seed``
-    on the model's device (``Model.reset_parameters``).
+    on the model's device (``Model.reset_parameters``).  A resume
+    restores without a mesh, as the reference's, and then places the
+    state on ``mesh``.
     """
     ckpt = CheckpointManager(lcfg.ckpt_dir, keep=lcfg.keep)
-    step_fn = make_train_step(model, tcfg)
+    step_fn = make_train_step(model, tcfg, mesh)
     guard = PreemptionGuard().install()
     watch = StragglerWatch(on_flag=lambda s, m: log(
         f"[straggler] step took {s:.2f}s vs median {m:.2f}s"))
@@ -54,11 +58,13 @@ def train(model, data_cfg: dtok.DataConfig, tcfg: TrainConfig,
     start_step = 0
     if ckpt.latest_step() is not None:
         start_step, state, _ = restore_for_mesh(ckpt, model)
+        if mesh is not None:
+            state = place_train_state(model, state, mesh)
         log(f"[resume] restored checkpoint at step {start_step}")
     else:
         model.reset_parameters(
             torch.Generator(device=model.device).manual_seed(lcfg.seed))
-        state = init_train_state(model)
+        state = init_train_state(model, mesh)
 
     history: Dict[str, List[float]] = {"loss": [], "step_time": []}
     try:

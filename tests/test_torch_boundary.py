@@ -48,7 +48,8 @@ def test_imports_without_jax_and_reference():
             "checkpoint.ckpt", "runtime.fault", "runtime.elastic",
             "sharding.rules", "launch.train", "models.moe", "models.rglru",
             "models.rwkv6", "configs.whisper_tiny",
-            "configs.recurrentgemma_2b")} <= set(MODULES)
+            "configs.recurrentgemma_2b", "launch.shapes", "launch.mesh",
+            "launch.dryrun", "launch.report")} <= set(MODULES)
 
 
 IMPORT_RE = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
@@ -202,7 +203,8 @@ def test_training_defaults_to_cuda(tmp_path):
     """Training runs on the card by default: without CUDA the launcher
     raises (as ``Model``, which ``make_train_step`` and ``train`` take,
     does) unless ``--device cpu`` is given; then the loop trains on the
-    CPU.  A model-parallel mesh raises, naming its ROADMAP item."""
+    CPU.  A model-parallel mesh needs several processes (``torchrun``):
+    alone, ``--model-parallel 2`` raises.""" 
     from repro_torch.launch import train as launch
     if torch.cuda.is_available():
         pytest.skip("CUDA is available here: the default runs on the card")
@@ -210,7 +212,31 @@ def test_training_defaults_to_cuda(tmp_path):
             "2", "--seq", "8", "--ckpt-dir", str(tmp_path / "ck")]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         launch.main(args)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="several processes"):
         launch.main(args + ["--device", "cpu", "--model-parallel", "2"])
     hist = launch.main(args + ["--device", "cpu"])
     assert len(hist["loss"]) == 2 and all(np.isfinite(hist["loss"]))
+
+
+def test_meshes_default_to_cuda(tmp_path):
+    """A mesh is made on the card unless the caller asks for the CPU:
+    without CUDA ``make_local_mesh`` (and ``make_production_mesh``)
+    raise, naming the way out; ``device_type="cpu"`` makes a CPU mesh
+    over the group's ranks (one here)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is available here: the default runs on the card")
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'pg'}",
+                            rank=0, world_size=1)
+    try:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make_local_mesh(1)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make_production_mesh()
+        mesh = make_local_mesh(1, device_type="cpu")
+        assert mesh.device_type == "cpu"
+        assert mesh.mesh_dim_names == ("data", "model")
+        assert tuple(mesh.shape) == (1, 1)
+    finally:
+        dist.destroy_process_group()

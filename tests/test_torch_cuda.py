@@ -746,6 +746,9 @@ FLASH_CASES = [
     (1, 1, 1601, 64, 8, 128, False, None, 0),
     (4, 1500, 1500, 6, 6, 64, False, None, 0),
     (4, 1, 1500, 6, 6, 64, False, None, 0),
+    # qwen2.5-3b's attention on one rank of a (data 2, model 2) mesh: a
+    # microbatch row, 8 query heads over 1 KV head
+    (1, 2048, 2048, 8, 1, 128, True, None, 0),
 ]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
@@ -1072,3 +1075,21 @@ def test_block_families_on_the_card_match_cpu(dev, name):
             torch.testing.assert_close(c_gpu[key].cpu().float(),
                                        c_cpu[key].float(), rtol=2 ** -7,
                                        atol=1e-4, msg=key)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_on_local_heads_matches_the_whole_kernel(dev, dtype):
+    """The kernel through the mesh boundary (``ops._on_local_heads``), rank
+    by rank of a (1, m) mesh on a fake group: each rank's output and
+    gradients against the plain version on every head at once, with the
+    GQA cases whose KV heads do not divide the model axis (the flash
+    tolerance)."""
+    from repro_torch.kernels import cudalib
+    from test_torch_mesh import HEAD_CASES, local_heads_check
+    cudalib.load()
+    before = flash_cuda.launches
+    for case in HEAD_CASES:
+        local_heads_check(dev, case, dtype,
+                          2e-5 if dtype == torch.float32 else 2e-2)
+    assert flash_cuda.launches - before == sum(
+        case[-1] for case in HEAD_CASES)

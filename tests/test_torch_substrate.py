@@ -188,7 +188,9 @@ def test_checkpoint_keys_are_the_references(tmp_path):
 
 def test_restore_for_mesh_loads_onto_the_model(tmp_path):
     """The train state restores into the model's own parameters, with m,
-    v and step on its device; a mesh raises, naming the ROADMAP item."""
+    v and step on its device (restoring onto a mesh, as DTensors: see
+    tests/test_torch_mesh.py); a second restore after the parameters
+    moved puts the saved values back."""
     model = Model(get_arch("qwen2.5-3b-smoke"), device="cpu")
     state = init_train_state(model)
     for t in state["opt"]["m"].values():
@@ -204,8 +206,10 @@ def test_restore_for_mesh_loads_onto_the_model(tmp_path):
         assert torch.equal(p, want[name])
         assert torch.equal(restored["opt"]["m"][name],
                            torch.full_like(p, 0.5))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        restore_for_mesh(mgr, model, mesh=object())
+    model.reset_parameters(torch.Generator().manual_seed(10))
+    _, again, _ = restore_for_mesh(mgr, model, mesh=None)
+    for name, p in model.named_parameters():
+        assert again["params"][name] is p and torch.equal(p, want[name])
 
 
 # --- fault runtime -----------------------------------------------------------
