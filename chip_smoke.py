@@ -36,25 +36,33 @@ under ``greedy_generate``, checked against the plain attention path and
 against a full forward; then training (phase 16): qwen2.5-3b at full
 width and depth, the kernel's gradients (through the plain path in
 backward) against the plain attention's in fp32 and bf16 compute beside
-a planted fault, eight AdamW steps of ``make_train_step`` on 4 x 2048
-tokens in two microbatches, the three remat policies at four layers,
+a planted fault, four AdamW steps of ``make_train_step`` on 4 x 2048
+tokens in two microbatches, the three remat policies at one layer,
 and the fault-tolerant loop (crash and resume from a checkpoint) at one
 layer; then the other five block families (phase 17): recurrentgemma-2b
 (RG-LRU and a local-attention ring), rwkv6-7b, phi3.5-moe and qwen3-moe
 (depth cut to 4 and 2 layers), llama-3.2-vision (one pattern group of 5
 layers, image cross attention) and whisper-tiny (the encoder-decoder),
-each at full width with random weights, ``greedy_generate`` of 32
+each at full width with random weights, ``greedy_generate`` of 16
 tokens, its flash launches counted, checked against ``impl="chain"`` and
 against a full forward; then training over a mesh (phase 18):
-qwen2.5-3b at full width, depth cut to 4 of 36 layers, on a (data 2,
+qwen2.5-3b at full width, depth cut to 2 of 36 layers, on a (data 2,
 model 2) mesh in four processes on the one card (a gloo group; the
 script starts them as ``chip_smoke.py --mesh-worker RANK WORLD DIR``),
 every collective DTensor calls probed on CUDA tensors, the mesh step in
 fp32 and bf16 compute against the same steps in this process beside a
 planted fault (the data-axis gradient all-reduce skipped), each rank's
 flash launches, each rank's placed state bytes against the dry-run's on
-a fake group, and the checkpoint restored onto (4, 1) bit for bit with
-its next step against the straight run's.  Phases print one line each; then come the
+a fake group, and the checkpoint restored onto (4, 1) by four fresh
+processes bit for bit with its next step against the straight run's, and
+the MoE (phi3.5-moe at full width, one of 32 layers, each rank holding 8
+of its 16 experts) one step against one process beside a planted fault
+(the load-balance loss from a rank's own means); then the cost tools
+(phase 19): the two-point cost probe's FLOPs of phase 16's train step
+(on meta tensors, no card) against FlopCounterMode's count of its first
+step plus the flash kernel's formula, the step's FLOPs as a share of the card's peak, and the join's
+dry-run (rank 0 of 256 of the distributed count on the card) against
+the same shard on the CPU's plain path.  Phases print one line each; then come the
 card's name and power limit (as nvidia-smi prints them), a JSON object
 with each kernel's launches, error, times and bound, and as the last line
 
@@ -112,6 +120,8 @@ from repro_torch.kernels.fold import cuda as fold_cuda  # noqa: E402
 from repro_torch.kernels.fold import plain as fold_plain  # noqa: E402
 from repro_torch.kernels.leapfrog import cuda as bound_cuda  # noqa: E402
 from repro_torch.kernels.leapfrog import plain as bound_plain  # noqa: E402
+from repro_torch.launch import costprobe  # noqa: E402
+from repro_torch.launch import roofline  # noqa: E402
 from repro_torch.serve.canonical import rename_query  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.data.tokens import DataConfig, batch_at  # noqa: E402
@@ -252,8 +262,10 @@ FLASH_CASES = [
     (4, 1, 1500, 6, 6, 64, False, None, 0),
     # phase 18's: one mesh rank's microbatch of qwen2.5-3b (a row of
     # MESH_BATCH / data 2 / MESH_MB, its 16 / 2 query heads over 2 / 2 KV
-    # heads)
+    # heads), and of the MoE case's phi3.5-moe (two rows of MESH_BATCH /
+    # data 2 in one microbatch, its 32 / 2 query heads over 8 / 2 KV heads)
     (1, 2048, 2048, 8, 1, 128, True, None, 0),
+    (2, 2048, 2048, 16, 4, 128, True, None, 0),
 ]
 # the reference sweep's tolerance (absolute and relative): the kernel and
 # the plain version sum in other orders; a bf16 output may round to a
@@ -286,6 +298,26 @@ def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ops(prof) -> dict:
+    """Each device op (kernel, copy, set) of a finished torch.profiler
+    run: its name -> (seconds, records), the names with time only.  Read
+    from the raw trace: ``key_averages()`` first builds the profiler's
+    event tree, which took up to 16 s on a traced pass of tens of
+    thousands of launches; its self device times are these sums."""
+    from torch.autograd import DeviceType
+    try:
+        events = prof.profiler.kineto_results.events()
+    except AttributeError:      # a profiler without the raw trace
+        return {e.key: (e.self_device_time_total / 1e6, e.count)
+                for e in prof.key_averages() if e.self_device_time_total > 0}
+    ops: dict = {}
+    for e in events:
+        if e.device_type() == DeviceType.CUDA:
+            secs, n = ops.get(e.name(), (0.0, 0))
+            ops[e.name()] = (secs + e.duration_ns() / 1e9, n + 1)
+    return {k: v for k, v in ops.items() if v[0] > 0}
+
+
 def busy_ops(fn, reps: int = 25) -> dict:
     """Device busy ms of one call by device op, from ``reps`` calls run
     under torch.profiler (the gaps in which the device waits for the host
@@ -302,9 +334,8 @@ def busy_ops(fn, reps: int = 25) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / 1e3 / e.count
-            * -(-e.count // reps)
-            for e in prof.key_averages() if e.self_device_time_total > 0}
+    return {k: secs * 1e3 / n * -(-n // reps)
+            for k, (secs, n) in device_ops(prof).items()}
 
 
 def busy(fn, reps: int = 25) -> dict:
@@ -1124,12 +1155,14 @@ def check_rows(rows, order, q, db, want: int, what: str) -> None:
         check(bool(ok.all()), f"{what} rows violate atom {atom}")
 
 
-def profile_line(run) -> str:
+def profile_line(run, cross_check: bool = False) -> str:
     """Run ``run()`` once under torch.profiler: wall time, device busy
     time and share, and the device ops (kernels, copies) that took the
     most time; fails if a single-block scan (``block_scan``) ran.  Only
-    device activity is traced: each device op is then counted once, and
-    the trace stays small enough to summarise fast."""
+    device activity is traced: each device op is then counted once.
+    With ``cross_check`` the ops (``device_ops``) must equal
+    ``key_averages()``'s, each op's records and its time to 1 us a
+    record."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1137,8 +1170,17 @@ def profile_line(run) -> str:
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    ops = [(e.key, e.self_device_time_total / 1e6, e.count)
-           for e in prof.key_averages() if e.self_device_time_total > 0]
+    t0 = time.perf_counter()
+    ops = [(k, secs, n) for k, (secs, n) in device_ops(prof).items()]
+    summed = time.perf_counter() - t0
+    if cross_check:
+        slow = {e.key: (e.self_device_time_total / 1e6, e.count)
+                for e in prof.key_averages() if e.self_device_time_total > 0}
+        check(slow.keys() == {k for k, _, _ in ops} and all(
+            slow[k][1] == n and abs(slow[k][0] - secs) <= 1e-6 * n
+            for k, secs, n in ops),
+            f"the raw trace's device ops differ from key_averages(): "
+            f"{sorted(ops)[:8]} vs {sorted(slow.items())[:8]}")
     scans = [k for k, _, _ in ops if "block_scan" in k]
     check(not scans, f"a single-block scan ran on the traced path: {scans}")
     busy = sum(s for _, s, _ in ops)
@@ -1148,7 +1190,7 @@ def profile_line(run) -> str:
     top = ", ".join(f"{k[:48]} {s:.3f} s x{n}" for k, s, n in ops[:8])
     return (f"wall {wall:.3f} s (traced), device busy {busy:.3f} s = "
             f"{100 * busy / wall:.1f}% (idle {100 - 100 * busy / wall:.1f}%)"
-            f"; top device ops: {top}")
+            f"; top device ops: {top}; summarised in {summed:.1f} s")
 
 
 def reset_launches() -> None:
@@ -2060,10 +2102,10 @@ def lm_phase(dev) -> dict:
 # (phase 14's 4 x 2048 tokens); (c) each remat policy one step at
 # TRAIN_REMAT_LAYERS layers; (d) the loop at one layer, crash at step
 # TRAIN_CRASH of TRAIN_LOOP_STEPS, checkpoints every TRAIN_CKPT_EVERY
-TRAIN_SEQ, TRAIN_BATCH, TRAIN_MB, TRAIN_STEPS = 2048, 4, 2, 8
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MB, TRAIN_STEPS = 2048, 4, 2, 4
 TRAIN_OPT = OptConfig(lr=1e-4, warmup_steps=2, decay_steps=100)
-TRAIN_REMAT_LAYERS = 4
-TRAIN_LOOP_STEPS, TRAIN_CKPT_EVERY, TRAIN_CRASH = 12, 6, 7
+TRAIN_REMAT_LAYERS = 1
+TRAIN_LOOP_STEPS, TRAIN_CKPT_EVERY, TRAIN_CRASH = 6, 3, 4
 TRAIN_DIR = ROOT / "build" / "chip_smoke_train"
 # (a) bounds on the relative L2 error ||g_fused - g_chain|| / ||g_chain||
 # of every parameter's gradient, fused (the kernel in the forward pass,
@@ -2171,8 +2213,11 @@ def train_steps(model, batch, steps: int) -> dict:
     """Phase 16 (b): ``steps`` train steps on one batch; per step the
     flash launches, the FlashAttention backward recomputes and the plain
     path's calls (counted through the module attribute the backward
-    calls), each step's seconds to the host's loss; and ``step``, a
-    callable that takes one more step from where they ended."""
+    calls), each step's seconds to the host's loss; ``live``, the FLOPs
+    of the first step (the warm-up, left out of the median step time)
+    counted on the card for phase 19 (a) by ``costprobe.live_count``;
+    and ``step``, a callable that takes one more step from where they
+    ended."""
     step_fn = make_train_step(model, TrainConfig(microbatches=TRAIN_MB,
                                                  opt=TRAIN_OPT))
     state = init_train_state(model)
@@ -2187,12 +2232,18 @@ def train_steps(model, batch, steps: int) -> dict:
                plain=[])
     flash_plain.flash_attention = counted
     try:
-        for _ in range(steps):
+        for i in range(steps):
             before = (flash_cuda.launches, flash_cuda.backward_calls,
                       plain_calls[0])
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            state, metrics = step_fn(state, batch)
+            if i == 0:
+                with costprobe.live_count() as live:
+                    state, metrics = step_fn(state, batch)
+                    torch.cuda.synchronize()
+                out["live"] = live
+            else:
+                state, metrics = step_fn(state, batch)
             out["loss"].append(float(metrics["loss"]))
             out["grad_norm"].append(float(metrics["grad_norm"]))
             out["seconds"].append(time.perf_counter() - t0)
@@ -2214,9 +2265,10 @@ def train_phase(dev) -> dict:
     ``make_train_step``, microbatches=2, on one batch of 4 x 2048
     tokens: finite, falling, n_layers x mb x 2 flash launches a step
     (forward and remat recompute) and the plain path only in backward;
-    (c) remat "none" and "dots" against "full" at 4 layers; (d) the loop
-    at one layer, crash-resume against a straight run, and the launcher
-    (``python -m repro_torch.launch.train``) at smoke size."""
+    (c) remat "none" and "dots" against "full" at TRAIN_REMAT_LAYERS
+    layers; (d) the loop at one layer, crash-resume against a straight
+    run, and the launcher (``python -m repro_torch.launch.train``) at
+    smoke size."""
     t_phase = time.perf_counter()
     cfg = get_arch(LM_ARCH)
     gen = torch.Generator(device=dev)
@@ -2241,6 +2293,7 @@ def train_phase(dev) -> dict:
     torch.cuda.empty_cache()
 
     # (b) the train step (counts read after the step alone)
+    t_b = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     model.reset_parameters(gen.manual_seed(SEED))
     reset_launches()
@@ -2264,13 +2317,17 @@ def train_phase(dev) -> dict:
         f"(b) launches {launches}")
     # one more step, traced (its launches are not the path's)
     prof = profile_line(run.pop("step"))
+    live = dict(run.pop("live"), seconds=run["seconds"][0])
     del model
     gc.collect()
     torch.cuda.empty_cache()
     step_s = statistics.median(run["seconds"][1:])
     tokens = TRAIN_BATCH * TRAIN_SEQ
 
+    b_s = time.perf_counter() - t_b
+
     # (c) the remat policies at TRAIN_REMAT_LAYERS layers of full width
+    t_c = time.perf_counter()
     cfg4 = dataclasses.replace(cfg, n_layers=TRAIN_REMAT_LAYERS)
     model = Model(cfg4, device=dev)
     remat = {}
@@ -2301,6 +2358,7 @@ def train_phase(dev) -> dict:
     del model, full
     gc.collect()
     torch.cuda.empty_cache()
+    c_s = time.perf_counter() - t_c
 
     # (d) the loop at one layer, its checkpoints under build/
     cfg1 = dataclasses.replace(cfg, n_layers=1)
@@ -2313,72 +2371,84 @@ def train_phase(dev) -> dict:
                           ckpt_every=TRAIN_CKPT_EVERY, log_every=1000,
                           keep=1, ckpt_dir=str(TRAIN_DIR / name), seed=SEED)
 
-    logs = []
-    t0 = time.perf_counter()
-    before = flash_cuda.launches
-    straight = train(model, data, tcfg, lcfg("straight"), log=logs.append)
-    try:
-        train(model, data, tcfg, lcfg("resumed"), log=logs.append,
-              fail_at_step=TRAIN_CRASH)
-        check(False, "(d) the injected failure did not happen")
-    except RuntimeError as e:
-        check("injected failure" in str(e), f"(d) {e}")
-    ckpt_bytes = sum(f.stat().st_size for f in
-                     (TRAIN_DIR / "resumed").rglob("*") if f.is_file())
-    # the same step-6 checkpoint for the planted resume below
-    shutil.copytree(TRAIN_DIR / "resumed", TRAIN_DIR / "lost",
-                    copy_function=os.link)
-    resumed = train(model, data, tcfg, lcfg("resumed"), log=logs.append)
-    loop_launches = flash_cuda.launches - before
-    loop_s = time.perf_counter() - t0
-    check(f"[resume] restored checkpoint at step {TRAIN_CKPT_EVERY}" in logs,
-          f"(d) no resume: {logs}")
-    tail = straight["loss"][-len(resumed["loss"]):]
-
-    def loss_err(losses):
-        return max(abs(a - b) / abs(b) for a, b in zip(losses, tail))
-
-    resume_err = loss_err(resumed["loss"])
-    check(len(resumed["loss"]) == TRAIN_LOOP_STEPS - TRAIN_CKPT_EVERY
-          and resume_err <= TRAIN_RESUME_TOL,
-          f"(d) resumed losses {resumed['loss']} vs straight {tail}")
-    check(loop_launches == 2 * TRAIN_MB * (
-        TRAIN_LOOP_STEPS + TRAIN_CRASH + TRAIN_LOOP_STEPS - TRAIN_CKPT_EVERY),
-        f"(d) {loop_launches} flash launches in the loops")
-
-    real_restore = train_loop.restore_for_mesh
-
-    def restore_losing_moments(*args, **kw):
-        saved, state, extra = real_restore(*args, **kw)
-        for key in ("m", "v"):
-            for t in state["opt"][key].values():
-                t.zero_()
-        return saved, state, extra
-
-    train_loop.restore_for_mesh = restore_losing_moments
-    try:
-        lost = train(model, data, tcfg, lcfg("lost"), log=logs.append)
-    finally:
-        train_loop.restore_for_mesh = real_restore
-    lost_err = loss_err(lost["loss"])
-    check(lost_err > TRAIN_RESUME_TOL,
-          f"(d) a resume that lost m and v reads {lost_err:.3g}, within "
-          f"{TRAIN_RESUME_TOL} of the straight run")
-    del model
-    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
-    check(not TRAIN_DIR.exists(), "(d) the checkpoints were not removed")
-    gc.collect()
-    torch.cuda.empty_cache()
-    cli = subprocess.run(
+    # the launcher at smoke size, in its own process beside the loop
+    cli_dir = TRAIN_DIR.with_name(TRAIN_DIR.name + "_cli")
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    t_cli = time.perf_counter()
+    cli = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.train", "--arch",
          LM_ARCH, "--smoke", "--steps", "3", "--batch", "4", "--seq", "64",
-         "--microbatches", "2", "--ckpt-dir", str(TRAIN_DIR / "cli")],
+         "--microbatches", "2", "--ckpt-dir", str(cli_dir)],
         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
-        capture_output=True, text=True, timeout=300)
-    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
-    check(cli.returncode == 0 and "[train] done" in cli.stdout,
-          f"(d) the launcher failed: {cli.stdout[-2000:]} "
-          f"{cli.stderr[-2000:]}")
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        logs = []
+        t0 = time.perf_counter()
+        before = flash_cuda.launches
+        straight = train(model, data, tcfg, lcfg("straight"),
+                         log=logs.append)
+        try:
+            train(model, data, tcfg, lcfg("resumed"), log=logs.append,
+                  fail_at_step=TRAIN_CRASH)
+            check(False, "(d) the injected failure did not happen")
+        except RuntimeError as e:
+            check("injected failure" in str(e), f"(d) {e}")
+        ckpt_bytes = sum(f.stat().st_size for f in
+                         (TRAIN_DIR / "resumed").rglob("*") if f.is_file())
+        # the same checkpoint for the planted resume below
+        shutil.copytree(TRAIN_DIR / "resumed", TRAIN_DIR / "lost",
+                        copy_function=os.link)
+        resumed = train(model, data, tcfg, lcfg("resumed"),
+                        log=logs.append)
+        loop_launches = flash_cuda.launches - before
+        loop_s = time.perf_counter() - t0
+        check(f"[resume] restored checkpoint at step {TRAIN_CKPT_EVERY}"
+              in logs, f"(d) no resume: {logs}")
+        tail = straight["loss"][-len(resumed["loss"]):]
+
+        def loss_err(losses):
+            return max(abs(a - b) / abs(b) for a, b in zip(losses, tail))
+
+        resume_err = loss_err(resumed["loss"])
+        check(len(resumed["loss"]) == TRAIN_LOOP_STEPS - TRAIN_CKPT_EVERY
+              and resume_err <= TRAIN_RESUME_TOL,
+              f"(d) resumed losses {resumed['loss']} vs straight {tail}")
+        check(loop_launches == 2 * TRAIN_MB * (
+            TRAIN_LOOP_STEPS + TRAIN_CRASH + TRAIN_LOOP_STEPS
+            - TRAIN_CKPT_EVERY),
+            f"(d) {loop_launches} flash launches in the loops")
+
+        real_restore = train_loop.restore_for_mesh
+
+        def restore_losing_moments(*args, **kw):
+            saved, state, extra = real_restore(*args, **kw)
+            for key in ("m", "v"):
+                for t in state["opt"][key].values():
+                    t.zero_()
+            return saved, state, extra
+
+        train_loop.restore_for_mesh = restore_losing_moments
+        try:
+            lost = train(model, data, tcfg, lcfg("lost"), log=logs.append)
+        finally:
+            train_loop.restore_for_mesh = real_restore
+        lost_err = loss_err(lost["loss"])
+        check(lost_err > TRAIN_RESUME_TOL,
+              f"(d) a resume that lost m and v reads {lost_err:.3g}, within "
+              f"{TRAIN_RESUME_TOL} of the straight run")
+        del model
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+        check(not TRAIN_DIR.exists(), "(d) the checkpoints were not removed")
+        cli_out, cli_err = cli.communicate(timeout=300)
+    finally:
+        cli.kill()
+        cli.wait()
+    cli_s = time.perf_counter() - t_cli
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(cli.returncode == 0 and "[train] done" in cli_out,
+          f"(d) the launcher failed: {cli_out[-2000:]} {cli_err[-2000:]}")
 
     fmt = ", ".join
     print(f"[16 train] {LM_ARCH} ({n} layers, d_model {cfg.d_model}, "
@@ -2400,24 +2470,26 @@ def train_phase(dev) -> dict:
           f"{tokens / step_s:.0f} tokens/s); flash launches {per_step} a "
           f"step ({n} x {TRAIN_MB} x 2), plain path {n * TRAIN_MB} a step, "
           f"all in FlashAttention's backward; peak device memory "
-          f"{peak_b:.2f} GiB; one more step traced: {prof}; (c) "
-          f"{TRAIN_REMAT_LAYERS} layers, one step: "
+          f"{peak_b:.2f} GiB; one more step traced: {prof}; {b_s:.1f} s; "
+          f"(c) {TRAIN_REMAT_LAYERS} layers, one step: "
           + fmt(f"{p} loss {r['loss']:.6f} grad_norm {r['grad_norm']:.6f} "
                 f"peak {r['peak']:.2f} GiB"
                 + (f" params vs full {r['param_err']:.3g}"
                    if "param_err" in r else "")
                 for p, r in remat.items())
-          + f"; (d) loop at 1 layer, {TRAIN_LOOP_STEPS} steps, crash at "
+          + f"; {c_s:.1f} s; (d) loop at 1 layer, {TRAIN_LOOP_STEPS} steps, crash at "
           f"{TRAIN_CRASH}, resumed from step {TRAIN_CKPT_EVERY}: max "
           f"relative loss difference {resume_err:.3g} (tol "
           f"{TRAIN_RESUME_TOL}; planted resume losing m and v "
           f"{lost_err:.3g}), checkpoint {ckpt_bytes / 1e9:.2f} GB, "
           f"{loop_s:.1f} s, checkpoints removed; launcher at smoke size ok "
-          f"| phase {time.perf_counter() - t_phase:.1f} s | launches "
+          f"({cli_s:.1f} s, beside the loop) | phase "
+          f"{time.perf_counter() - t_phase:.1f} s | launches "
           + json.dumps({"flash_attention": launches["flash_attention"]
                         + loop_launches}), flush=True)
     return dict(launches={k: v + (loop_launches if k == "flash_attention"
-                                  else 0) for k, v in launches.items()})
+                                  else 0) for k, v in launches.items()},
+                live=live, step_s=step_s)
 
 
 # phase 17: the other five block families at full width, bf16 compute
@@ -2440,7 +2512,7 @@ FAMILY_CELLS = [
     ("llama-3.2-vision-90b", 5, 1, 2048, 5, 1),
     ("whisper-tiny", None, 4, 384, 12, 4),
 ]
-FAMILY_STEPS = 32
+FAMILY_STEPS = 16
 # the MoE configs' decode vs forward: a prompt of this many tokens at
 # capacity_factor = n_experts / top_k, where no choice drops (a decode
 # step never drops; a prefill over capacity does)
@@ -2817,7 +2889,7 @@ def family_phase(dev) -> dict:
 # GPU), against the same steps in this process
 MESH_WORLD = 4
 MESH_SHAPE, MESH_ELASTIC = (2, 2), (4, 1)
-MESH_LAYERS = 4             # of qwen2.5-3b's 36: the cut
+MESH_LAYERS = 2             # of qwen2.5-3b's 36: the cut
 MESH_STEPS, MESH_MB = 2, 2
 MESH_BATCH, MESH_SEQ = 4, 2048
 MESH_TIMEOUT_S = 600
@@ -2833,7 +2905,7 @@ MESH_COLLECTIVES = ("all_reduce", "all_gather_into_tensor",
 # (``attn.bk`` aside: its gradient is 0 in exact arithmetic, the
 # softmax dropping a constant shift of a query's scores, so its AdamW
 # update is rounding noise scaled to the step: within 2 * lr * steps
-# absolute).  The first run on an H100 read 7.73e-8, 0 and 6.6e-5 (a
+# absolute).  The first run on an H100 (4 layers, PR 23) read 7.73e-8, 0 and 6.6e-5 (a
 # q bias) in fp32, 2.78e-5, 1.32e-4 and 0.0931 (a q bias) in bf16; the
 # bounds are about ten times the fp32 readings and twice the bf16 ones.
 # The planted fault (the data-axis gradient all-reduce skipped: each
@@ -2842,11 +2914,29 @@ MESH_COLLECTIVES = ("all_reduce", "all_gather_into_tensor",
 MESH_TOL = {"float32": dict(loss=1e-6, grad_norm=1e-6, param=1e-3),
             "bfloat16": dict(loss=1e-4, grad_norm=5e-4, param=0.2)}
 MESH_FAULT_MIN = 1e4
+# phase 18's MoE case: phi3.5-moe at full width, MESH_MOE_LAYERS of its
+# 32 layers (the card's memory: four ranks of 8 of the 16 experts and
+# their AdamW moments, ~9.4 GB a rank, beside this process's one-process
+# run of 1.56B parameters), experts over "model" by the default rules,
+# fp32 compute, one step of the dense case's tokens in one microbatch
+# (the aux loss is a step metric only then), held to MESH_TOL's fp32
+# bounds (aux to the loss's).  The planted fault (the load-balance loss
+# from each rank's own means, one forward pass) must read
+# MESH_MOE_FAULT_MIN times the aux bound
+MESH_MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+MESH_MOE_LAYERS = 1
+MESH_MOE_FAULT_MIN = 10
 
 
 def mesh_cfg(dtype: str):
     return dataclasses.replace(get_arch(LM_ARCH), n_layers=MESH_LAYERS,
                                dtype_compute=dtype)
+
+
+def mesh_moe_cfg():
+    return dataclasses.replace(get_arch(MESH_MOE_ARCH),
+                               n_layers=MESH_MOE_LAYERS,
+                               dtype_compute="float32")
 
 
 def mesh_batches(cfg, n: int) -> list:
@@ -2882,12 +2972,33 @@ def mesh_reference(dev, work: Path) -> dict:
         del model, step, state
         gc.collect()
         torch.cuda.empty_cache()
+    # the MoE case: one step in one microbatch, its aux kept
+    model = Model(mesh_moe_cfg())
+    step = make_train_step(model, TrainConfig(microbatches=1,
+                                              opt=TRAIN_OPT))
+    state = init_train_state(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = step(state, mesh_batches(model.cfg, 1)[0])
+    out["moe"] = dict(loss=[float(metrics["loss"])],
+                      grad_norm=[float(metrics["grad_norm"])],
+                      aux=[float(metrics["aux"])],
+                      seconds=[time.perf_counter() - t0])
+    ref = work / "ref_moe"
+    ref.mkdir()
+    for name, p in state["params"].items():
+        np.save(ref / f"{name}.npy", host(p.detach()))
+    del model, step, state
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
 def mesh_dryrun() -> dict:
     """Phase 18 (e), the dry-run's side: the (config, mesh, rules) of the
-    mesh run on a fake group of MESH_WORLD ranks, per compute dtype."""
+    mesh run on a fake group of MESH_WORLD ranks (one run for both
+    compute dtypes: the parameters and moments are fp32 in both, and the
+    dry-run's peaks of the two read alike), and of the MoE case."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from repro_torch.launch import dryrun
@@ -2897,9 +3008,11 @@ def mesh_dryrun() -> dict:
         mesh = init_device_mesh("cpu", MESH_SHAPE,
                                 mesh_dim_names=("data", "model"))
         case = ShapeCase("mesh", "train", MESH_SEQ, MESH_BATCH)
-        return {dtype: dryrun.run_cell(mesh_cfg(dtype), case, mesh,
-                                       microbatches=MESH_MB, fsdp="tp")
-                for dtype in ("float32", "bfloat16")}
+        dense = dryrun.run_cell(mesh_cfg("float32"), case, mesh,
+                                microbatches=MESH_MB, fsdp="tp")
+        return {"float32": dense, "bfloat16": dense,
+                "moe": dryrun.run_cell(mesh_moe_cfg(), case, mesh,
+                                       microbatches=1, fsdp="tp")}
     finally:
         dist.destroy_process_group()
 
@@ -2942,6 +3055,29 @@ def mesh_param_errors(state, ref: Path, rank: int) -> dict:
             continue
         errs[name] = float((full - want).norm() / want.norm())
     return dict(errs=errs, bk=bk)
+
+
+def shard_param_errors(state, ref: Path) -> dict:
+    """Every parameter's relative L2 error against the reference's, each
+    rank on its own shard (its slice of the saved tensor, nothing
+    gathered), the squared sums all-reduced over the ranks: every shard
+    is held by as many ranks, so the ratio is the whole tensor's."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    names, sums = [], []
+    for name, p in state["params"].items():
+        want = torch.from_numpy(np.load(ref / f"{name}.npy")).to(p.device)
+        want = distribute_tensor(want, p.device_mesh, p.placements,
+                                 src_data_rank=None).to_local()
+        got = p.detach().to_local()
+        sums.append(torch.stack([((got - want) ** 2).sum(),
+                                 (want ** 2).sum()]))
+        names.append(name)
+        del want
+    total = torch.stack(sums)
+    dist.all_reduce(total)
+    return dict(errs={n: float((t[0] / t[1]).sqrt())
+                      for n, t in zip(names, total)})
 
 
 def gloo_cuda_all_gather(real):
@@ -3046,9 +3182,11 @@ def mesh_worker(rank: int, world: int, work: str) -> int:
     DIR``), on card 0 in a gloo group, doing what ``DIR/case.json``
     says: ``train`` (the probe, then the mesh runs: fp32 and bf16
     compute, and the planted fault; the fp32 run saves a checkpoint
-    after its last step and takes one more) or ``elastic`` (restore that
-    checkpoint onto MESH_ELASTIC and take the one more step).  Writes
-    DIR/<mode><R>.json; a crash prints its Python stack (faulthandler)."""
+    after its last step and takes one more; then the MoE case) or
+    ``elastic`` (a fresh set of processes restores that checkpoint onto
+    MESH_ELASTIC and takes the one more step).  Writes
+    DIR/<mode><R>.json; a crash prints its Python stack
+    (faulthandler)."""
     import faulthandler
     import torch.distributed as dist
     import torch.distributed.tensor._collective_utils as dtensor_comm
@@ -3056,7 +3194,6 @@ def mesh_worker(rank: int, world: int, work: str) -> int:
     from repro_torch.checkpoint.ckpt import CheckpointManager
     from repro_torch.launch.dryrun import local_bytes
     from repro_torch.launch.mesh import make_local_mesh
-    from repro_torch.runtime.elastic import restore_for_mesh
     from repro_torch.sharding.rules import constrain_batch
     from repro_torch.train import train_step as ts
     faulthandler.enable()
@@ -3092,89 +3229,155 @@ def mesh_worker(rank: int, world: int, work: str) -> int:
             st, metrics = step(st, batch)
             rec["loss"].append(float(metrics["loss"]))
             rec["grad_norm"].append(float(metrics["grad_norm"]))
+            if "aux" in metrics:
+                rec.setdefault("aux", []).append(float(metrics["aux"]))
             rec["seconds"].append(time.perf_counter() - t0)
         rec["launches"] = flash_cuda.launches
         rec["peak"] = torch.cuda.max_memory_allocated()
         state["state"] = st
         return rec
 
+    def finish() -> int:
+        (work / f"{mode}{rank}.json").write_text(json.dumps(res))
+        dist.barrier()
+        dist.destroy_process_group()
+        return 0
+
     route_gloo_cuda_gathers()
-    if mode == "train":
-        mesh = make_local_mesh(MESH_SHAPE[1])
-        res["probe"] = mesh_probe(dev)
-        # a smoke-size state placed and freed first: the process's first
-        # placement also frees a few hundred bytes it held (640 on an
-        # H100), which the byte count of (e) must not see
-        init_train_state(Model(get_arch(LM_ARCH).smoke()), mesh)
-        for label, dtype in (("float32", "float32"),
-                             ("bfloat16", "bfloat16"),
-                             ("fault", "float32")):
-            print(f"[18 mesh] rank {rank}: {label} run", flush=True)
-            gc.collect()        # the probe's tensors, a run's leftovers
-            torch.cuda.synchronize()
-            base = torch.cuda.memory_allocated()
-            asked = requested_bytes()
-            model = Model(mesh_cfg(dtype))
-            st = init_train_state(model, mesh)
-            torch.cuda.synchronize()
-            held = torch.cuda.memory_allocated() - base
-            asked = requested_bytes() - asked
-            leaves = (list(st["params"].values())
-                      + [t for k in ("m", "v")
-                         for t in st["opt"][k].values()]
-                      + [st["opt"]["step"]])
-            placed = [constrain_batch(torch.from_numpy(v).to(dev), mesh)
-                      for v in batches[0].values()]
-            rec = dict(held=held, asked=asked,
-                       state_bytes=sum(local_bytes(t) for t in leaves),
-                       batch_bytes=sum(local_bytes(t) for t in placed))
-            del placed, leaves
-            holder = dict(model=model, state=st)
-            del st
-            real = ts.reduce_grads
-            if label == "fault":
-                ts.reduce_grads = skip_data_reduction
-            steps = 1 if label == "fault" else MESH_STEPS
-            try:
-                rec.update(run(mesh, holder, batches[:steps],
-                               MESH_MB))
-            finally:
-                ts.reduce_grads = real
-            rec["peak"] -= base
-            if label != "fault":
-                rec.update(mesh_param_errors(holder["state"],
-                                             work / f"ref_{dtype}", rank))
-            if label == "float32":
-                ckpt.save(MESH_STEPS, holder["state"])
-                rec["straight"] = run(mesh, holder,
-                                      batches[MESH_STEPS:], MESH_MB)
-            res[label] = rec
-            del model, holder
-            gc.collect()
-            torch.cuda.empty_cache()
-    else:
-        mesh = make_local_mesh(MESH_ELASTIC[1])
-        model = Model(mesh_cfg("float32"))
-        at, st, _ = restore_for_mesh(ckpt, model, mesh)
-        res["restored_at"] = at
-        if rank == 0:
-            with np.load(work / "ckpt" / f"step_{at:010d}" /
-                         "arrays.npz") as saved:
-                res["bit_equal"] = all(
-                    np.array_equal(host(p.detach().full_tensor()),
-                                   saved[f"params||{name}"])
-                    for name, p in st["params"].items())
+    if mode == "elastic":
+        res["elastic"] = mesh_elastic_run(rank, ckpt, work, batches, run)
+        return finish()
+    mesh = make_local_mesh(MESH_SHAPE[1])
+    res["probe"] = mesh_probe(dev)
+    # a smoke-size state placed and freed first: the process's first
+    # placement also frees a few hundred bytes it held (640 on an
+    # H100), which the byte count of (e) must not see
+    init_train_state(Model(get_arch(LM_ARCH).smoke()), mesh)
+    for label, dtype in (("float32", "float32"),
+                         ("bfloat16", "bfloat16"),
+                         ("fault", "float32")):
+        print(f"[18 mesh] rank {rank}: {label} run", flush=True)
+        gc.collect()        # the probe's tensors, a run's leftovers
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        asked = requested_bytes()
+        model = Model(mesh_cfg(dtype))
+        st = init_train_state(model, mesh)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - base
+        asked = requested_bytes() - asked
+        leaves = (list(st["params"].values())
+                  + [t for k in ("m", "v")
+                     for t in st["opt"][k].values()]
+                  + [st["opt"]["step"]])
+        placed = [constrain_batch(torch.from_numpy(v).to(dev), mesh)
+                  for v in batches[0].values()]
+        rec = dict(held=held, asked=asked,
+                   state_bytes=sum(local_bytes(t) for t in leaves),
+                   batch_bytes=sum(local_bytes(t) for t in placed))
+        del placed, leaves
         holder = dict(model=model, state=st)
         del st
-        # MESH_ELASTIC's data axis of 4 leaves each rank one of the 4
-        # rows: one microbatch
-        res["step"] = run(mesh, holder, batches[MESH_STEPS:], 1)
-        res["placements"] = sorted({str(p.placements) for p in
-                                    holder["state"]["params"].values()})
-    (work / f"{mode}{rank}.json").write_text(json.dumps(res))
-    dist.barrier()
-    dist.destroy_process_group()
-    return 0
+        real = ts.reduce_grads
+        if label == "fault":
+            ts.reduce_grads = skip_data_reduction
+        steps = 1 if label == "fault" else MESH_STEPS
+        try:
+            rec.update(run(mesh, holder, batches[:steps], MESH_MB))
+        finally:
+            ts.reduce_grads = real
+        rec["peak"] -= base
+        if label != "fault":
+            rec.update(mesh_param_errors(holder["state"], work /
+                                         f"ref_{dtype}", rank))
+        if label == "float32":
+            ckpt.save(MESH_STEPS, holder["state"])
+            rec["straight"] = run(mesh, holder,
+                                  batches[MESH_STEPS:], MESH_MB)
+        res[label] = rec
+        del model, holder
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["moe"] = mesh_moe_run(rank, mesh, dev, work, run)
+    return finish()
+
+
+def mesh_elastic_run(rank: int, ckpt, work: Path, batches, run) -> dict:
+    """Phase 18 (f) on one rank of a fresh set of processes (``run`` is
+    the worker's step runner): the fp32 run's checkpoint (rank 0 of the
+    train processes wrote it) restored onto a MESH_ELASTIC mesh, rank 0
+    holding the restored parameters against the saved arrays, and the
+    one more step."""
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.runtime.elastic import restore_for_mesh
+    mesh = make_local_mesh(MESH_ELASTIC[1])
+    model = Model(mesh_cfg("float32"))
+    at, st, _ = restore_for_mesh(ckpt, model, mesh)
+    el = dict(restored_at=at)
+    if rank == 0:
+        with np.load(work / "ckpt" / f"step_{at:010d}" /
+                     "arrays.npz") as saved:
+            el["bit_equal"] = all(
+                np.array_equal(host(p.detach().full_tensor()),
+                               saved[f"params||{name}"])
+                for name, p in st["params"].items())
+    holder = dict(model=model, state=st)
+    del st
+    # MESH_ELASTIC's data axis of 4 leaves each rank one of the 4 rows:
+    # one microbatch
+    el["step"] = run(mesh, holder, batches[MESH_STEPS:], 1)
+    el["placements"] = sorted({str(p.placements) for p in
+                               holder["state"]["params"].values()})
+    return el
+
+
+def mesh_moe_run(rank: int, mesh, dev, work: Path, run) -> dict:
+    """Phase 18's MoE case on one rank (``run`` is the worker's step
+    runner): the placed state's bytes, the planted fault's aux (one
+    forward pass from the initial parameters), then one step and the
+    parameters' errors against the one-process run's."""
+    from repro_torch.launch.dryrun import local_bytes
+    from repro_torch.sharding.rules import constrain_batch
+    # the planted fault, the same one the CPU test's ranks plant
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_mesh import local_mean_aux
+    print(f"[18 mesh] rank {rank}: moe run", flush=True)
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    asked = requested_bytes()
+    model = Model(mesh_moe_cfg())
+    st = init_train_state(model, mesh)
+    torch.cuda.synchronize()
+    asked = requested_bytes() - asked
+    leaves = (list(st["params"].values())
+              + [t for k in ("m", "v") for t in st["opt"][k].values()]
+              + [st["opt"]["step"]])
+    batch = mesh_batches(model.cfg, 1)[0]
+    placed = {k: constrain_batch(torch.from_numpy(v).to(dev), mesh)
+              for k, v in batch.items()}
+    rec = dict(asked=asked,
+               state_bytes=sum(local_bytes(t) for t in leaves),
+               batch_bytes=sum(local_bytes(t) for t in placed.values()),
+               placements=str(st["params"]["blocks.0.moe.wi"].placements))
+    real = moe_mod.balance_loss
+    moe_mod.balance_loss = local_mean_aux
+    try:
+        with torch.no_grad(), model.spmd():
+            _, metrics = model.loss(placed)
+        rec["fault_aux"] = float(metrics["aux"].full_tensor())
+    finally:
+        moe_mod.balance_loss = real
+    del leaves, placed, metrics
+    holder = dict(model=model, state=st)
+    del st
+    rec.update(run(mesh, holder, [batch], 1))
+    rec["peak"] -= base
+    rec.update(shard_param_errors(holder["state"], work / "ref_moe"))
+    del model, holder
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
 
 
 def mesh_workers(work: Path, mode: str) -> tuple:
@@ -3211,8 +3414,12 @@ def mesh_phase(dev) -> dict:
     and bf16 compute against (b), and a planted fault; (d) each rank's
     flash launches; (e) each rank's placed state bytes against the
     dry-run's on a fake group; (f) the fp32 run's checkpoint restored
-    onto MESH_ELASTIC bit for bit, its next step against the straight
-    run's."""
+    onto MESH_ELASTIC by a fresh set of processes, bit for bit, its next
+    step against the straight run's; and the MoE case (MESH_MOE_ARCH at
+    full width, MESH_MOE_LAYERS layers, experts over "model"): one step
+    against one process (loss, aux, grad norm, parameters), each rank's
+    state bytes against the dry-run's, its flash launches, and a planted
+    fault in the aux."""
     t_phase = time.perf_counter()
     work = ROOT / "build" / f"chip_smoke_mesh_{int(time.time() * 1e3)}"
     work.mkdir(parents=True)
@@ -3220,6 +3427,7 @@ def mesh_phase(dev) -> dict:
         ref = mesh_reference(dev, work)
         t_ref = time.perf_counter() - t_phase
         dry = mesh_dryrun()
+        t_dry = time.perf_counter() - t_phase - t_ref
         res, rcs, outs, train_s = mesh_workers(work, "train")
         for r, (rc, o) in enumerate(zip(rcs, outs)):
             check(rc == 0, f"mesh rank {r} exited {rc}:\n{o[-6000:]}")
@@ -3276,12 +3484,60 @@ def mesh_phase(dev) -> dict:
             f"{[round(x, 3) for x in want['seconds']]}); peak GiB a rank "
             + ", ".join(f"{r[label]['peak'] / 2 ** 30:.3f}" for r in res)
             + f" (dry-run {dry[label]['peak_bytes'] / 2 ** 30:.3f})")
+    # the MoE case
+    tol, want = MESH_TOL["float32"], ref["moe"]
+    moe_launches = MESH_MOE_LAYERS * 1 * 2
+    moe_state = dry["moe"]["argument_bytes"] - dry["moe"]["batch_bytes"]
+    for r in res:
+        got = r["moe"]
+        check(got["launches"] == moe_launches,
+              f"(d) moe rank {r['rank']}: {got['launches']} flash launches, "
+              f"not {moe_launches}")
+        check(got["asked"] == got["state_bytes"] == moe_state
+              and got["batch_bytes"] == dry["moe"]["batch_bytes"],
+              f"(e) moe rank {r['rank']}: the allocator holds "
+              f"{got['asked']} B asked for the state ({got['state_bytes']} "
+              f"B of shards), batch {got['batch_bytes']} B, against the "
+              f"dry-run's {dry['moe']}")
+        check(rel(got["loss"][0], want["loss"][0]) <= tol["loss"]
+              and rel(got["aux"][0], want["aux"][0]) <= tol["loss"]
+              and rel(got["grad_norm"][0], want["grad_norm"][0])
+              <= tol["grad_norm"],
+              f"(c) moe rank {r['rank']}: loss {got['loss']} / "
+              f"{want['loss']}, aux {got['aux']} / {want['aux']}, grad "
+              f"norm {got['grad_norm']} / {want['grad_norm']}")
+    m0 = res[0]["moe"]
+    moe_worst = max(m0["errs"], key=m0["errs"].get)
+    check(m0["errs"][moe_worst] <= tol["param"],
+          f"(c) moe: parameter {moe_worst} relative L2 error "
+          f"{m0['errs'][moe_worst]}")
+    moe_fault = rel(m0["fault_aux"], want["aux"][0])
+    check(moe_fault >= MESH_MOE_FAULT_MIN * tol["loss"],
+          f"(c) moe: the planted fault (aux from a rank's own means) reads "
+          f"only {moe_fault} from the one-process aux")
+    lines.append(
+        f"moe ({MESH_MOE_ARCH}, {MESH_MOE_LAYERS} of 32 layers, experts "
+        f"{m0['placements']}): loss {m0['loss'][0]:.6f} (one process "
+        f"{want['loss'][0]:.6f}), rel loss "
+        f"{rel(m0['loss'][0], want['loss'][0]):.3g}, aux "
+        f"{rel(m0['aux'][0], want['aux'][0]):.3g} ({m0['aux'][0]:.6f}), "
+        f"grad norm {rel(m0['grad_norm'][0], want['grad_norm'][0]):.3g}, "
+        f"param {m0['errs'][moe_worst]:.3g} ({moe_worst}); planted fault "
+        f"(aux from a rank's own means) {moe_fault:.3g} "
+        f"({moe_fault / tol['loss']:.3g} times the bound); step s "
+        f"{round(m0['seconds'][0], 3)} (one process "
+        f"{round(want['seconds'][0], 3)}); state bytes a rank "
+        f"{m0['asked']} = the dry-run's; peak GiB a rank "
+        + ", ".join(f"{r['moe']['peak'] / 2 ** 30:.3f}" for r in res)
+        + f" (dry-run {dry['moe']['peak_bytes'] / 2 ** 30:.3f}); flash "
+        f"launches a rank {moe_launches}")
     fault = res[0]["fault"]
     f_gn = rel(fault["grad_norm"][0], ref["float32"]["grad_norm"][0])
     check(f_gn >= MESH_FAULT_MIN * MESH_TOL["float32"]["grad_norm"],
           f"(c) the planted fault's grad norm reads only {f_gn} from the "
           f"one-process step's")
     straight = res[0]["float32"]["straight"]
+    el = [r["elastic"] for r in el]
     step3 = el[0]["step"]
     check(all(r["restored_at"] == MESH_STEPS for r in el)
           and el[0]["bit_equal"],
@@ -3293,13 +3549,15 @@ def mesh_phase(dev) -> dict:
           f"(f) step {MESH_STEPS + 1} after the restore: {step3} against "
           f"the straight run's {straight}")
     elastic_launches = MESH_LAYERS * 1 * 2
-    for r in el:
-        check(r["step"]["launches"] == elastic_launches,
-              f"(d) elastic rank {r['rank']}: {r['step']['launches']} "
-              f"flash launches, not {elastic_launches}")
+    for rank, r in enumerate(el):
+        n = r["step"]["launches"]
+        check(n == elastic_launches,
+              f"(d) elastic rank {rank}: {n} flash launches, not "
+              f"{elastic_launches}")
     launches = sum(r[k]["launches"] + (r[k]["straight"]["launches"]
                                        if k == "float32" else 0)
-                   for r in res for k in ("float32", "bfloat16", "fault")) \
+                   for r in res for k in ("float32", "bfloat16", "fault",
+                                          "moe")) \
         + sum(r["step"]["launches"] for r in el)
     print(f"[18 mesh] {LM_ARCH} full width, {MESH_LAYERS} of 36 layers (the "
           f"cut), mesh (data, model) {MESH_SHAPE} in {MESH_WORLD} processes "
@@ -3320,11 +3578,105 @@ def mesh_phase(dev) -> dict:
           f"restored onto "
           f"{MESH_ELASTIC} {el[0]['placements']} bit for bit, step "
           f"{MESH_STEPS + 1} loss {step3['loss'][0]:.6f} (straight "
-          f"{straight['loss'][0]:.6f}); seconds: reference {t_ref:.1f}, "
-          f"mesh runs {train_s:.1f}, elastic "
-          f"{elastic_s:.1f}, phase {time.perf_counter() - t_phase:.1f}",
+          f"{straight['loss'][0]:.6f}) in fresh processes; seconds: "
+          f"reference {t_ref:.1f}, dry-run {t_dry:.1f}, mesh runs "
+          f"{train_s:.1f}, elastic {elastic_s:.1f}, phase "
+          f"{time.perf_counter() - t_phase:.1f}",
           flush=True)
     return {"launches": {"flash_attention": launches}}
+
+
+# phase 19: the cost tools on the card.  (a) the two-point probe's FLOPs
+# of phase 16 (b)'s step (its config and tokens, on meta tensors in this
+# process, nothing on the card) against phase 16's live count of its
+# first step (FlopCounterMode plus the flash kernel's formula) within
+# COST_TOL relative; (b) the step's FLOPs over its seconds as a share of
+# the card's bf16 peak; (c) the join's dry-run, rank 0 of COST_JOIN_WORLD
+# of the distributed count on the card, against the same shard on the
+# CPU (plain versions), for both of the reference's queries
+COST_TOL = 0.01
+COST_JOIN_WORLD = 256
+
+
+def cost_phase(trained: dict) -> dict:
+    """Phase 19 (see above); returns the kernel launches of (c)'s passes
+    on the card."""
+    from repro_torch.launch import dryrun_join
+    from repro_torch.launch.shapes import ShapeCase
+    t_phase = time.perf_counter()
+    cfg = get_arch(LM_ARCH)
+    case = ShapeCase("phase16", "train", TRAIN_SEQ, TRAIN_BATCH)
+    t0 = time.perf_counter()
+    probe = costprobe.probe_costs(
+        cfg, case, None, lambda c, cs, m: costprobe.cell_costs(
+            c, cs, m, microbatches=1))
+    probe_s = time.perf_counter() - t0
+    live = trained["live"]
+    err = rel(probe["flops"], live["flops"])
+    check(err <= COST_TOL,
+          f"(a) the probe's {probe['flops']:.6g} FLOPs against the live "
+          f"count's {live['flops']:.6g} ({err:.3g} apart)")
+    model_flops = roofline.model_flops(cfg, case, 1)
+    peak = roofline.PEAK_FLOPS[cfg.dtype_compute]
+    step_s = trained["step_s"]
+    roof = roofline.from_costs(probe, cfg, case, 1)
+    launches: dict = {}
+    joins = {}
+    reset_launches()
+    for query in ("5-path", "5-cycle"):
+        on_card = dryrun_join.run_join(query=query, device="cuda",
+                                       world=COST_JOIN_WORLD)
+        card_launches = read_launches()
+        on_cpu = dryrun_join.run_join(query=query, device="cpu",
+                                      world=COST_JOIN_WORLD)
+        for key in ("shard_count", "shard_overflow"):
+            check(on_card[key] == on_cpu[key],
+                  f"(c) {query}: rank 0's {key} on the card "
+                  f"{on_card[key]}, on the CPU {on_cpu[key]}")
+        joins[query] = (on_card, on_cpu)
+        reset_launches()
+        for name, n in card_launches.items():
+            launches[name] = launches.get(name, 0) + n
+    check(joins["5-path"][0]["shard_count"] > 0,
+          "(c) rank 0's 5-path shard counted nothing")
+    check(launches["expand"] > 0,
+          f"(c) the join's passes on the card launched no EXPAND kernel: "
+          f"{launches}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"[19 cost] (a) {LM_ARCH} train step of phase 16 (b) "
+          f"({TRAIN_BATCH} x {TRAIN_SEQ} tokens, {TRAIN_MB} microbatches, "
+          f"remat {cfg.remat_policy}, {cfg.dtype_compute}): probe "
+          f"{probe['flops']:.6g} FLOPs (one group "
+          f"{probe['probe_points']['one_group']['flops']:.6g}, two "
+          f"{probe['probe_points']['two_groups']['flops']:.6g}; "
+          f"{probe_s:.1f} s on the host), live count {live['flops']:.6g} "
+          f"(FlopCounterMode {live['flops'] - live['kernel_flops']:.6g} + "
+          f"the flash kernel's formula {live['kernel_flops']:.6g} over "
+          f"{live['launches']} launches; counted step 1 "
+          f"{live['seconds']:.3f} s): {err:.3g} apart (tol {COST_TOL}); "
+          f"probe bytes {probe['bytes']:.6g} (unfused bound), roofline compute "
+          f"{roof.compute_s:.4f} s, memory {roof.memory_s:.4f} s, dominant "
+          f"{roof.dominant}; (b) on {smi}: step {step_s:.3f} s (phase 16 "
+          f"(b)'s median), model FLOPs {model_flops:.6g} = "
+          f"{model_flops / step_s / 1e12:.2f} TFLOP/s = "
+          f"{model_flops / step_s / peak:.2%} of {peak / 1e12:.0f} TFLOP/s,"
+          f" counted FLOPs {live['flops'] / step_s / 1e12:.2f} TFLOP/s = "
+          f"{live['flops'] / step_s / peak:.2%}; (c) join dry-run, rank 0 of "
+          f"{COST_JOIN_WORLD}: " + "; ".join(
+              f"{q} count {c['shard_count']} overflow {c['shard_overflow']} "
+              f"(CPU plain {u['shard_count']}, {u['shard_overflow']}), pass "
+              f"{c['pass_s']} s (CPU {u['pass_s']}), peak "
+              f"{c['memory']['peak_device_bytes']} B, tables "
+              f"{c['memory']['table_bytes']} B, frontier chunk "
+              f"{c['memory']['frontier_bytes']} B, collectives "
+              f"{c['collectives']['all-reduce']} B all-reduce"
+              for q, (c, u) in joins.items())
+          + f"; launches on the card " + json.dumps(launches)
+          + f" | phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(launches=launches)
 
 
 def main() -> int:
@@ -3591,6 +3943,7 @@ def main() -> int:
             lg, caches = lm_model.decode(caches, tok, LM_PROMPT + i)
             tok = lg.argmax(-1)[:, None]
 
+    t7 = time.perf_counter()
     for label, run in (
             ("count-grqc", lambda: engine.count(q, db2, capacity=C)),
             ("evaluate", lambda: engine.evaluate(q, db2, capacity=C)),
@@ -3598,8 +3951,11 @@ def main() -> int:
             ("chain-count-grqc",
              lambda: engine.count(q, db2, capacity=C, **CHAIN)),
             ("lm-prefill-decode8", lm_serve)):
-        print(f"[7 profile {label}] " + profile_line(run), flush=True)
+        # the smallest trace holds the fast summary against the slow one
+        print(f"[7 profile {label}] " + profile_line(
+            run, cross_check=label == "static-evaluate"), flush=True)
     srv.close()
+    print(f"[7 profile] phase {time.perf_counter() - t7:.1f} s", flush=True)
 
     # 16. training qwen2.5-3b at full width and depth, after phase 14's
     #     model, the static and payload engines and the server are freed
@@ -3625,6 +3981,12 @@ def main() -> int:
     print(f"[18 mesh] total {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
+    # 19. the cost tools: the probe against a live count, the step's
+    #     share of the peak, the join's dry-run on the card
+    costed = cost_phase(trained)
+    print(f"[19 cost] total {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
     kernels = []
     for name, r in rows.items():
         src, replaces = SOURCES[name]
@@ -3633,7 +3995,8 @@ def main() -> int:
              + lf["launches"][name] + served["launches"][name]
              + knobs["launches"][name] + lm["launches"][name]
              + trained["launches"][name] + fam["launches"][name]
-             + meshed["launches"].get(name, 0))
+             + meshed["launches"].get(name, 0)
+             + costed["launches"].get(name, 0))
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": n,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],

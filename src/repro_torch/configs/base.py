@@ -3,9 +3,10 @@
 A copy of the reference's ``repro/configs/base.py`` (it imports no JAX):
 every architecture is an ``ArchConfig`` instance, one module per arch.
 The fields are the reference's, all of them, so a reference config
-carries across field for field (``convert.arch_config_from_reference``);
-the port's model honours every one but ``cost_exact``, and
-:meth:`check_ported` refuses a config that sets it.
+carries across field for field (``convert.arch_config_from_reference``),
+and the port's model honours every one (``cost_exact``: the loss in one
+chunk, as the reference's cost probe takes it); :meth:`check_ported`
+refuses a config that sets a field listed in ``WAITING`` (none now).
 :meth:`param_count` and :meth:`active_param_count` count through the
 port's ``models/specs.py``.
 """
@@ -17,9 +18,7 @@ from typing import Optional, Tuple
 # fields the port's model does not honour yet, with the ROADMAP item that
 # ports them (Queue 1): a config that sets one away from its default is
 # refused.  max_seq, which no model code reads, carries across as data.
-WAITING = {
-    "cost_exact": "item 4f (the reference's cost probe is not ported)",
-}
+WAITING: dict = {}
 
 
 @dataclass(frozen=True)
@@ -60,9 +59,10 @@ class ArchConfig:
     remat_policy: str = "full"     # none | full | dots
     dtype_compute: str = "bfloat16"
     max_seq: int = 4096            # default trained context (shapes override)
-    # cost-probe mode: unroll every scan (layers, flash blocks, loss chunks)
-    # so compiled.cost_analysis() counts true totals — XLA counts a while
-    # body ONCE regardless of trip count (see launch/costprobe.py)
+    # cost-probe mode: the reference unrolls every scan (layers, flash
+    # blocks, loss chunks) so XLA's cost analysis counts true totals; the
+    # port's loops are Python, and its Model.loss takes one chunk, as the
+    # reference's does (see launch/costprobe.py)
     cost_exact: bool = False
     # Megatron-style sequence parallelism: residuals/LN constrained to a
     # sequence-sharded layout between blocks, turning per-layer activation

@@ -30,18 +30,27 @@ def erdos_renyi(n: int, m_edges: int, seed: int = 0) -> np.ndarray:
 
 
 def barabasi_albert(n: int, m_per_node: int = 3, seed: int = 0) -> np.ndarray:
-    """Preferential attachment — heavy-tailed degree distribution."""
+    """Preferential attachment — heavy-tailed degree distribution.
+
+    The reference's draws, edge for edge: the endpoint list it samples
+    from is kept in a numpy buffer and its distinct count as a set,
+    where the reference converts the whole list on every draw."""
     rng = np.random.default_rng(seed)
-    targets = list(range(m_per_node))
-    repeated: list = list(range(m_per_node))
+    repeated = np.empty(m_per_node + 2 * m_per_node * max(n, 0), np.int64)
+    repeated[:m_per_node] = np.arange(m_per_node)
+    size = m_per_node
+    distinct = set(range(m_per_node))
     edges = []
     for v in range(m_per_node, n):
-        chosen = rng.choice(repeated, size=m_per_node, replace=False) \
-            if len(set(repeated)) >= m_per_node else \
+        chosen = rng.choice(repeated[:size], size=m_per_node,
+                            replace=False) \
+            if len(distinct) >= m_per_node else \
             rng.integers(0, v, size=m_per_node)
         for u in set(int(u) for u in chosen):
             edges.append((v, u))
-            repeated.extend([v, u])
+            repeated[size:size + 2] = (v, u)
+            size += 2
+            distinct.update((v, u))
     return np.asarray(edges, np.int64)
 
 

@@ -1,10 +1,10 @@
-"""Multi-pod memory dry-run: every (arch × shape × mesh) cell on a fake
-process group, nothing allocated.
+"""Multi-pod dry-run: every (arch × shape × mesh) cell on a fake process
+group, nothing allocated: each rank's memory and roofline terms.
 
-The counterpart of the reference's ``repro/launch/dryrun.py`` (memory
-only).  The reference lowers each cell's step ahead of time on 256 or 512
-forced host devices; here one process joins PyTorch's fake process group
-of 256 or 512 ranks (``torch.testing._internal.distributed.fake_pg``: its
+The counterpart of the reference's ``repro/launch/dryrun.py``.  The
+reference lowers each cell's step ahead of time on 256 or 512 forced
+host devices; here one process joins PyTorch's fake process group of 256
+or 512 ranks (``torch.testing._internal.distributed.fake_pg``: its
 collectives return at once), builds the production mesh on it, places
 the cell's arguments as DTensors with meta-device shards (shapes and
 dtypes, no storage) and runs the cell's train step, prefill or decode
@@ -20,15 +20,17 @@ step once on them.  A record holds, for one rank of the mesh:
   runs, arguments included (``torch.distributed._tools.mem_tracker``),
   and ``temp_bytes = peak_bytes - argument_bytes``, with attention
   modelled by the flash kernel's allocations (:class:`KernelAllocations`);
-* ``trace_s``: the seconds the run took on the host.
+* ``trace_s``: the seconds the memory run took on the host;
+* ``roofline`` (``launch/roofline.py``'s terms on the H100) and
+  ``probe_points``: the two-point cost probe's per-rank FLOPs, bytes and
+  collective bytes (``launch/costprobe.py``), unless ``--no-probe`` (the
+  memory record alone, as the reference's ``--no-probe`` keeps its raw
+  analysis); ``probe_s``, its seconds.
 
 A cell whose step fails records ``status: "error"`` and the message, as
 the reference's ``main`` does; ``long_500k`` on a full-attention arch is
-``skipped`` (``shapes.cell_supported``).  The reference's XLA cost
-analysis and roofline (``roofline.py``, ``costprobe.py``,
-``hillclimb.py``, ``--no-probe``) and ``dryrun_join.py`` are not ported
-(ROADMAP Queue 1, item 4f).  Results append incrementally to a JSON file
-(``launch/report.py`` renders it).
+``skipped`` (``shapes.cell_supported``).  Results append incrementally
+to a JSON file (``launch/report.py`` renders it).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh both --out dryrun.json
@@ -134,13 +136,15 @@ def cache_shardings(cache_struct, mesh):
 
 
 def _placed(spec: TensorSpec, sharding) -> torch.Tensor:
-    """A DTensor of ``spec`` on the meta device placed by ``sharding``."""
-    return shr.place(torch.empty(spec.shape, dtype=spec.dtype,
-                                 device="meta"), sharding)
+    """A DTensor of ``spec`` on the meta device placed by ``sharding`` (a
+    plain meta tensor when None: one process's)."""
+    t = torch.empty(spec.shape, dtype=spec.dtype, device="meta")
+    return t if sharding is None else shr.place(t, sharding)
 
 
 def batch_arguments(cfg, case: ShapeCase, mesh) -> Dict:
-    return {k: _placed(s, shr.batch_named_sharding(mesh, s.shape))
+    return {k: _placed(s, None if mesh is None else
+                       shr.batch_named_sharding(mesh, s.shape))
             for k, s in batch_specs(cfg, case).items()}
 
 
@@ -172,30 +176,38 @@ class KernelAllocations(torch.autograd.Function):
     computed (meta tensors hold no values).  The plain path's blocked
     recompute in backward (``cuda.FlashAttention``) adds block
     temporaries of B·H·512·1024 fp32 scores a step on the card, which
-    this does not model."""
+    this does not model.  ``count(q, k, masks, backward)``, when given,
+    is told of each call (the cost probe adds its FLOPs)."""
 
     @staticmethod
-    def forward(ctx, q, k, v):
+    def forward(ctx, q, k, v, masks, count):
         ctx.save_for_backward(q, k, v)
+        ctx.masks, ctx.count = masks, count
+        if count is not None:
+            count(q, k, masks)
         return torch.empty_like(q)
 
     @staticmethod
     def backward(ctx, grad_out):
-        return tuple(torch.empty_like(x) for x in ctx.saved_tensors)
+        q, k, v = ctx.saved_tensors
+        if ctx.count is not None:
+            ctx.count(q, k, ctx.masks, backward=True)
+        return tuple(torch.empty_like(x) for x in (q, k, v)) + (None, None)
 
 
 @contextlib.contextmanager
-def attention_as_kernel():
+def attention_as_kernel(count=None):
     """Inside, attention on local (meta) tensors is
-    :class:`KernelAllocations`: the card's kernel, where the meta
-    tensors would otherwise run the plain path block by block (tens of
-    thousands of ops a layer at 32k tokens)."""
+    :class:`KernelAllocations` (told of each call through ``count``):
+    the card's kernel, where the meta tensors would otherwise run the
+    plain path block by block (tens of thousands of ops a layer at 32k
+    tokens)."""
     real = fa_ops.flash_attention
 
     def on_card(q, k, v, **kw):
         if hasattr(q, "device_mesh"):
             return real(q, k, v, **kw)
-        return KernelAllocations.apply(q, k, v)
+        return KernelAllocations.apply(q, k, v, kw, count)
     fa_ops.flash_attention = on_card
     try:
         yield
@@ -211,26 +223,33 @@ def place_cell(cfg, case: ShapeCase, mesh, microbatches: int = 4,
     (state leaves, batch, run), ``run()`` taking the cell's step once.
     ``fsdp`` picks the train state's shardings (:func:`train_shardings`);
     serving cells place bf16 parameters by ``srules`` (the default rules
-    when None) and, for decode, the caches by :func:`cache_shardings`."""
+    when None) and, for decode, the caches by :func:`cache_shardings`.
+    With ``mesh=None`` the arguments are one process's meta tensors."""
     model = Model(cfg, device="meta")
     batch = batch_arguments(cfg, case, mesh)
     if case.kind == "train":
         mb = microbatches if case.batch % microbatches == 0 else 1
-        state = init_train_state(model, mesh,
-                                 train_shardings(model, mesh, fsdp))
+        state = init_train_state(model) if mesh is None else \
+            init_train_state(model, mesh, train_shardings(model, mesh, fsdp))
         step = make_train_step(model, TrainConfig(
             microbatches=mb, grad_dtype=grad_dtype), mesh)
         return list(_leaves(state)), batch, lambda: step(state, batch)
-    params = place_parameters(model, param_shardings(model, mesh, srules),
-                              dtype=torch.bfloat16)
+    if mesh is None:
+        params = dict(model.to(torch.bfloat16).named_parameters())
+    else:
+        params = place_parameters(model, param_shardings(model, mesh,
+                                                         srules),
+                                  dtype=torch.bfloat16)
     if case.kind == "prefill":
         def run():
             with model.spmd():
                 return model.prefill(batch)
         return list(params.values()), batch, run
     cstruct = model.cache_shapes(case.batch, case.seq)
+    shardings = [dict.fromkeys(layer) for layer in cstruct] if mesh is None \
+        else cache_shardings(cstruct, mesh)
     caches = [{n: _placed(s, sh[n]) for n, s in layer.items()}
-              for layer, sh in zip(cstruct, cache_shardings(cstruct, mesh))]
+              for layer, sh in zip(cstruct, shardings)]
 
     def run():
         with model.spmd():
@@ -272,11 +291,12 @@ def fake_group(world: int) -> None:
 
 def lower_cell(arch: str, shape: str, multi_pod: bool,
                remat: Optional[str] = None, microbatches: int = 4,
-               fsdp: str = "zero3") -> Dict:
+               fsdp: str = "zero3", probe: bool = True) -> Dict:
     """The record of one cell on the production mesh (256 or 512 fake
     ranks): ``skipped`` as ``cell_supported`` says, else ``ok`` with its
-    memory.  Serving cells decide their rules on the full config
-    (:func:`serve_rules`)."""
+    memory and, with ``probe``, its roofline.  Serving cells decide
+    their rules on the full config (:func:`serve_rules`), so the
+    reduced-depth probes place as the cell does."""
     import torch.distributed as dist
     cfg = get_arch(arch)
     if remat:
@@ -296,13 +316,24 @@ def lower_cell(arch: str, shape: str, multi_pod: bool,
                        fsdp=fsdp, srules=srules)
         trace_s = time.perf_counter() - t0
         n_dev = mesh.size()
+        rec = {"arch": arch, "shape": shape, "mesh": mesh_name,
+               "n_devices": n_dev, "status": "ok",
+               "fsdp": fsdp if case.kind == "train" else
+               ("zero3-inference" if srules else "tp"),
+               "trace_s": round(trace_s, 3), "memory": mem}
+        if probe:
+            from . import costprobe
+            from . import roofline as rl
+            t0 = time.perf_counter()
+            pc = costprobe.probe_costs(
+                cfg, case, mesh, lambda c, cs, m: costprobe.cell_costs(
+                    c, cs, m, microbatches=1, fsdp=fsdp, srules=srules))
+            rec["probe_s"] = round(time.perf_counter() - t0, 3)
+            rec["roofline"] = rl.from_costs(pc, cfg, case, n_dev).as_dict()
+            rec["probe_points"] = pc["probe_points"]
     finally:
         dist.destroy_process_group()
-    return {"arch": arch, "shape": shape, "mesh": mesh_name,
-            "n_devices": n_dev, "status": "ok",
-            "fsdp": fsdp if case.kind == "train" else
-            ("zero3-inference" if srules else "tp"),
-            "trace_s": round(trace_s, 3), "memory": mem}
+    return rec
 
 
 def main() -> None:
@@ -315,6 +346,7 @@ def main() -> None:
     ap.add_argument("--out", default="dryrun_results.json")
     ap.add_argument("--skip-done", action="store_true")
     ap.add_argument("--microbatches", type=int, default=8)
+    ap.add_argument("--no-probe", action="store_true")
     args = ap.parse_args()
 
     archs = list(ARCHS) if args.arch == "all" else args.arch.split(",")
@@ -338,7 +370,8 @@ def main() -> None:
                 print(f"[dryrun] {key} ...", flush=True)
                 try:
                     rec = lower_cell(arch, shape, mp, remat=args.remat,
-                                     microbatches=args.microbatches)
+                                     microbatches=args.microbatches,
+                                     probe=not args.no_probe)
                 except Exception as e:   # a failure here is a bug: record it
                     rec = {"arch": arch, "shape": shape,
                            "mesh": "multi" if mp else "single",
@@ -352,11 +385,16 @@ def main() -> None:
                     json.dump(results, f, indent=1)
                 if rec["status"] == "ok":
                     m = rec["memory"]
+                    roof = ""
+                    if "roofline" in rec:
+                        r = rec["roofline"]
+                        roof = (f"  dominant={r['dominant']}  roofline_frac="
+                                f"{r['roofline_fraction']:.3f}")
                     print(f"  ok: {rec['trace_s']} s  args "
                           f"{m['argument_bytes'] / 2 ** 30:.2f} GiB/dev  "
                           f"peak {m['peak_bytes'] / 2 ** 30:.2f} GiB/dev  "
-                          f"temp {m['temp_bytes'] / 2 ** 30:.2f} GiB/dev",
-                          flush=True)
+                          f"temp {m['temp_bytes'] / 2 ** 30:.2f} GiB/dev"
+                          + roof, flush=True)
                 else:
                     print(f"  {rec['status']}: "
                           f"{rec.get('reason', rec.get('error', ''))[:200]}",

@@ -3,10 +3,11 @@
     PYTHONPATH=src python -m repro_torch.launch.report dryrun_results.json
 
 The counterpart of the reference's ``repro/launch/report.py``: the
-summary and the per-mesh memory tables, with each rank's peak beside its
+summary, the per-mesh memory tables, with each rank's peak beside its
 argument and temporary bytes (a fake-group dry-run: no card measured
-them).  The reference's roofline table waits for the port's roofline
-(ROADMAP Queue 1, item 4f).
+them), and the roofline table of each probed cell (``launch/roofline.py``:
+the H100's peaks against one rank's counted FLOPs, bytes and collective
+bytes; the terms a card would take at its peaks, not times measured).
 """
 from __future__ import annotations
 
@@ -39,6 +40,23 @@ def dryrun_table(rows: List[Dict], mesh: str) -> str:
     return "\n".join(out)
 
 
+def roofline_table(rows: List[Dict], mesh: str = "single") -> str:
+    out = ["| arch | shape | compute s | memory s | collective s | "
+           "dominant | MODEL/counted flops | roofline frac |",
+           "|---|---|---|---|---|---|---|---|"]
+    for r in rows:
+        if r["mesh"] != mesh or r["status"] != "ok" or "roofline" not in r:
+            continue
+        rf = r["roofline"]
+        out.append(
+            f"| {r['arch']} | {r['shape']} "
+            f"| {rf['compute_s']:.4f} | {rf['memory_s']:.4f} "
+            f"| {rf['collective_s']:.4f} | **{rf['dominant']}** "
+            f"| {rf['useful_flop_ratio']:.2f} "
+            f"| {rf['roofline_fraction']:.3f} |")
+    return "\n".join(out)
+
+
 def summary(rows: List[Dict]) -> str:
     ok = sum(1 for r in rows if r["status"] == "ok")
     sk = sum(1 for r in rows if r["status"] == "skipped")
@@ -58,6 +76,8 @@ def main() -> None:
     print(dryrun_table(rows, "single"))
     print("\n## Dry-run (multi-pod 2x16x16 = 512 fake ranks)\n")
     print(dryrun_table(rows, "multi"))
+    print("\n## Roofline on the H100 (single-pod, two-point probe)\n")
+    print(roofline_table(rows, "single"))
 
 
 if __name__ == "__main__":

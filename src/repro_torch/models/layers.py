@@ -29,12 +29,23 @@ def settle(x: torch.Tensor) -> torch.Tensor:
     (and pod) axes, every other dimension whole on each rank, so the
     partial sums a matmul over a split dimension leaves are all-reduced
     here (the row-parallel reduction of tensor parallelism), not left to
-    the next op to place as it likes.  A plain tensor is returned as it
-    is."""
+    the next op to place as it likes.  Its gradient takes the same
+    placement in backward: the residual stream's gradient, partial over
+    ``"model"`` where a column-parallel product's input gradient joined
+    it, is all-reduced here, so the sublayer's backward products run on
+    each rank's split (left partial, DTensor would gather a split weight
+    or activation whole and multiply it on every rank).  A plain tensor
+    is returned as it is."""
     if not hasattr(x, "device_mesh"):
         return x
+    from torch.distributed.tensor import DTensor
     from ..sharding.rules import constrain_batch
-    return constrain_batch(x, x.device_mesh)
+    y = constrain_batch(x, x.device_mesh)
+    # identity forward; backward redistributes the gradient to y's
+    # placements (from_local's backward)
+    return DTensor.from_local(y.to_local(), y.device_mesh, y.placements,
+                              run_check=False, shape=y.shape,
+                              stride=y.stride())
 
 
 def cdt(cfg: ArchConfig) -> torch.dtype:

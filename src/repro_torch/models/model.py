@@ -149,7 +149,8 @@ class Model(nn.Module):
         under ``torch.utils.checkpoint`` when grad is enabled, so backward
         recomputes them and the (B, T, V) logits never exist at once.
         ``batch["mask"]`` (B, T) weights the targets, ones by default;
-        the mean divides by max(mask sum, 1)."""
+        the mean divides by max(mask sum, 1).  A ``cost_exact`` config
+        takes one chunk (the reference's cost-probe mode)."""
         targets = self._tokens(batch["targets"])
         hidden, aux = T.forward_hidden(self.cfg, self, self._inputs(batch),
                                        impl=self.impl)
@@ -159,6 +160,8 @@ class Model(nn.Module):
                 mask, dtype=torch.float32, device=self.device)
         t = hidden.shape[1]
         c = self.loss_chunk if t % self.loss_chunk == 0 else t
+        if self.cfg.cost_exact:
+            c = t                  # cost-probe mode: one chunk
         remat = torch.is_grad_enabled()
         nll_sum = torch.zeros((), device=self.device)
         mask_sum = torch.zeros((), device=self.device)

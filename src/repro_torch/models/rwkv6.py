@@ -97,10 +97,11 @@ def _chunks(r, k, v, logw, u, state):
     tri = torch.tril(torch.ones((L, L), dtype=torch.bool, device=r.device),
                      diagonal=-1)
     ys = []
-    for c in range(nC):
-        sl = slice(c * L, (c + 1) * L)
-        rc, kc, vc, lwc = r[:, :, sl], k[:, :, sl], v[:, :, sl], \
-            logw[:, :, sl]                                    # (B,H,L,dh)
+    # split, not sliced a chunk at a time: split's backward is one cat,
+    # where each slice's backward would write a whole (B, H, T, dh)
+    # gradient (bytes quadratic in the chunk count)
+    for rc, kc, vc, lwc in zip(*(a.split(L, dim=2)
+                                 for a in (r, k, v, logw))):  # (B,H,L,dh)
         lp = torch.cumsum(lwc, dim=2)                         # inclusive
         lp_prev = lp - lwc                                    # exclusive
         q_ = rc * torch.exp(lp_prev)

@@ -38,8 +38,8 @@ def test_imports_without_jax_and_reference():
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
     assert len(MODULES) >= 20
-    # the host engines, the FOLD / EMIT chains, the training modules and
-    # the block families are among them
+    # the host engines, the FOLD / EMIT chains, the training modules, the
+    # block families and the cost tools are among them
     assert {f"repro_torch.core.{m}" for m in (
         "trie", "lftj_ref", "bruteforce", "clftj_ref", "yannakakis")} | {
         "repro_torch.kernels.fold.chain",
@@ -49,7 +49,9 @@ def test_imports_without_jax_and_reference():
             "sharding.rules", "launch.train", "models.moe", "models.rglru",
             "models.rwkv6", "configs.whisper_tiny",
             "configs.recurrentgemma_2b", "launch.shapes", "launch.mesh",
-            "launch.dryrun", "launch.report")} <= set(MODULES)
+            "launch.dryrun", "launch.report", "launch.roofline",
+            "launch.costprobe", "launch.hillclimb",
+            "launch.dryrun_join")} <= set(MODULES)
 
 
 IMPORT_RE = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)

@@ -747,8 +747,10 @@ FLASH_CASES = [
     (4, 1500, 1500, 6, 6, 64, False, None, 0),
     (4, 1, 1500, 6, 6, 64, False, None, 0),
     # qwen2.5-3b's attention on one rank of a (data 2, model 2) mesh: a
-    # microbatch row, 8 query heads over 1 KV head
+    # microbatch row, 8 query heads over 1 KV head; and phi3.5-moe's
+    # there: two rows in one microbatch, 16 query heads over 4 KV heads
     (1, 2048, 2048, 8, 1, 128, True, None, 0),
+    (2, 2048, 2048, 16, 4, 128, True, None, 0),
 ]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
@@ -1093,3 +1095,49 @@ def test_flash_kernel_on_local_heads_matches_the_whole_kernel(dev, dtype):
                           2e-5 if dtype == torch.float32 else 2e-2)
     assert flash_cuda.launches - before == sum(
         case[-1] for case in HEAD_CASES)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_on_local_experts_matches_the_whole_layer(dev, dtype):
+    """The MoE layer over a (1, 2) mesh on the card, rank by rank of a
+    fake group (``test_torch_mesh.local_experts_check``): each rank's 2
+    of 4 experts, summed over the ranks, give the whole layer's output
+    and its x and router gradients, each rank's expert gradients the
+    whole layer's on its experts (fp32 1e-5; bf16 3e-2: the ranks' bf16
+    partial outputs add in another order than the whole layer's)."""
+    from test_torch_mesh import local_experts_check
+    local_experts_check(dev, dtype, 1e-5 if dtype == torch.float32
+                        else 3e-2)
+
+
+def test_probe_flops_match_a_live_count(dev):
+    """qwen2.5-3b at smoke size (bf16, remat "full") with 4 layers: the
+    cost probe's FLOPs of a train step (two groups extrapolated, meta
+    tensors, the flash kernel by formula) equal FlopCounterMode's count
+    of the same step on the card plus the kernel's forward formula at
+    each launch (the kernel is a ctypes call the counter cannot see; its
+    backward is the plain path, which it counts) within 1%."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import costprobe
+    from repro_torch.launch.shapes import ShapeCase
+    from repro_torch.models import Model
+    from repro_torch.train.train_step import (TrainConfig, init_train_state,
+                                              make_train_step)
+    cfg = dataclasses.replace(get_arch("qwen2.5-3b-smoke"), n_layers=4)
+    case = ShapeCase("t", "train", 256, 4)
+    probe = costprobe.probe_costs(cfg, case, None, lambda c, cs, m:
+                                  costprobe.cell_costs(c, cs, m,
+                                                       microbatches=1))
+    model = Model(cfg, device=dev)
+    rng = np.random.default_rng(2)
+    batch = {k: rng.integers(0, cfg.vocab, (case.batch, case.seq))
+             for k in ("tokens", "targets")}
+    step = make_train_step(model, TrainConfig(microbatches=2))
+    state = init_train_state(model)
+    with costprobe.live_count() as live:
+        step(state, batch)
+        torch.cuda.synchronize()
+    assert live["kernel_flops"] > 0 and live["launches"] > 0
+    assert abs(probe["flops"] / live["flops"] - 1) <= 0.01, \
+        (probe["flops"], live)

@@ -218,8 +218,10 @@ def test_argument_bytes_equal_the_reference_specs(mesh_name):
 def test_dryrun_cell_production_mesh():
     """The reference's ``test_dryrun_cell_production_mesh`` on the port:
     whisper-tiny ``train_4k`` on the 256-rank production mesh of a fake
-    group is ``ok``, with its memory record."""
-    rec = dryrun.lower_cell("whisper-tiny", "train_4k", multi_pod=False)
+    group is ``ok``, with its memory record (``probe=False``: the memory
+    record alone, as ``--no-probe``)."""
+    rec = dryrun.lower_cell("whisper-tiny", "train_4k", multi_pod=False,
+                            probe=False)
     assert rec["status"] == "ok" and rec["n_devices"] == 256
     mem = rec["memory"]
     assert mem["peak_bytes"] >= mem["argument_bytes"] > mem["batch_bytes"]
@@ -228,3 +230,27 @@ def test_dryrun_cell_production_mesh():
     assert skipped["status"] == "skipped"
     assert skipped["reason"] == ref_shapes.cell_supported(
         ref_get_arch("whisper-tiny"), "long_500k")[1]
+
+
+@pytest.mark.parametrize("shape", list(shapes.SHAPES))
+def test_moe_cells_on_the_production_mesh(shape):
+    """The MoE (qwen3-moe-smoke: 4 experts, top 2) in each of the four
+    shapes on the 256-rank production mesh of a fake group: ``ok`` or
+    ``skipped`` as ``cell_supported`` says (the experts split over
+    ``"model"``, zero3 training, the serving rules), each ``ok`` record
+    with its memory, ``trace_s``, the roofline on the H100 and the
+    probe's two points."""
+    name = "qwen3-moe-235b-a22b-smoke"
+    rec = dryrun.lower_cell(name, shape, multi_pod=False, microbatches=1)
+    ok, why = shapes.cell_supported(get_arch(name), shape)
+    assert rec["status"] == ("ok" if ok else "skipped"), rec.get("error")
+    if not ok:
+        assert rec["reason"] == why
+        return
+    mem = rec["memory"]
+    assert mem["peak_bytes"] >= mem["argument_bytes"] > mem["batch_bytes"]
+    assert rec["trace_s"] > 0 and rec["probe_s"] > 0
+    roof = rec["roofline"]
+    assert roof["flops_per_device"] > 0 and roof["bytes_per_device"] > 0
+    assert roof["dominant"] in ("compute", "memory", "collective")
+    assert set(rec["probe_points"]) == {"one_group", "two_groups"}

@@ -87,6 +87,8 @@ def run_case(rank: int, work: Path) -> None:
     mesh = _mesh(case["mesh"])
     if "decode" in case:
         return _decode_worker(rank, model, mesh, case, work)
+    if case.get("moe"):
+        return _moe_worker(rank, model, mesh, case, work)
     ckpt = CheckpointManager(str(work / "ckpt"), async_save=False)
     _, state, _ = restore_for_mesh(ckpt, model, mesh)
     leaves = list(state["params"].values()) + [
@@ -165,6 +167,105 @@ def _decode_worker(rank, model, mesh, case, work) -> None:
                  got=np.stack(got))
         (work / "out.json").write_text(json.dumps({
             "k": str(placed[0]["k"].placements)}))
+
+
+def local_mean_aux(cfg, probs, counts, n_choices):
+    """A planted fault: the load-balance loss of each rank's own rows (its
+    local means multiplied), claimed to be the batch's
+    (``moe.balance_loss`` takes both means over the batch).  Phase 18 of
+    ``chip_smoke.py`` plants this one on the card."""
+    from torch.distributed.tensor import DTensor, Replicate
+    pl = probs.to_local()
+    ce = counts.to_local() / (pl.shape[0] * pl.shape[1] * cfg.top_k)
+    aux = cfg.router_aux_coef * cfg.n_experts * torch.sum(
+        pl.mean(dim=(0, 1)) * ce)
+    return DTensor.from_local(aux, probs.device_mesh,
+                              [Replicate()] * probs.device_mesh.ndim,
+                              run_check=False)
+
+
+def _moe_worker(rank, model, mesh, case, work) -> None:
+    """The MoE over the mesh (experts split over ``"model"``): serving
+    first, from the model's seed-0 parameters (prefill and two decode
+    steps in one process here, then with the parameters and caches
+    placed by the default rules, as :func:`_decode_worker`); then,
+    from the case's checkpoint, the loss, aux and every gradient
+    (reduced to the parameters' placements) of one batch, the same
+    forward with :func:`local_mean_aux` planted, and the case's steps.
+    Rank 0 writes everything."""
+    from repro_torch.checkpoint.ckpt import CheckpointManager
+    from repro_torch.launch.dryrun import cache_shardings
+    from repro_torch.models import moe
+    from repro_torch.models.kvcache import pad_caches
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.runtime.elastic import restore_for_mesh
+    from repro_torch.sharding import rules
+    from repro_torch.train.train_step import (TrainConfig, make_train_step,
+                                              place_parameters, reduce_grads,
+                                              state_shardings)
+    out, arrays = {}, {}
+    batch = _batch(model.cfg, 5, b=4, t=12)
+    want_pre, caches = model.prefill(batch)
+    caches = pad_caches(model.cfg, caches, 2)
+    tokens = torch.from_numpy(batch["tokens"][:, -1:]).long()
+    pos0 = batch["tokens"].shape[1]
+    mesh_caches = [{k: t.clone() for k, t in c.items()} for c in caches]
+    want = []
+    for i in range(2):
+        logits, caches = model.decode(caches, tokens, pos0 + i)
+        want.append(logits.numpy())
+    place_parameters(model, state_shardings(model, mesh)["params"])
+    shapes = model.cache_shapes(4, pos0 + 2)
+    placed = [{k: rules.place(t, sh[k]) for k, t in c.items()}
+              for c, sh in zip(mesh_caches, cache_shardings(shapes, mesh))]
+    got = []
+    with model.spmd():
+        got_pre, _ = model.prefill(
+            {"tokens": rules.constrain_batch(
+                torch.from_numpy(batch["tokens"]).long(), mesh)})
+        for i in range(2):
+            logits, placed = model.decode(
+                placed, rules.constrain_batch(tokens, mesh), pos0 + i)
+            got.append(logits.full_tensor().numpy())
+    arrays.update(want_pre=want_pre.numpy(),
+                  got_pre=got_pre.full_tensor().numpy(),
+                  want=np.stack(want), got=np.stack(got))
+
+    model = _model(case)
+    _, state, _ = restore_for_mesh(
+        CheckpointManager(str(work / "ckpt"), async_save=False), model, mesh)
+    out["placements"] = {n: str(p.placements)
+                         for n, p in state["params"].items()}
+    placed_batch = {k: rules.constrain_batch(torch.from_numpy(v), mesh)
+                    for k, v in _batch(model.cfg, 9).items()}
+    params = state["params"]
+    with model.spmd():
+        loss, metrics = model.loss(placed_batch)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        grads = reduce_grads(grads, params.values())
+        real = moe.balance_loss
+        moe.balance_loss = local_mean_aux
+        try:
+            with torch.no_grad():
+                _, faulty = model.loss(placed_batch)
+        finally:
+            moe.balance_loss = real
+    out["loss0"] = float(metrics["loss"].full_tensor())
+    out["aux0"] = float(metrics["aux"].full_tensor())
+    out["fault_aux"] = float(faulty["aux"].full_tensor())
+    arrays.update({f"g/{n}": g.full_tensor().numpy().copy()
+                   for n, g in zip(params, grads)})
+    step = make_train_step(model, TrainConfig(microbatches=case["mb"],
+                                              opt=OptConfig(**OPT)), mesh)
+    out["loss"], out["grad_norm"] = [], []
+    for seed in case["seeds"]:
+        state, metrics = step(state, _case_batch(model.cfg, case, seed))
+        out["loss"].append(float(metrics["loss"]))
+        out["grad_norm"].append(float(metrics["grad_norm"]))
+    arrays.update({f"p/{k}": v for k, v in _full(state["params"]).items()})
+    if rank == 0:
+        np.savez(work / "params.npz", **arrays)
+        (work / "out.json").write_text(json.dumps(out))
 
 
 def _spawn(work: Path, cases: list, timeout: int = 240) -> list:
@@ -251,8 +352,9 @@ def _close(got: dict, want: dict, prefix: str, rtol: float) -> None:
 # the cases the ranks run: the reference's mesh step (minitron-8b-smoke,
 # microbatches 2, from the JAX reference's state), a GQA model whose KV
 # heads do not divide the model axis, RWKV-6's chunked time mix over
-# three chunks (the last padded), decode over a mesh, and an elastic
-# restore onto another mesh
+# three chunks (the last padded), decode over a mesh, the MoE with its
+# experts split over "model" (E = 4, top 2), and an elastic restore onto
+# another mesh
 CASES = {
     "step": {"arch": "minitron-8b-smoke", "mesh": [2, 2], "mb": 2,
              "seeds": [10, 11]},
@@ -261,6 +363,8 @@ CASES = {
     "rwkv": {"arch": "rwkv6-7b-smoke", "mesh": [2, 2], "mb": 2,
              "seeds": [4, 5], "seq": 72},
     "decode": {"arch": "qwen2.5-3b-smoke", "mesh": [2, 2], "decode": 2},
+    "moe": {"arch": "phi3.5-moe-42b-a6.6b-smoke", "mesh": [2, 2], "mb": 1,
+            "seeds": [6, 7], "moe": True},
     "elastic": {"arch": "qwen2.5-3b-smoke", "mesh": [2, 2], "mb": 2,
                 "seeds": [1, 2], "elastic": 3, "mesh2": [4, 1]},
 }
@@ -420,6 +524,44 @@ def test_decode_over_a_mesh_matches_one_process(runs):
                                atol=1e-5)
 
 
+def test_moe_over_a_mesh_matches_one_process(runs):
+    """phi3.5-moe-smoke (E = 4, top 2, 2 layers) on a (2, 2) mesh, each
+    model rank holding 2 experts: the loss, ``aux`` and every gradient
+    (the router's included: each rank's share of it comes from its own
+    experts' gates and is summed over ``"model"``) of one batch, and two
+    AdamW steps' losses, auxes, grad norms and parameters, equal the
+    one-process port's within 1e-5 (fp32; each step's loss holds its
+    aux); so do the prefill logits and
+    two decode steps' under the default (TP) rules.  The load-balance
+    loss from each rank's own means (:func:`local_mean_aux`) reads off
+    by more than that bound."""
+    from repro_torch.train.train_step import load_train_state
+    case = CASES["moe"]
+    work, out = _result(runs, "moe")
+    got = dict(np.load(work / "params.npz"))
+    for key in ("pre", ""):
+        np.testing.assert_allclose(got[f"got{key and '_' + key}"],
+                                   got[f"want{key and '_' + key}"],
+                                   rtol=1e-5, atol=1e-5)
+    assert out["placements"]["blocks.0.moe.wi"] == "(Replicate(), " \
+        "Shard(dim=0))"
+    model = _model(case)
+    state = load_train_state(model, runs[1]["moe"])
+    loss, metrics = model.loss(_batch(model.cfg, 9))
+    grads = torch.autograd.grad(loss, list(state["params"].values()))
+    np.testing.assert_allclose(out["loss0"], float(loss.detach()), rtol=1e-5)
+    aux = float(metrics["aux"])
+    np.testing.assert_allclose(out["aux0"], aux, rtol=1e-5)
+    assert abs(out["fault_aux"] - aux) > 1e-5 * aux, out["fault_aux"]
+    _close(got, {n: g.numpy() for n, g in zip(state["params"], grads)},
+           "g", 1e-5)
+    assert any(n.endswith("moe.router") for n in state["params"])
+    losses, norms, want = _one_process(case, runs[1]["moe"], case["seeds"])
+    np.testing.assert_allclose(out["loss"], losses, rtol=1e-5)
+    np.testing.assert_allclose(out["grad_norm"], norms, rtol=1e-5)
+    _close(got, want, "p", 1e-5)
+
+
 def test_kv_group_keeps_the_head_map():
     """``ops.kv_group``: query head h0 + i reads KV head (h0 + i) // g."""
     from repro_torch.kernels.flash_attention.ops import kv_group
@@ -567,3 +709,81 @@ def local_heads_check(dev, case, dtype, atol):
 @pytest.mark.parametrize("case", HEAD_CASES, ids=str)
 def test_attention_on_local_heads_matches_the_whole(case):
     local_heads_check(torch.device("cpu"), case, torch.float32, 2e-5)
+
+
+# --- the MoE on a rank's own experts --------------------------------------------
+
+def local_experts_check(dev, dtype, atol, m=2):
+    """``moe.moe_ffn`` of DTensors on a (1, m) mesh, rank by rank (each
+    rank of a fake group in turn: the local tensors are real, the
+    collectives move nothing, so the router's weight is given whole):
+    phi3.5-moe-smoke (4 experts, top 2) in ``dtype`` compute, each rank
+    holding E/m experts.  Summed over the ranks, the outputs (each
+    rank's experts' share) and the gradients of x and of the router
+    equal the whole layer's; each rank's expert-weight gradients equal
+    the whole layer's on its experts, and its aux loss the whole one."""
+    import dataclasses as dc
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe
+    cfg = dc.replace(get_arch("phi3.5-moe-42b-a6.6b-smoke"),
+                     dtype_compute="float32" if dtype == torch.float32
+                     else "bfloat16")
+    D, E, F = cfg.d_model, cfg.n_experts, cfg.d_ff
+    gen = torch.Generator().manual_seed(11)
+    p = {"router": torch.randn(D, E, generator=gen) * 0.1,
+         "wi": torch.randn(E, D, F, generator=gen) * 0.1,
+         "wg": torch.randn(E, D, F, generator=gen) * 0.1,
+         "wo": torch.randn(E, F, D, generator=gen) * 0.1}
+    p = {k: v.to(dev) for k, v in p.items()}
+    x = torch.randn(2, 24, D, generator=gen).to(dev, dtype)
+    go = torch.randn(2, 24, D, generator=gen).to(dev, dtype)
+    whole = {k: v.clone().requires_grad_() for k, v in p.items()}
+    xw = x.clone().requires_grad_()
+    want, want_aux = moe.moe_ffn(cfg, whole, xw)
+    ((want * go).sum() + want_aux).backward()
+    el = E // m
+    out = torch.zeros_like(want, dtype=torch.float32)
+    dx = torch.zeros_like(x, dtype=torch.float32)
+    drouter = torch.zeros_like(p["router"])
+    for r in range(m):
+        dist.init_process_group("fake", store=FakeStore(), rank=r,
+                                world_size=m)
+        try:
+            mesh = init_device_mesh(dev.type, (1, m),
+                                    mesh_dim_names=("data", "model"))
+            rep, experts = [Replicate(), Replicate()], [Replicate(), Shard(0)]
+            mine = slice(r * el, (r + 1) * el)
+            loc = {"router": p["router"].clone().requires_grad_(),
+                   **{k: p[k][mine].clone().requires_grad_()
+                      for k in ("wi", "wg", "wo")}}
+            xl = x.clone().requires_grad_()
+            dp = {k: DTensor.from_local(v, mesh, rep if k == "router"
+                                        else experts, run_check=False)
+                  for k, v in loc.items()}
+            got, aux = moe.moe_ffn(cfg, dp, DTensor.from_local(
+                xl, mesh, rep, run_check=False))
+            torch.testing.assert_close(aux.full_tensor(), want_aux.detach(),
+                                       atol=atol, rtol=atol)
+            local = got.to_local()
+            ((local * go).sum() + aux.to_local() / m).backward()
+            out += local.detach().float()
+            dx += xl.grad.float()
+            drouter += loc["router"].grad
+            for k in ("wi", "wg", "wo"):
+                torch.testing.assert_close(loc[k].grad, whole[k].grad[mine],
+                                           atol=atol, rtol=atol)
+        finally:
+            dist.destroy_process_group()
+    torch.testing.assert_close(out, want.detach().float(), atol=atol,
+                               rtol=atol)
+    torch.testing.assert_close(dx, xw.grad.float(), atol=atol, rtol=atol)
+    torch.testing.assert_close(drouter, whole["router"].grad, atol=atol,
+                               rtol=atol)
+
+
+def test_moe_on_local_experts_matches_the_whole():
+    local_experts_check(torch.device("cpu"), torch.float32, 1e-5)
