@@ -131,7 +131,8 @@ from repro_torch.models.kvcache import pad_caches  # noqa: E402
 from repro_torch.optim.adamw import OptConfig  # noqa: E402
 from repro_torch.train import loop as train_loop  # noqa: E402
 from repro_torch.train.loop import LoopConfig, train  # noqa: E402
-from repro_torch.train.serve_step import greedy_generate  # noqa: E402
+from repro_torch.train.serve_step import (  # noqa: E402
+    greedy_generate, greedy_logits)
 from repro_torch.train.train_step import (  # noqa: E402
     TrainConfig, init_train_state, make_train_step)
 
@@ -266,6 +267,13 @@ FLASH_CASES = [
     # data 2 in one microbatch, its 32 / 2 query heads over 8 / 2 KV heads)
     (1, 2048, 2048, 8, 1, 128, True, None, 0),
     (2, 2048, 2048, 16, 4, 128, True, None, 0),
+    # phase 18's moe-serve case: qwen3-moe-235b-a22b's prefill on one
+    # rank (a row of MESH_SERVE_BATCH / data 2, or the first row alone,
+    # its 64 / 2 query heads over 4 / 2 KV heads), and in the one process
+    # it is held against (both rows, and the first alone, all heads)
+    (1, 2048, 2048, 32, 2, 128, True, None, 0),
+    (2, 2048, 2048, 64, 4, 128, True, None, 0),
+    (1, 2048, 2048, 64, 4, 128, True, None, 0),
 ]
 # the reference sweep's tolerance (absolute and relative): the kernel and
 # the plain version sum in other orders; a bf16 output may round to a
@@ -2926,6 +2934,33 @@ MESH_FAULT_MIN = 1e4
 MESH_MOE_ARCH = "phi3.5-moe-42b-a6.6b"
 MESH_MOE_LAYERS = 1
 MESH_MOE_FAULT_MIN = 10
+# phase 18's moe-serve case: qwen3-moe-235b-a22b at full width (D 4096,
+# 128 experts, top 8, expert d_ff 1536, 64/4 heads, vocab 151936),
+# MESH_SERVE_LAYERS of its 94 layers (one layer's experts are 2.4B
+# parameters), served over the MESH_SHAPE mesh under MOE_SERVE_RULES:
+# each data rank holds 64 of the experts, each model rank half of every
+# expert's FFN width, of the heads and of the vocabulary.  fp32 weights
+# and compute, seed 0; the ranks build the model whole one at a time
+# (~25 GB) and keep their shards (~7.4 GB).  Greedy decoding of
+# MESH_SERVE_BATCH x MESH_SEQ tokens (a row a data rank: the tokens
+# travel to their experts by all-to-all), MESH_SERVE_STEPS steps, and of
+# the first row alone (no token moves), against this process's run of
+# the same model and tokens: the largest absolute error of the prefill's
+# logits and of every step's within MESH_SERVE_TOL, and the same tokens.
+# The first fp32 readings on an H100 80GB HBM3 at 700 W were 3.29e-5 on
+# the prefill's logits and 1.00e-3-1.42e-3 on the steps' (the first row
+# alone, which moves no token: 2.41e-5 and 7.0e-4-1.17e-3; the steps
+# read the bf16 KV cache, where a few of the mesh prefill's keys and
+# values round the other way), past the 1e-3 on every logit first set
+# for them; the bounds were then set to about ten times these readings.
+# The planted fault (the dispatch all-to-all skipped: each rank's
+# experts see only its own rows) read 2.48 on the prefill's logits; it
+# must read MESH_SERVE_FAULT_MIN times the prefill's bound
+MESH_SERVE_ARCH = "qwen3-moe-235b-a22b"
+MESH_SERVE_LAYERS = 2
+MESH_SERVE_BATCH, MESH_SERVE_STEPS = 2, 4
+MESH_SERVE_TOL = dict(prefill=3e-4, step=1.5e-2)
+MESH_SERVE_FAULT_MIN = 100
 
 
 def mesh_cfg(dtype: str):
@@ -2937,6 +2972,80 @@ def mesh_moe_cfg():
     return dataclasses.replace(get_arch(MESH_MOE_ARCH),
                                n_layers=MESH_MOE_LAYERS,
                                dtype_compute="float32")
+
+
+def mesh_serve_cfg():
+    return dataclasses.replace(get_arch(MESH_SERVE_ARCH),
+                               n_layers=MESH_SERVE_LAYERS,
+                               dtype_compute="float32")
+
+
+def serve_tokens(cfg) -> np.ndarray:
+    """The moe-serve case's prompts, (MESH_SERVE_BATCH, MESH_SEQ)."""
+    return batch_at(DataConfig(vocab=cfg.vocab, seq_len=MESH_SEQ,
+                               global_batch=MESH_SERVE_BATCH, seed=SEED),
+                    0)["tokens"]
+
+
+def serve_greedy(model, tokens: np.ndarray, steps: int, mesh=None) -> dict:
+    """``greedy_logits`` of ``tokens`` (B, T) and ``steps`` decode steps,
+    over ``mesh`` when given, call by call: the prefill's and every
+    step's logits (1 + steps, B, V) on the host, the tokens (B, 1 +
+    steps), each call's seconds and the bytes ``moe.all_to_all``
+    received on this rank in each."""
+    toks = torch.from_numpy(tokens).long().to(model.device)
+    out = dict(logits=[], seconds=[], a2a=[])
+    with torch.no_grad(), model.spmd():
+        calls = greedy_logits(model, {"tokens": toks}, steps, mesh)
+        while True:
+            torch.cuda.synchronize()
+            t0, b0 = time.perf_counter(), moe_mod.exchanged_bytes
+            logits = next(calls, None)
+            if logits is None:
+                break
+            torch.cuda.synchronize()
+            out["seconds"].append(time.perf_counter() - t0)
+            out["a2a"].append(moe_mod.exchanged_bytes - b0)
+            out["logits"].append(host(logits))
+    out["logits"] = np.stack(out["logits"])
+    out["tokens"] = out["logits"].argmax(-1).T.tolist()
+    return out
+
+
+def mesh_serve_reference(dev, work: Path) -> dict:
+    """Phase 18's moe-serve case in this process: the greedy runs of the
+    batch and of its first row; their logits go to ``work``."""
+    model = Model(mesh_serve_cfg())
+    tokens = serve_tokens(model.cfg)
+    out = {}
+    for key, rows in (("serve", tokens), ("serve_one", tokens[:1])):
+        rec = serve_greedy(model, rows, MESH_SERVE_STEPS)
+        np.save(work / f"ref_{key}.npy", rec.pop("logits"))
+        out[key] = rec
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_serve_dryrun(mesh) -> dict:
+    """The moe-serve case on a fake group's ``mesh``: ``run_cell``'s
+    memory record of its prefill (bf16 parameters, as the dry-run serves)
+    and the cost probe's all-to-all bytes a rank of its prefill and of a
+    decode step (the case's fp32 compute)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import ShapeCase
+    from repro_torch.sharding.rules import MOE_SERVE_RULES
+    cfg = mesh_serve_cfg()
+    prefill = ShapeCase("serve", "prefill", MESH_SEQ, MESH_SERVE_BATCH)
+    decode = ShapeCase("serve", "decode", MESH_SEQ + MESH_SERVE_STEPS,
+                       MESH_SERVE_BATCH)
+    out = dict(memory=dryrun.run_cell(cfg, prefill, mesh,
+                                      srules=MOE_SERVE_RULES))
+    for key, case in (("prefill", prefill), ("decode", decode)):
+        out[key] = costprobe.cell_costs(
+            cfg, case, mesh, srules=MOE_SERVE_RULES)["coll_all-to-all"]
+    return out
 
 
 def mesh_batches(cfg, n: int) -> list:
@@ -2991,6 +3100,7 @@ def mesh_reference(dev, work: Path) -> dict:
     del model, step, state
     gc.collect()
     torch.cuda.empty_cache()
+    out.update(mesh_serve_reference(dev, work))
     return out
 
 
@@ -2998,7 +3108,8 @@ def mesh_dryrun() -> dict:
     """Phase 18 (e), the dry-run's side: the (config, mesh, rules) of the
     mesh run on a fake group of MESH_WORLD ranks (one run for both
     compute dtypes: the parameters and moments are fp32 in both, and the
-    dry-run's peaks of the two read alike), and of the MoE case."""
+    dry-run's peaks of the two read alike), of the MoE case and of the
+    moe-serve case (:func:`mesh_serve_dryrun`)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from repro_torch.launch import dryrun
@@ -3012,7 +3123,8 @@ def mesh_dryrun() -> dict:
                                 microbatches=MESH_MB, fsdp="tp")
         return {"float32": dense, "bfloat16": dense,
                 "moe": dryrun.run_cell(mesh_moe_cfg(), case, mesh,
-                                       microbatches=1, fsdp="tp")}
+                                       microbatches=1, fsdp="tp"),
+                "serve": mesh_serve_dryrun(mesh)}
     finally:
         dist.destroy_process_group()
 
@@ -3182,7 +3294,8 @@ def mesh_worker(rank: int, world: int, work: str) -> int:
     DIR``), on card 0 in a gloo group, doing what ``DIR/case.json``
     says: ``train`` (the probe, then the mesh runs: fp32 and bf16
     compute, and the planted fault; the fp32 run saves a checkpoint
-    after its last step and takes one more; then the MoE case) or
+    after its last step and takes one more; then the MoE case and the
+    moe-serve case) or
     ``elastic`` (a fresh set of processes restores that checkpoint onto
     MESH_ELASTIC and takes the one more step).  Writes
     DIR/<mode><R>.json; a crash prints its Python stack
@@ -3299,6 +3412,7 @@ def mesh_worker(rank: int, world: int, work: str) -> int:
         gc.collect()
         torch.cuda.empty_cache()
     res["moe"] = mesh_moe_run(rank, mesh, dev, work, run)
+    res["serve"] = mesh_serve_run(rank, mesh, work)
     return finish()
 
 
@@ -3380,6 +3494,77 @@ def mesh_moe_run(rank: int, mesh, dev, work: Path, run) -> dict:
     return rec
 
 
+def skip_dispatch(real):
+    """The planted fault of the moe-serve case: ``moe.all_to_all`` with
+    every dispatch exchange (each layer's first; the second brings the
+    results back) skipped, each rank keeping its own rows' slots for its
+    own experts and receiving nothing: its experts see only its rows."""
+    calls = [0]
+
+    def exchange(x, group):
+        calls[0] += 1
+        if calls[0] % 2 == 0:
+            return real(x, group)
+        out = torch.zeros_like(x)
+        me = group.rank()
+        out[me] = x[me]
+        return out
+    return exchange
+
+
+def mesh_serve_run(rank: int, mesh, work: Path) -> dict:
+    """Phase 18's moe-serve case on one rank: the seed-0 model built
+    whole by one rank at a time and placed by MOE_SERVE_RULES
+    (``dryrun.param_shardings``), its shards' bytes, the greedy runs of
+    the batch and of its first row (rank 0 holding the logits against
+    this process's), the flash launches, and the planted fault's
+    prefill."""
+    import torch.distributed as dist
+    from repro_torch.launch.dryrun import local_bytes, param_shardings
+    from repro_torch.sharding.rules import MOE_SERVE_RULES
+    from repro_torch.train.train_step import place_parameters
+    print(f"[18 mesh] rank {rank}: moe-serve run", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = mesh_serve_cfg()
+    for r in range(dist.get_world_size()):
+        if r == rank:
+            model = Model(cfg)
+            params = place_parameters(model, param_shardings(
+                model, mesh, MOE_SERVE_RULES))
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    rec = dict(state_bytes=sum(local_bytes(p) for p in params.values()),
+               placements=str(params["blocks.0.moe.wi"].placements))
+    del params
+    tokens = serve_tokens(cfg)
+    flash_cuda.launches = 0
+    for key, rows in (("serve", tokens), ("serve_one", tokens[:1])):
+        got = serve_greedy(model, rows, MESH_SERVE_STEPS, mesh)
+        logits = got.pop("logits")
+        if rank == 0:
+            want = np.load(work / f"ref_{key}.npy")
+            got["err"] = [float(np.abs(a - b).max())
+                          for a, b in zip(logits, want)]
+        rec[key] = got
+    rec["launches"] = flash_cuda.launches
+    real = moe_mod.all_to_all
+    moe_mod.all_to_all = skip_dispatch(real)
+    try:
+        logits = serve_greedy(model, tokens, 0, mesh)["logits"][0]
+    finally:
+        moe_mod.all_to_all = real
+    rec["fault_launches"] = flash_cuda.launches - rec["launches"]
+    if rank == 0:
+        want = np.load(work / "ref_serve.npy")[0]
+        rec["fault_err"] = float(np.abs(logits - want).max())
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
 def mesh_workers(work: Path, mode: str) -> tuple:
     """Start MESH_WORLD ranks of ``mode``; (their results or None, exit
     codes, output tails, seconds)."""
@@ -3402,6 +3587,78 @@ def mesh_workers(work: Path, mode: str) -> tuple:
         time.perf_counter() - t0
 
 
+def mesh_serve_check(ref: dict, dry: dict, res: list) -> tuple:
+    """Phase 18's moe-serve case against this process's run (``ref``) and
+    the fake group's (``dry``, :func:`mesh_serve_dryrun`), every rank's
+    record in ``res``: (the line to print, the flash launches of every
+    rank)."""
+    s0 = res[0]["serve"]
+    mem = dry["memory"]
+    params = mem["argument_bytes"] - mem["batch_bytes"]
+    for r in res:
+        got = r["serve"]
+        check(got["launches"] == 2 * MESH_SERVE_LAYERS
+              and got["fault_launches"] == MESH_SERVE_LAYERS,
+              f"(d) moe-serve rank {r['rank']}: {got['launches']} flash "
+              f"launches in two prefills and their decode steps, "
+              f"{got['fault_launches']} in the fault's prefill")
+        check(got["state_bytes"] == 2 * params,
+              f"(e) moe-serve rank {r['rank']}: {got['state_bytes']} B of "
+              f"fp32 shards, not twice the dry-run's bf16 {params} B")
+        a2a = got["serve"]["a2a"]
+        check(a2a[0] == dry["prefill"] > 0
+              and all(b == dry["decode"] > 0 for b in a2a[1:])
+              and not any(got["serve_one"]["a2a"]),
+              f"moe-serve rank {r['rank']}: all-to-all bytes {a2a} (the "
+              f"first row alone {got['serve_one']['a2a']}), the cost "
+              f"probe's {dry['prefill']} a prefill, {dry['decode']} a "
+              f"step")
+        for key in ("serve", "serve_one"):
+            check(got[key]["tokens"] == ref[key]["tokens"],
+                  f"(c) moe-serve {key} rank {r['rank']}: tokens "
+                  f"{got[key]['tokens']}, one process {ref[key]['tokens']}")
+    tol = MESH_SERVE_TOL
+    for key in ("serve", "serve_one"):
+        err = s0[key]["err"]
+        check(err[0] <= tol["prefill"] and max(err[1:]) <= tol["step"],
+              f"(c) moe-serve {key}: logits' largest absolute errors "
+              f"{err} (prefill, then each step) past {tol}")
+    check(s0["fault_err"] >= MESH_SERVE_FAULT_MIN * tol["prefill"],
+          f"(c) moe-serve: the planted fault (dispatch skipped) reads only "
+          f"{s0['fault_err']} on the prefill's logits")
+
+    def ms(sec):
+        return f"{statistics.median(sec) * 1e3:.1f}"
+    line = (
+        f"moe-serve ({MESH_SERVE_ARCH} full width, {MESH_SERVE_LAYERS} of "
+        f"94 layers, MOE_SERVE_RULES, experts {s0['placements']}, fp32, "
+        f"{MESH_SERVE_BATCH} x {MESH_SEQ} tokens + {MESH_SERVE_STEPS} "
+        f"greedy steps): logits' largest abs error {s0['serve']['err']} "
+        f"(prefill, steps), the first row alone {s0['serve_one']['err']} "
+        f"(bounds {tol}), tokens = one process's on every rank; "
+        f"all-to-all bytes a rank: prefill {s0['serve']['a2a'][0]}, step "
+        f"{s0['serve']['a2a'][1]} (cost probe, fake group: "
+        f"{dry['prefill']}, {dry['decode']}), the first row alone 0; "
+        f"planted fault (dispatch skipped) {s0['fault_err']:.4g} "
+        f"({s0['fault_err'] / tol['prefill']:.3g} times the prefill's "
+        f"bound); gloo "
+        f"on one card (not the deployment's speed): prefill s "
+        f"{s0['serve']['seconds'][0]:.3f} (one process "
+        f"{ref['serve']['seconds'][0]:.3f}), decode ms a step "
+        f"{ms(s0['serve']['seconds'][1:])} (one process "
+        f"{ms(ref['serve']['seconds'][1:])}), the first row alone "
+        f"{s0['serve_one']['seconds'][0]:.3f} s, "
+        f"{ms(s0['serve_one']['seconds'][1:])} ms (one process "
+        f"{ref['serve_one']['seconds'][0]:.3f} s, "
+        f"{ms(ref['serve_one']['seconds'][1:])} ms); state bytes a rank "
+        f"{s0['state_bytes']} = 2 x the dry-run's bf16 argument bytes "
+        f"less the batch's ({params}); flash launches a rank "
+        f"{s0['launches']} (+{s0['fault_launches']} in the fault's "
+        f"prefill)")
+    return line, sum(r["serve"]["launches"] + r["serve"]["fault_launches"]
+                     for r in res)
+
+
 def rel(a: float, b: float) -> float:
     return abs(a - b) / max(abs(b), 1e-30)
 
@@ -3419,7 +3676,8 @@ def mesh_phase(dev) -> dict:
     full width, MESH_MOE_LAYERS layers, experts over "model"): one step
     against one process (loss, aux, grad norm, parameters), each rank's
     state bytes against the dry-run's, its flash launches, and a planted
-    fault in the aux."""
+    fault in the aux; and the moe-serve case (MESH_SERVE_ARCH at full
+    width under MOE_SERVE_RULES, :func:`mesh_serve_check`)."""
     t_phase = time.perf_counter()
     work = ROOT / "build" / f"chip_smoke_mesh_{int(time.time() * 1e3)}"
     work.mkdir(parents=True)
@@ -3531,6 +3789,8 @@ def mesh_phase(dev) -> dict:
         + ", ".join(f"{r['moe']['peak'] / 2 ** 30:.3f}" for r in res)
         + f" (dry-run {dry['moe']['peak_bytes'] / 2 ** 30:.3f}); flash "
         f"launches a rank {moe_launches}")
+    serve_line, serve_launches = mesh_serve_check(ref, dry["serve"], res)
+    lines.append(serve_line)
     fault = res[0]["fault"]
     f_gn = rel(fault["grad_norm"][0], ref["float32"]["grad_norm"][0])
     check(f_gn >= MESH_FAULT_MIN * MESH_TOL["float32"]["grad_norm"],
@@ -3558,7 +3818,7 @@ def mesh_phase(dev) -> dict:
                                        if k == "float32" else 0)
                    for r in res for k in ("float32", "bfloat16", "fault",
                                           "moe")) \
-        + sum(r["step"]["launches"] for r in el)
+        + sum(r["step"]["launches"] for r in el) + serve_launches
     print(f"[18 mesh] {LM_ARCH} full width, {MESH_LAYERS} of 36 layers (the "
           f"cut), mesh (data, model) {MESH_SHAPE} in {MESH_WORLD} processes "
           f"on one card (gloo), {MESH_BATCH} x {MESH_SEQ} tokens, "

@@ -6,9 +6,10 @@ its ``VARIANTS`` (train, moe and serve) and its CLI.  ``measure`` is one
 rank's memory (``dryrun.run_cell``) beside the two-point probe's
 roofline on the H100 (``costprobe.probe_costs``, ``roofline.py``), both
 on the production mesh of a fake group; a variant that fails records
-``error``, as the reference's does (``expert_data``, the expert axis
-over the data axes, moves tokens by an all-to-all the port does not
-have, and raises).
+``error``, as the reference's does.  ``expert_data`` serves under
+MOE_SERVE_RULES (the expert axis over the data axes): its record counts
+the token exchange's all-to-all bytes (``models/moe.py``), where
+``zero_inference`` counts the weights' all-gathers.
 
     PYTHONPATH=src python -m repro_torch.launch.hillclimb --cell minitron-8b:train_4k
 """

@@ -80,6 +80,20 @@ def pad_caches(cfg: ArchConfig, caches: Caches, extra: int) -> Caches:
         c = dict(c)
         if kind in ("attn", "moe", "dec"):
             for key in ("k", "v"):
-                c[key] = F.pad(c[key], (0, 0, 0, 0, 0, extra))
+                c[key] = _pad_seq(c[key], extra)
         out.append(c)
     return out
+
+
+def _pad_seq(t: torch.Tensor, extra: int) -> torch.Tensor:
+    """``t`` (B, S, ...) with ``extra`` zeroed slots after its S.  A
+    DTensor whose sequence is whole on each rank (a prefill's over a
+    mesh) pads each rank's shard: DTensor's own pad redistributes first,
+    and fails in PyTorch 2.11."""
+    pad = (0, 0, 0, 0, 0, extra)
+    if not hasattr(t, "device_mesh") or any(p.is_shard(1)
+                                             for p in t.placements):
+        return F.pad(t, pad)
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(F.pad(t.to_local(), pad), t.device_mesh,
+                              t.placements, run_check=False)

@@ -222,15 +222,20 @@ def _decode_on_mesh(q, k_new, v_new, cache: Dict, pos: int,
     ``"model"``), and the cache stays where it is placed, written in
     place on the rank that holds the new slot; a cache whose positions
     are split over ``"model"`` (the dry-run's ``kv_seq``) takes the
-    split softmax of :func:`_decode_core`."""
+    split softmax of :func:`_decode_core`, and one whose KV heads are
+    split there (a prefill's over a mesh) is read by each rank with its
+    own query heads, the output's heads split as they are."""
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     mesh = q.device_mesh
     names = mesh.mesh_dim_names
     k = cache["k"]
-    rows = [Replicate() if n == "model" else pl
-            for n, pl in zip(names, k.placements)]
-    split = "model" in names and k.placements[names.index("model")] == Shard(1)
+    at = k.placements[names.index("model")] if "model" in names \
+        else Replicate()
+    rows = list(k.placements) if at == Shard(2) else \
+        [Replicate() if n == "model" else pl
+         for n, pl in zip(names, k.placements)]
+    split = at == Shard(1)
     group = mesh.get_group("model") if split else None
     m = mesh.size(names.index("model")) if split else 1
     q, k_new, v_new = (t.redistribute(mesh, rows) for t in (q, k_new, v_new))

@@ -22,17 +22,28 @@ Over a mesh (DTensor x and parameters, ``Model.spmd``) the layer is
 expert-parallel (:func:`_on_local_experts`): the router's probabilities
 are a DTensor op (the same on every model rank), then each rank routes
 its own batch rows, as the reference routes per row, and runs only its
-own experts (the ``"expert"`` axis split over ``"model"``: ``wg``,
-``wi`` and ``wo`` ``Shard(0)``) on the kept choices that chose them, on
-local tensors through ``local_map``; its output is its experts' share, a
-partial sum over ``"model"`` that ``layers.settle`` reduces.  The
-gradients of x and of the router's probabilities come back partial over
-``"model"`` for the same reason.  The load-balance loss takes its two
-means over the whole batch (each rank's expert counts summed over the
-batch axes before the product: the loss is not linear in the data
-split).  An expert axis split over the data axes (``MOE_SERVE_RULES``)
-would move tokens to experts by an all-to-all, which is not ported: it
-raises.
+own experts on local tensors through ``local_map``.  Where the rules
+split the ``"expert"`` axis over ``"model"`` (the default: ``wg``,
+``wi`` and ``wo`` ``Shard(0)`` there) a rank runs its experts on the
+kept choices of its rows that chose them; its output is its experts'
+share, a partial sum over ``"model"`` that ``layers.settle`` reduces.
+Where they split it over the data axes (``MOE_SERVE_RULES``: experts
+resident, tokens travel) a rank fills the slots of all E experts from
+its rows (:func:`dispatch`), sends each data rank the slots of that
+rank's experts by an all-to-all over the ranks that share its
+``"model"`` coordinate (:func:`all_to_all`, whose backward is the
+reverse exchange), runs its experts on what every data rank sent
+(:func:`ffn`, on its slice of their FFN width when ``"mlp"`` is split
+over ``"model"``: a partial sum there), and gets its rows' results back
+by a second all-to-all (:func:`combine` adds them up); a batch the data
+axes do not split (B = 1 on a data axis of 2) moves no token: each rank
+runs its experts on every row, a partial sum over the expert axes too.
+The values do not depend on the split: routing and capacity are per
+row.  The gradients of x and of the router's probabilities come back
+partial over ``"model"`` for the same reason.  The load-balance loss
+takes its two means over the whole batch (each rank's expert counts
+summed over the batch axes before the product: the loss is not linear
+in the data split).
 """
 from __future__ import annotations
 
@@ -108,42 +119,124 @@ def balance_loss(cfg: ArchConfig, probs: torch.Tensor,
     return cfg.router_aux_coef * cfg.n_experts * torch.sum(me * ce)
 
 
-def experts(cfg: ArchConfig, x, routing, wg, wi, wo, e0: int = 0):
-    """Run the experts ``e0 .. e0 + E_l`` whose weights are given (``wg``,
-    ``wi`` (E_l, D, F), ``wo`` (E_l, F, D); all E by default) on the rows
-    of x (B, T, D) as ``routing`` (:func:`rank_choices`' gates, expert
-    ids, ranks and capacity) sends them: their share of the output
-    (B, T, D) in the compute dtype.  A choice of another expert adds
-    nothing here."""
+def dispatch(cfg: ArchConfig, x, routing, n_experts: int, e0: int = 0):
+    """The kept choices of the experts ``e0 .. e0 + n_experts`` of x's rows
+    (B, T, D), as ``routing`` (:func:`rank_choices`' gates, expert ids,
+    ranks and capacity) sends them, in their slots: (disp (B, n_experts,
+    capacity, D) in the compute dtype, each choice's (row, expert, slot,
+    kept) (B, T·K) for :func:`combine`).  A choice of another expert
+    fills no slot."""
     dt = cdt(cfg)
     B, T, D = x.shape
     K = cfg.top_k
     nk = T * K
     dev = x.device
-    flat_g, flat_e, pos_in_e, cap = routing
+    _, flat_e, pos_in_e, cap = routing
     e_loc = flat_e - e0
-    mine = (pos_in_e < cap) & (e_loc >= 0) & (e_loc < wi.shape[0])
+    mine = (pos_in_e < cap) & (e_loc >= 0) & (e_loc < n_experts)
     e_idx = torch.where(mine, e_loc, 0)
     tok_idx = torch.arange(nk, device=dev) // K                # token per slot
     bidx = torch.arange(B, device=dev)[:, None].expand(B, nk)
 
     toks = x.to(dt)[:, tok_idx]                                # (B, T*K, D)
     # a choice not kept here goes to the spare slot ``cap``, cut off below
-    disp = torch.zeros((B, wi.shape[0], cap + 1, D), dtype=dt, device=dev)
+    disp = torch.zeros((B, n_experts, cap + 1, D), dtype=dt, device=dev)
     disp[bidx, e_idx, torch.where(mine, pos_in_e, cap)] = toks
-    disp = disp[:, :, :cap]
+    return disp[:, :, :cap], (bidx, e_idx, torch.where(mine, pos_in_e, 0),
+                              mine)
 
+
+def ffn(cfg: ArchConfig, disp, wg, wi, wo):
+    """The experts whose weights are given (``wg``, ``wi`` (E_l, D, F),
+    ``wo`` (E_l, F, D)) on their slots disp (N, E_l, capacity, D): (N,
+    E_l, capacity, D) in the compute dtype."""
+    dt = cdt(cfg)
     h = F.silu(torch.einsum("becd,edf->becf", disp, wg.to(dt)))
     h = h * torch.einsum("becd,edf->becf", disp, wi.to(dt))
-    y = torch.einsum("becf,efd->becd", h, wo.to(dt))           # (B, E_l, C, D)
+    return torch.einsum("becf,efd->becd", h, wo.to(dt))
 
-    gathered = y[bidx, e_idx, torch.where(mine, pos_in_e, 0)]  # (B, T*K, D)
+
+def combine(cfg: ArchConfig, y, routing, slots):
+    """The rows' output (B, T, D) from the experts' results y (B, E_l,
+    capacity, D) in the slots :func:`dispatch` gave (``slots``): each
+    token's K choices, gated, added in order."""
+    dt = cdt(cfg)
+    bidx, e_idx, slot, mine = slots
+    flat_g = routing[0]
+    B, nk = flat_g.shape
+    K = cfg.top_k
+    D = y.shape[-1]
+    gathered = y[bidx, e_idx, slot]                            # (B, T*K, D)
     contrib = (gathered * (flat_g * mine).to(dt)[..., None]) \
-        .reshape(B, T, K, D)
+        .reshape(B, nk // K, K, D)
     out = contrib[:, :, 0]
     for j in range(1, K):
         out = out + contrib[:, :, j]
     return out
+
+
+def experts(cfg: ArchConfig, x, routing, wg, wi, wo, e0: int = 0):
+    """Run the experts ``e0 .. e0 + E_l`` whose weights are given (all E
+    by default) on the rows of x (B, T, D) as ``routing`` sends them:
+    their share of the output (B, T, D) in the compute dtype."""
+    disp, slots = dispatch(cfg, x, routing, wi.shape[0], e0)
+    return combine(cfg, ffn(cfg, disp, wg, wi, wo), routing, slots)
+
+
+# the bytes :func:`all_to_all` has received on this rank (forward and
+# backward exchanges alike): what the cost probe counts of its c10d op
+exchanged_bytes = 0
+
+
+def _exchange(x: torch.Tensor, group) -> torch.Tensor:
+    """c10d's ``all_to_all_single`` of x over ``group``, in equal chunks
+    of its leading dimension (the group's size): chunk k goes to the
+    group's rank k, and chunk k of the result came from it."""
+    global exchanged_bytes
+    import torch.distributed as dist
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    exchanged_bytes += out.numel() * out.element_size()
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    """:func:`_exchange`, whose backward is the reverse exchange of the
+    gradient (an equal-split all-to-all is its own inverse's pattern)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _exchange(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _exchange(grad, ctx.group), None
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """The token exchange of the expert-data MoE: x (d, ...) with chunk k
+    sent to rank k of ``group`` (d ranks), differentiable."""
+    return _AllToAll.apply(x, group)
+
+
+def exchanged(cfg: ArchConfig, x, routing, wg, wi, wo, group):
+    """The experts of every rank of ``group`` (d ranks, rank k holding
+    experts ``k·E/d .. (k+1)·E/d``, whose weights, or their slice of the
+    FFN width, are given) on this rank's rows x (B_l, T, D): the slots
+    of all E experts go to their ranks by :func:`all_to_all`, each rank
+    runs its experts on every rank's slots, and the results come back
+    by a second one.  The output (B_l, T, D) in the compute dtype."""
+    d = group.size()
+    disp, slots = dispatch(cfg, x, routing, cfg.n_experts)
+    B, E, cap, D = disp.shape
+    send = disp.reshape(B, d, E // d, cap, D).transpose(0, 1)
+    got = all_to_all(send, group)              # (d, B_l, E/d, cap, D)
+    y = ffn(cfg, got.reshape(d * B, E // d, cap, D), wg, wi, wo)
+    back = all_to_all(y.reshape(d, B, E // d, cap, D), group)
+    return combine(cfg, back.transpose(0, 1).reshape(B, E, cap, D),
+                   routing, slots)
 
 
 def moe_ffn(cfg: ArchConfig, p, x: torch.Tensor,
@@ -161,54 +254,69 @@ def moe_ffn(cfg: ArchConfig, p, x: torch.Tensor,
     return out, balance_loss(cfg, probs, counts, n_choices)
 
 
+def _expert_group(mesh, axes):
+    """The process group of the ranks that share this rank's coordinates
+    but on ``axes`` (one axis, or ``("pod", "data")`` flattened: its
+    ranks in the order the experts are split, pod-major), built once a
+    mesh and kept on it."""
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    groups = mesh.__dict__.setdefault("_expert_groups", {})
+    if axes not in groups:
+        groups[axes] = mesh[axes]._flatten().get_group()
+    return groups[axes]
+
+
 def _on_local_experts(cfg: ArchConfig, p, x, probs):
     """:func:`experts` of DTensors, each rank on its own batch rows and
     its own experts (or its own slice of every expert's FFN width, when
     the rules split ``"mlp"`` over ``"model"`` instead), through
-    ``local_map``: (the output, partial over ``"model"`` when the
-    experts are split there, the expert counts, partial over the batch
-    axes)."""
+    ``local_map``; experts split over the data axes exchange the rows'
+    slots (:func:`exchanged`) when the batch is split there too.  Returns
+    (the output, partial over ``"model"`` when it splits the experts or
+    their width, and over the expert axes when no token moved; the
+    expert counts, partial over the batch axes)."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     from ..sharding import rules
 
-    raw = getattr(p, "_parameters", p)["wi"]
-    names = x.device_mesh.mesh_dim_names
-    for n, pl in zip(names, raw.placements):
-        if n != "model" and pl == Shard(0):
-            raise NotImplementedError(
-                f"the MoE's expert axis split over {n!r} "
-                "(MOE_SERVE_RULES) moves tokens to their experts by an "
-                "all-to-all, which the port does not have: split experts "
-                "over 'model' (ROADMAP)")
     mesh = x.device_mesh
-    wg, wi, wo = p["wg"], p["wi"], p["wo"]
+    names = mesh.mesh_dim_names
+    # the placed weights: ``p[name]`` gathers a split over the data axes
+    raw = getattr(p, "_parameters", p)
+    by = [n for n, pl in zip(names, raw["wi"].placements) if pl == Shard(0)]
+    ex_axes = tuple(n for n in by if n != "model")
+    ws = tuple(raw[k] if ex_axes else p[k] for k in ("wg", "wi", "wo"))
     batch_axes = rules.batch_sharding(mesh, x.shape[0])
     batch_axes = rules.target_axes(batch_axes[0]) if batch_axes else ()
     rows = [Shard(0) if n in batch_axes else Replicate() for n in names]
-    at_model = wi.placements[names.index("model")] if "model" in names \
-        else Replicate()
-    split = at_model.is_shard()
-    by_expert = at_model == Shard(0)
-    over_model = [Partial() if n == "model" and split else pl
-                  for n, pl in zip(names, rows)]
+    split = "model" in names and ws[1].placements[names.index("model")] \
+        .is_shard()
+    move = bool(ex_axes) and tuple(batch_axes) == ex_axes
+    group = _expert_group(mesh, ex_axes) if move else None
+    partial = ({"model"} if split else set()) \
+        | (set() if move else set(ex_axes))
+    out_at = [Partial() if n in partial else pl
+              for n, pl in zip(names, rows)]
     counts_at = [Partial() if n in batch_axes else Replicate()
                  for n in names]
+    e_rank = 0
+    for n in by:
+        e_rank = e_rank * mesh.size(names.index(n)) + mesh.get_local_rank(n)
 
     def grad_at(w):
-        return [Partial() if n in batch_axes else pl
+        return [Partial() if n in batch_axes and not pl.is_shard() else pl
                 for n, pl in zip(names, w.placements)]
 
     def local(xl, pl, wgl, wil, wol):
-        e0 = mesh.get_local_rank("model") * wil.shape[0] if by_expert else 0
         routing = rank_choices(cfg, pl)
-        return (experts(cfg, xl, routing, wgl, wil, wol, e0),
-                expert_counts(cfg, routing[1]))
+        out = exchanged(cfg, xl, routing, wgl, wil, wol, group) if move \
+            else experts(cfg, xl, routing, wgl, wil, wol,
+                         e_rank * wil.shape[0])
+        return out, expert_counts(cfg, routing[1])
 
-    ws = (wg, wi, wo)
     return local_map(
-        local, out_placements=(over_model, counts_at),
+        local, out_placements=(out_at, counts_at),
         in_placements=(rows, rows) + tuple(list(w.placements) for w in ws),
-        in_grad_placements=(over_model, over_model)
-        + tuple(grad_at(w) for w in ws),
+        in_grad_placements=(out_at, out_at) + tuple(grad_at(w) for w in ws),
         device_mesh=mesh, redistribute_inputs=True)(x, probs, *ws)

@@ -234,23 +234,36 @@ def test_cost_exact_gives_the_references_loss():
     _close_grads(model.cfg, grads, want_g)
 
 
-def test_hillclimb_measure_and_variant_errors():
+def test_hillclimb_measure_and_expert_data_variant():
     """``hillclimb.run_variants`` (``measure`` of each variant) on a smoke
     prefill cell of a fake (2, 2) mesh: the baseline's record gives
     every ``Roofline.as_dict`` key beside the memory; the serve set's
-    ``expert_data`` variant records the all-to-all it lacks as an
-    error."""
+    ``expert_data`` variant (MOE_SERVE_RULES) records the same keys, no
+    error, and the all-to-all bytes of its token exchange: a rank
+    receives (B_l rows x E experts x capacity slots x D) bf16 twice a
+    MoE layer."""
     cfg = get_arch("phi3.5-moe-42b-a6.6b-smoke")
+    case = ShapeCase("p", "prefill", 16, 4)
     mesh = _fake_mesh()
     try:
         recs = hillclimb.run_variants(
-            cfg, ShapeCase("p", "prefill", 16, 4), mesh,
+            cfg, case, mesh,
             [v for v in hillclimb.VARIANTS["serve"]
              if v[0] in ("baseline(auto rules)", "expert_data(a2a tokens)")])
     finally:
         dist.destroy_process_group()
     keys = set(rl.Roofline(1, 1, 1, {}, 1).as_dict())
     base, a2a = recs
-    assert set(base) == keys | {"variant", "temp_gib", "arg_gib", "peak_gib"}
+    for rec in recs:
+        assert set(rec) == keys | {"variant", "temp_gib", "arg_gib",
+                                   "peak_gib"}
     assert base["flops_per_device"] > 0 and base["arg_gib"] > 0
-    assert "all-to-all" in a2a["error"]
+    assert base["collectives"]["all-to-all"] == 0
+    E, K, D = cfg.n_experts, cfg.top_k, cfg.d_model
+    cap = max(1, int(case.seq * K * cfg.capacity_factor / E))
+    b_l = case.batch // 2
+    n_moe = cfg.layer_kinds().count("moe")
+    assert a2a["collectives"]["all-to-all"] == \
+        2 * n_moe * b_l * E * cap * D * 2
+    assert a2a["collective_bytes_per_device"] >= \
+        a2a["collectives"]["all-to-all"]

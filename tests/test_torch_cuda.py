@@ -751,6 +751,12 @@ FLASH_CASES = [
     # there: two rows in one microbatch, 16 query heads over 4 KV heads
     (1, 2048, 2048, 8, 1, 128, True, None, 0),
     (2, 2048, 2048, 16, 4, 128, True, None, 0),
+    # qwen3-moe-235b-a22b's prefill served under MOE_SERVE_RULES on a
+    # (data 2, model 2) mesh: one rank's row, 32 query heads over 2 KV
+    # heads; and one process's, both rows and one, 64 over 4
+    (1, 2048, 2048, 32, 2, 128, True, None, 0),
+    (2, 2048, 2048, 64, 4, 128, True, None, 0),
+    (1, 2048, 2048, 64, 4, 128, True, None, 0),
 ]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 

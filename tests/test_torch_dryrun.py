@@ -254,3 +254,72 @@ def test_moe_cells_on_the_production_mesh(shape):
     assert roof["flops_per_device"] > 0 and roof["bytes_per_device"] > 0
     assert roof["dominant"] in ("compute", "memory", "collective")
     assert set(rec["probe_points"]) == {"one_group", "two_groups"}
+
+
+def test_moe_serve_rules_cell_on_a_fake_mesh():
+    """``run_cell`` of a smoke MoE prefill (qwen3-moe-smoke: 4 experts,
+    top 2) under MOE_SERVE_RULES on a fake (2, 2) mesh runs the expert-
+    data branch (its token all-to-all on meta tensors): its record
+    counts a rank's arguments, whose expert weights (``wg``, ``wi``,
+    ``wo``) are a quarter of the whole, split over ``"data"`` by expert
+    and over ``"model"`` by FFN width."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.train.train_step import place_parameters
+    cfg = get_arch("qwen3-moe-235b-a22b-smoke")
+    case = shapes.ShapeCase("p", "prefill", 16, 4)
+    dryrun.fake_group(4)
+    try:
+        mesh = init_device_mesh("cpu", (2, 2),
+                                mesh_dim_names=("data", "model"))
+        mem = dryrun.run_cell(cfg, case, mesh, srules=rules.MOE_SERVE_RULES)
+        model = Model(cfg, device="meta")
+        params = place_parameters(
+            model, dryrun.param_shardings(model, mesh, rules.MOE_SERVE_RULES),
+            dtype=torch.bfloat16)
+    finally:
+        dist.destroy_process_group()
+    assert mem["peak_bytes"] >= mem["argument_bytes"] > mem["batch_bytes"]
+    assert mem["argument_bytes"] == mem["batch_bytes"] + sum(
+        dryrun.local_bytes(p) for p in params.values())
+    experts = [n for n in params if n.split(".")[-1] in ("wg", "wi", "wo")
+               and ".moe." in n]
+    assert len(experts) == 3 * cfg.n_layers
+    whole = sum(params[n].numel() * 2 for n in experts)
+    assert sum(dryrun.local_bytes(params[n]) for n in experts) * 4 == whole
+    assert str(params["blocks.0.moe.wi"].placements) == \
+        "(Shard(dim=0), Shard(dim=2))"
+
+
+@pytest.mark.parametrize("kind,steps", [("prefill", 16), ("decode", 20)])
+def test_moe_serve_rules_over_pod_and_data_on_a_fake_mesh(kind, steps):
+    """The expert-data MoE on a fake (pod 2, data 2, model 2) mesh under
+    MOE_SERVE_RULES: the experts split over ``("pod", "data")``, their
+    exchange group flattened from those two axes, pod-major (this rank's
+    four peers of its ``"model"`` coordinate in the order the experts
+    are split), built once a mesh; the cost probe counts a rank's token
+    all-to-all as 2 x MoE layers x B_l x E x capacity x D bf16 bytes."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.launch import costprobe
+    from repro_torch.models import moe
+    cfg = get_arch("qwen3-moe-235b-a22b-smoke")
+    case = shapes.ShapeCase("p", kind, steps, 8)
+    dryrun.fake_group(8)
+    try:
+        mesh = init_device_mesh("cpu", (2, 2, 2),
+                                mesh_dim_names=("pod", "data", "model"))
+        group = moe._expert_group(mesh, ("pod", "data"))
+        assert moe._expert_group(mesh, ("pod", "data")) is group
+        ranks = dist.get_process_group_ranks(group)
+        costs = costprobe.cell_costs(cfg, case, mesh,
+                                     srules=rules.MOE_SERVE_RULES)
+    finally:
+        dist.destroy_process_group()
+    assert ranks == [0, 2, 4, 6]
+    E, K, D = cfg.n_experts, cfg.top_k, cfg.d_model
+    cap = K if kind == "decode" else \
+        max(1, int(steps * K * cfg.capacity_factor / E))
+    b_l = case.batch // 4
+    n_moe = cfg.layer_kinds().count("moe")
+    assert costs["coll_all-to-all"] == 2 * n_moe * b_l * E * cap * D * 2

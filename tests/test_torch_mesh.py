@@ -48,9 +48,11 @@ def _model(case):
 
 
 def _mesh(shape):
+    """A (data, model) mesh, or (pod, data, model) of three sizes."""
     from torch.distributed.device_mesh import init_device_mesh
-    return init_device_mesh("cpu", tuple(shape),
-                            mesh_dim_names=("data", "model"))
+    return init_device_mesh(
+        "cpu", tuple(shape),
+        mesh_dim_names=("pod", "data", "model")[3 - len(shape):])
 
 
 def _full(tree):
@@ -89,6 +91,8 @@ def run_case(rank: int, work: Path) -> None:
         return _decode_worker(rank, model, mesh, case, work)
     if case.get("moe"):
         return _moe_worker(rank, model, mesh, case, work)
+    if case.get("serve"):
+        return _moe_serve_worker(rank, model, mesh, case, work)
     ckpt = CheckpointManager(str(work / "ckpt"), async_save=False)
     _, state, _ = restore_for_mesh(ckpt, model, mesh)
     leaves = list(state["params"].values()) + [
@@ -268,6 +272,87 @@ def _moe_worker(rank, model, mesh, case, work) -> None:
         (work / "out.json").write_text(json.dumps(out))
 
 
+def greedy(model, batch, steps, mesh=None):
+    """``serve_step.greedy_logits`` of ``batch`` and ``steps`` decode
+    steps, over ``mesh`` when given: (the prefill's logits, each step's,
+    the tokens), whole."""
+    from repro_torch.train.serve_step import greedy_logits
+    tokens = torch.from_numpy(batch["tokens"]).long()
+    with model.spmd():
+        out = [t.detach() for t in greedy_logits(
+            model, {"tokens": tokens}, steps, mesh)]
+    return (out[0].numpy(), torch.stack(out[1:]).numpy(),
+            torch.stack([t.argmax(-1) for t in out], 1).numpy())
+
+
+def _moe_serve_worker(rank, model, mesh, case, work) -> None:
+    """The MoE with its experts split over the data axes
+    (MOE_SERVE_RULES: on a (2, 2) mesh each data rank holds E/2 experts,
+    each model rank half of every expert's FFN width; on a (2, 2, 1) one
+    each (pod, data) rank E/4), from the model's seed-0 parameters
+    placed by ``dryrun.param_shardings``: greedy decoding of a batch of
+    4 (split over the data axes: the tokens move by all-to-all) and of a
+    batch of 1 (no token moves), one MoE layer on its own, and, when
+    the case has ``seeds``, the case's steps from its checkpoint placed
+    by the same rules.  Rank 0 writes everything."""
+    from repro_torch.launch.dryrun import param_shardings
+    from repro_torch.models import moe
+    from repro_torch.sharding import rules
+    from repro_torch.train.train_step import place_parameters
+    serve = rules.MOE_SERVE_RULES
+    place_parameters(model, param_shardings(model, mesh, serve))
+    arrays, out = {}, {}
+    moe.exchanged_bytes = 0
+    for key, b in (("", 4), ("one_", 1)):
+        pre, steps, toks = greedy(
+            model, _batch(model.cfg, 5, b=b, t=12), case["serve"], mesh)
+        arrays.update({f"{key}pre": pre, f"{key}steps": steps,
+                       f"{key}toks": toks})
+        out[f"{key}bytes"] = moe.exchanged_bytes
+        moe.exchanged_bytes = 0
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (4, 12, model.cfg.d_model)).astype(np.float32))
+    with torch.no_grad(), model.spmd():
+        y, aux = moe.moe_ffn(model.cfg, model.blocks[0]["moe"],
+                             rules.constrain_batch(x, mesh))
+    arrays.update(x=x.numpy(), y=y.full_tensor().numpy(),
+                  aux=aux.full_tensor().numpy())
+    out["placements"] = {n: str(p.placements)
+                         for n, p in model.named_parameters()}
+    if "seeds" in case:
+        _moe_serve_steps(model, mesh, case, work, arrays, out)
+    if rank == 0:
+        np.savez(work / "params.npz", **arrays)
+        (work / "out.json").write_text(json.dumps(out))
+
+
+def _moe_serve_steps(model, mesh, case, work, arrays, out) -> None:
+    """The case's train steps under MOE_SERVE_RULES from its checkpoint:
+    the losses and grad norms into ``out``, the parameters into
+    ``arrays``."""
+    from repro_torch.checkpoint.ckpt import CheckpointManager
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.runtime.elastic import restore_for_mesh
+    from repro_torch.sharding import rules
+    from repro_torch.train.train_step import (TrainConfig, make_train_step,
+                                              place_train_state,
+                                              state_shardings)
+    serve = rules.MOE_SERVE_RULES
+    model = _model(case)
+    _, state, _ = restore_for_mesh(
+        CheckpointManager(str(work / "ckpt"), async_save=False), model)
+    state = place_train_state(model, state, mesh,
+                              state_shardings(model, mesh, serve))
+    step = make_train_step(model, TrainConfig(microbatches=case["mb"],
+                                              opt=OptConfig(**OPT)), mesh)
+    out["loss"], out["grad_norm"] = [], []
+    for seed in case["seeds"]:
+        state, metrics = step(state, _case_batch(model.cfg, case, seed))
+        out["loss"].append(float(metrics["loss"]))
+        out["grad_norm"].append(float(metrics["grad_norm"]))
+    arrays.update({f"p/{k}": v for k, v in _full(state["params"]).items()})
+
+
 def _spawn(work: Path, cases: list, timeout: int = 240) -> list:
     """Four ranks running ``cases`` (directories of ``work``, each with its
     ``case.json``) in turn; the ranks' output tails when one failed."""
@@ -353,8 +438,10 @@ def _close(got: dict, want: dict, prefix: str, rtol: float) -> None:
 # microbatches 2, from the JAX reference's state), a GQA model whose KV
 # heads do not divide the model axis, RWKV-6's chunked time mix over
 # three chunks (the last padded), decode over a mesh, the MoE with its
-# experts split over "model" (E = 4, top 2), and an elastic restore onto
-# another mesh
+# experts split over "model" (E = 4, top 2), the MoE served with its
+# experts split over "data" (MOE_SERVE_RULES) and over "pod" and "data"
+# (a (2, 2, 1) mesh: one exchange group of the four ranks, flattened),
+# and an elastic restore onto another mesh
 CASES = {
     "step": {"arch": "minitron-8b-smoke", "mesh": [2, 2], "mb": 2,
              "seeds": [10, 11]},
@@ -365,6 +452,10 @@ CASES = {
     "decode": {"arch": "qwen2.5-3b-smoke", "mesh": [2, 2], "decode": 2},
     "moe": {"arch": "phi3.5-moe-42b-a6.6b-smoke", "mesh": [2, 2], "mb": 1,
             "seeds": [6, 7], "moe": True},
+    "moe_serve": {"arch": "qwen3-moe-235b-a22b-smoke", "mesh": [2, 2],
+                  "mb": 1, "seeds": [8], "serve": 2},
+    "moe_serve_pod": {"arch": "qwen3-moe-235b-a22b-smoke",
+                      "mesh": [2, 2, 1], "serve": 2},
     "elastic": {"arch": "qwen2.5-3b-smoke", "mesh": [2, 2], "mb": 2,
                 "seeds": [1, 2], "elastic": 3, "mesh2": [4, 1]},
 }
@@ -400,7 +491,7 @@ def runs(tmp_path_factory):
     for name, case in CASES.items():
         (work / name).mkdir()
         (work / name / "case.json").write_text(json.dumps(case))
-        if "decode" in case:
+        if "seeds" not in case:
             continue
         if name == "step":
             states[name] = _reference_state(case)
@@ -560,6 +651,75 @@ def test_moe_over_a_mesh_matches_one_process(runs):
     np.testing.assert_allclose(out["loss"], losses, rtol=1e-5)
     np.testing.assert_allclose(out["grad_norm"], norms, rtol=1e-5)
     _close(got, want, "p", 1e-5)
+
+
+def _serves_as_one_process(runs, name, d):
+    """The ``_moe_serve_worker`` record of case ``name`` (its expert
+    axes ``d`` ranks): the greedy runs of 4 rows and of 1 equal one
+    process's within 1e-5 (fp32), with the same tokens; a rank received
+    2 x layers x B_l x E x capacity x D x 4 bytes for the 4 rows (d
+    ranks x B_l rows x E/d experts a call, two calls a layer, the
+    prefill's capacity and then K a step), none for the 1; the MoE
+    layer's mesh output and aux equal the JAX reference's ``moe_ffn`` on
+    the same parameters and input.  (the record, the arrays)"""
+    import jax.numpy as jnp
+    from repro.configs import get_arch as ref_get_arch
+    from repro.models import moe as ref_moe
+    case = CASES[name]
+    work, out = _result(runs, name)
+    got = dict(np.load(work / "params.npz"))
+    model = _model(case)
+    cfg = model.cfg
+    for key, b in (("", 4), ("one_", 1)):
+        pre, steps, toks = greedy(model, _batch(cfg, 5, b=b, t=12),
+                                  case["serve"])
+        np.testing.assert_allclose(got[f"{key}pre"], pre, rtol=1e-5,
+                                   atol=1e-5)
+        np.testing.assert_allclose(got[f"{key}steps"], steps, rtol=1e-5,
+                                   atol=1e-5)
+        assert np.array_equal(got[f"{key}toks"], toks)
+    E, K, D, b_l, t = cfg.n_experts, cfg.top_k, cfg.d_model, 4 // d, 12
+    caps = [max(1, int(t * K * cfg.capacity_factor / E))] \
+        + [K] * case["serve"]
+    assert out["bytes"] == sum(2 * cfg.n_layers * b_l * E * c * D * 4
+                               for c in caps)
+    assert out["one_bytes"] == 0
+
+    rcfg = dataclasses.replace(ref_get_arch(case["arch"]),
+                               dtype_compute="float32")
+    p = {k: jnp.asarray(v.detach().numpy())
+         for k, v in model.blocks[0].moe._parameters.items()}
+    want, want_aux = ref_moe.moe_ffn(rcfg, p, jnp.asarray(got["x"]))
+    np.testing.assert_allclose(got["y"], np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(got["aux"], float(want_aux), rtol=1e-5)
+    return out
+
+
+def test_moe_serve_rules_match_one_process_and_reference(runs):
+    """qwen3-moe-smoke (E = 4, top 2, 2 layers) served on a (2, 2) mesh
+    under MOE_SERVE_RULES (experts split over ``"data"``, their FFN
+    width over ``"model"``): greedy decoding of 4 rows (two a data rank:
+    the tokens travel to their experts by all-to-all) and of 1 row (no
+    token moves) and one MoE layer as :func:`_serves_as_one_process`
+    holds them; a train step under the same rules equals one
+    process's."""
+    out = _serves_as_one_process(runs, "moe_serve", 2)
+    assert out["placements"]["blocks.0.moe.wi"] == \
+        "(Shard(dim=0), Shard(dim=2))"
+    assert out["placements"]["blocks.0.moe.wo"] == \
+        "(Shard(dim=0), Shard(dim=1))"
+    _matches_one_process(runs, "moe_serve")
+
+
+def test_moe_serve_rules_over_pod_and_data_match_one_process(runs):
+    """The same model on a (pod 2, data 2, model 1) mesh: the experts
+    split over ``"pod"`` and ``"data"``, one each, exchanged over the
+    flattened group of the four ranks (pod-major, the experts' order),
+    one row a rank; served as :func:`_serves_as_one_process` holds it."""
+    out = _serves_as_one_process(runs, "moe_serve_pod", 4)
+    assert out["placements"]["blocks.0.moe.wi"].startswith(
+        "(Shard(dim=0), Shard(dim=0), ")
 
 
 def test_kv_group_keeps_the_head_map():
