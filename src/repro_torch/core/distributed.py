@@ -31,8 +31,9 @@ from .cached_frontier import CachedTrieJoin
 from .cq import CQ
 from .db import Database
 from .frontier import Frontier
+from . import trace
 from .hostsync import device_get
-from .schedule import FOLD_CHILD, execute_static
+from .schedule import FOLD_CHILD, ROW_COUNTERS, execute_static
 from .td import TreeDecomposition
 
 __all__ = ["StaticCLFTJ", "shard_frontier", "make_distributed_count",
@@ -50,9 +51,17 @@ class StaticCLFTJ(CachedTrieJoin):
     under ``*_calls_chain``) and ``fold_sorted_exits``, the fused folds
     whose exit chunk was sorted before its kernel ran (the chain FOLD,
     ``fold_kernel="chain"``, takes unsorted exits as they come); ``last_needed_max`` holds the last pass's largest row
-    need (a 0-d device tensor)."""
+    need (a 0-d device tensor).
+
+    The row counters (``schedule.ROW_COUNTERS``: ``tier2_probes``,
+    ``tier2_hits``, ``tier2_inserts``, ``tier1_rows_entered``,
+    ``tier1_rows_collapsed``, ``expand_rows``) are filled only by passes
+    run with tracing on (``trace.enable(True)``): they add up on the
+    device, and :meth:`read_counters` moves them into ``stats``.  Passes
+    run with tracing off leave them as they are."""
 
     last_needed_max: Optional[torch.Tensor] = None
+    _row_counts: Optional[Dict[str, torch.Tensor]] = None
 
     def make_tables(self, mode: str = "count") -> Dict[int, tuple]:
         """Fresh tier-2 tables for every probed TD node: the count-only
@@ -61,39 +70,58 @@ class StaticCLFTJ(CachedTrieJoin):
         ``(pay_off, pay_len, slab, bump)``: the payload planes, a slab
         arena of ``payload_rows + 1`` rows of the node's subtree width (the
         last row is scratch) and the arena's bump pointer."""
-        cfg = self.cache_config
-        if cfg.initial_slots() <= 0:
-            return {}
-        w = cfg.ways
-        s = max(1, cfg.initial_slots() // w)
-        dev = self.device
-        tables: Dict[int, tuple] = {}
-        for op in self.schedule.ops:
-            if op.kind != FOLD_CHILD or not op.probe or op.node in tables:
-                continue
-            base = (torch.zeros((s, w), dtype=torch.int64, device=dev),
-                    torch.zeros((s, w), dtype=torch.int64, device=dev),
-                    torch.zeros((s, w), dtype=torch.bool, device=dev),
-                    torch.zeros((s, w), dtype=torch.int32, device=dev),
-                    torch.zeros((s, w), dtype=torch.int64, device=dev))
-            if mode == "evaluate" and cfg.cache_payloads:
-                width = op.sub_last - op.sub_first + 1
-                tables[op.node] = base + (
-                    torch.zeros((s, w), dtype=torch.int32, device=dev),
-                    torch.full((s, w), -1, dtype=torch.int32, device=dev),
-                    torch.zeros((int(cfg.payload_rows) + 1, width),
-                                dtype=torch.int32, device=dev),
-                    torch.zeros((), dtype=torch.int32, device=dev))
-            else:
-                tables[op.node] = base
-        return tables
+        with trace.span("ctj.tables"):
+            cfg = self.cache_config
+            if cfg.initial_slots() <= 0:
+                return {}
+            w = cfg.ways
+            s = max(1, cfg.initial_slots() // w)
+            dev = self.device
+            tables: Dict[int, tuple] = {}
+            for op in self.schedule.ops:
+                if op.kind != FOLD_CHILD or not op.probe or op.node in tables:
+                    continue
+                base = (torch.zeros((s, w), dtype=torch.int64, device=dev),
+                        torch.zeros((s, w), dtype=torch.int64, device=dev),
+                        torch.zeros((s, w), dtype=torch.bool, device=dev),
+                        torch.zeros((s, w), dtype=torch.int32, device=dev),
+                        torch.zeros((s, w), dtype=torch.int64, device=dev))
+                if mode == "evaluate" and cfg.cache_payloads:
+                    width = op.sub_last - op.sub_first + 1
+                    tables[op.node] = base + (
+                        torch.zeros((s, w), dtype=torch.int32, device=dev),
+                        torch.full((s, w), -1, dtype=torch.int32, device=dev),
+                        torch.zeros((int(cfg.payload_rows) + 1, width),
+                                    dtype=torch.int32, device=dev),
+                        torch.zeros((), dtype=torch.int32, device=dev))
+                else:
+                    tables[op.node] = base
+            return tables
 
     def _pass(self, F0: Frontier, tables: Dict[int, tuple], mode: str):
         counts: Dict[str, object] = {}
         out = execute_static(self.schedule, self, F0, tables,
                              self.cache_config, mode=mode, counts=counts)
         self.last_needed_max = counts.pop("needed_max")
+        rows = {k: counts.pop(k) for k in ROW_COUNTERS if k in counts}
+        if rows:
+            acc = self._row_counts or {}
+            self._row_counts = {k: acc[k] + n if k in acc else n
+                                for k, n in rows.items()}
         for key, n in counts.items():
+            self.stats[key] = self.stats.get(key, 0) + n
+        return out
+
+    def read_counters(self) -> Dict[str, int]:
+        """The row counters of the traced passes since the last call: one
+        host fetch (label ``static-stats``), none when no traced pass ran.
+        Adds them into ``stats`` and zeroes them on the device."""
+        acc, self._row_counts = self._row_counts, None
+        if not acc:
+            return dict.fromkeys(ROW_COUNTERS, 0)
+        got = device_get(acc, "static-stats")
+        out = {k: int(got.get(k, 0)) for k in ROW_COUNTERS}
+        for key, n in out.items():
             self.stats[key] = self.stats.get(key, 0) + n
         return out
 
@@ -102,7 +130,9 @@ class StaticCLFTJ(CachedTrieJoin):
         the chunk ``F0`` with fresh count tables, both results 0-d device
         tensors."""
         def fn(F0: Frontier):
-            total, ov, _ = self._pass(F0, self.make_tables("count"), "count")
+            with trace.span("ctj.pass"):
+                total, ov, _ = self._pass(F0, self.make_tables("count"),
+                                          "count")
             return total, ov
 
         return fn
@@ -114,7 +144,8 @@ class StaticCLFTJ(CachedTrieJoin):
         tables to pass back in for a warm pass.  The slabs in ``tables``
         are written in place."""
         def fn(F0: Frontier, tables: Dict[int, tuple]):
-            return self._pass(F0, tables, "evaluate")
+            with trace.span("ctj.pass"):
+                return self._pass(F0, tables, "evaluate")
 
         return fn
 

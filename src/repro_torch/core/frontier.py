@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..kernels import registry as kernels
+from . import trace
 from .cq import CQ
 from .db import Database
 from .schedule import MAX_KEY_BITS, ScheduleExecutor, lower
@@ -184,18 +185,19 @@ class TrieJoin:
     # ------------------------------------------------------------------
     def initial_frontier(self) -> Frontier:
         C, n, m, dev = self.capacity, self.n, self.m, self.device
-        hi = torch.zeros((C, m), dtype=torch.int32)
-        hi[0, :] = torch.tensor(self.sizes, dtype=torch.int32)
-        factor = torch.zeros(C, dtype=torch.int64)
-        factor[0] = 1
-        valid = torch.zeros(C, dtype=torch.bool)
-        valid[0] = True
-        return Frontier(
-            assign=torch.zeros((C, n), dtype=torch.int32, device=dev),
-            factor=factor.to(dev), valid=valid.to(dev),
-            orig=torch.zeros(C, dtype=torch.int32, device=dev),
-            lo=torch.zeros((C, m), dtype=torch.int32, device=dev),
-            hi=hi.to(dev))
+        with trace.span("ctj.initial_frontier"):
+            hi = torch.zeros((C, m), dtype=torch.int32)
+            hi[0, :] = torch.tensor(self.sizes, dtype=torch.int32)
+            factor = torch.zeros(C, dtype=torch.int64)
+            factor[0] = 1
+            valid = torch.zeros(C, dtype=torch.bool)
+            valid[0] = True
+            return Frontier(
+                assign=torch.zeros((C, n), dtype=torch.int32, device=dev),
+                factor=factor.to(dev), valid=valid.to(dev),
+                orig=torch.zeros(C, dtype=torch.int32, device=dev),
+                lo=torch.zeros((C, m), dtype=torch.int32, device=dev),
+                hi=hi.to(dev))
 
     # ------------------------------------------------------------------
     def _expand_fn(self, d: int):

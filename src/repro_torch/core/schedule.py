@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ..kernels.registry import path_of
+from . import trace
 from .hostsync import AsyncFetchQueue, device_get, device_get_async
 
 MAX_KEY_BITS = 21  # packed adhesion keys: values must fit in 21 bits
@@ -52,6 +53,9 @@ MAX_KEY_BITS = 21  # packed adhesion keys: values must fit in 21 bits
 # device (launch_path).  "fold" counts both FOLD arities, "fold_splice"
 # the splice alone; a chain EXPAND's leapfrog bound calls land in
 # "bound_calls_*"
+# the static pass's row counters, kept only while tracing is on
+ROW_COUNTERS = ("tier2_probes", "tier2_hits", "tier2_inserts",
+                "tier1_rows_entered", "tier1_rows_collapsed", "expand_rows")
 CALL_COUNTERS = tuple(
     f"{op}_calls_{path}" for op in ("expand", "fold", "fold_splice", "emit")
     for path in ("cuda", "torch", "chain")) + (
@@ -941,7 +945,15 @@ def execute_static(schedule: Schedule, engine, F0, tables: Dict[int, tuple],
     ``*_calls_chain``), ``fold_sorted_exits`` (the fused folds that
     sorted their exits first) and ``needed_max`` (a 0-d device
     tensor: the most rows any op of the pass needed, a merged FOLD's
-    replay and splice rows together).
+    replay and splice rows together).  With tracing on
+    (:func:`trace.enable`), each op runs in its ``ctj.*`` span and
+    ``counts`` also receives the pass's row counters, 0-d int64 device
+    tensors (:data:`ROW_COUNTERS`): ``tier2_probes`` (valid rows probed),
+    ``tier2_hits``, ``tier2_inserts`` (representatives offered),
+    ``tier1_rows_entered`` (active rows at the ENTERs that dedup),
+    ``tier1_rows_collapsed`` (those less their representatives) and
+    ``expand_rows`` (the sum of every EXPAND's ``needed``).  Tracing off,
+    none of them is computed.
     """
     from .cache import (_insert as cache_insert, _probe as cache_probe,
                         _probe_payload as cache_probe_payload)
@@ -974,166 +986,203 @@ def execute_static(schedule: Schedule, engine, F0, tables: Dict[int, tuple],
     # order; a replay-only fold's output is sorted iff its parent was; a
     # merged output is two sorted regions, not sorted as a whole
     sorted_now = True
+    # with tracing on: one span an op, and the pass's row counters as 0-d
+    # device tensors in ``counts`` (never evaluated with tracing off)
+    tracing = trace.enabled()
+    span = trace.span
+
+    def tally(key: str, n: torch.Tensor) -> None:
+        counts[key] = counts[key] + n if key in counts else n
+
     for op in schedule.ops:
         if op.kind == EXPAND:
-            fn = engine._expand_fn(op.d)
-            for key, n in expand_launches(fn, F.assign).items():
-                counts[key] = counts.get(key, 0) + n
-            F, needed = fn(F)
-            ov = ov | (needed > C)
-            needed_max = torch.maximum(needed_max, needed.to(i64))
+            with span("ctj.expand"):
+                fn = engine._expand_fn(op.d)
+                for key, n in expand_launches(fn, F.assign).items():
+                    counts[key] = counts.get(key, 0) + n
+                F, needed = fn(F)
+                ov = ov | (needed > C)
+                needed_max = torch.maximum(needed_max, needed.to(i64))
+                if tracing:
+                    tally("expand_rows", needed.to(i64))
         elif op.kind == ENTER_CHILD:
-            keys = (_pack_keys(F.assign, op.adhesion, op.node)
-                    if (op.probe or op.dedup) else None)
-            tbl = tables.get(op.node)
-            has_pay = tbl is not None and len(tbl) > 5
-            # evaluation probes tier 2 only on payload tables: count-only
-            # entries cannot replay tuples (optionality)
-            use_t2 = op.probe and tbl is not None and (
-                mode == "count" or has_pay)
-            poff = plen = None
-            if use_t2 and mode == "evaluate":
-                tk, tv, tu, ts, tc, tpoff, tplen, slab, bump = tbl
-                tick += 1
-                hit, poff, plen, ts = cache_probe_payload(
-                    tk, tu, ts, tpoff, tplen, keys, F.valid, tick)
-                hvals = torch.zeros(C, dtype=i64, device=dev)
-                n_replay = n_replay + hit.sum(dtype=i64)
-                tables = dict(tables)
-                tables[op.node] = (tk, tv, tu, ts, tc, tpoff, tplen, slab,
-                                   bump)
-            elif use_t2:
-                tk, tv, tu, ts, tc = tbl[:5]
-                tick += 1
-                hit, hvals, ts = cache_probe(tk, tv, tu, ts, keys, F.valid,
-                                             tick)
-                tables = dict(tables)
-                tables[op.node] = (tk, tv, tu, ts, tc) + tuple(tbl[5:])
-            else:
-                hit = torch.zeros(C, dtype=torch.bool, device=dev)
-                hvals = torch.zeros(C, dtype=i64, device=dev)
-            active = F.valid & ~hit
-            if op.dedup:
-                first_idx, rep_of_row, n_reps = _dedup(keys, active)
-                R = _make_rep_frontier(F, first_idx, n_reps)
-            else:
-                first_idx, n_reps = None, None
-                rep_of_row = ar
-                R = _identity_reps(F, active)
-            stack.append((F, keys, hit, hvals, rep_of_row, first_idx,
-                          n_reps, active, use_t2, poff, plen, sorted_now))
-            F = R
-            sorted_now = True  # rep chunks carry orig = arange
-        elif op.kind == FOLD_CHILD:
-            (P, keys, hit, hvals, rep_of_row, first_idx, n_reps, active,
-             use_t2, poff, plen, parent_sorted) = stack.pop()
-            if mode == "evaluate":
-                E = F
-                d0, d1 = op.sub_first, op.sub_last
-                ffn = engine._fold_fn(d0, d1, True, use_t2)
-                if not sorted_now and ffn.path == "fused":
-                    E = _sort_exits(E)
-                    counts["fold_sorted_exits"] += 1
-                launched("fold", ffn, P.assign)
+            with span("ctj.enter"):
+                keys = (_pack_keys(F.assign, op.adhesion, op.node)
+                        if (op.probe or op.dedup) else None)
+                tbl = tables.get(op.node)
+                has_pay = tbl is not None and len(tbl) > 5
+                # evaluation probes tier 2 only on payload tables:
+                # count-only entries cannot replay tuples (optionality)
+                use_t2 = op.probe and tbl is not None and (
+                    mode == "count" or has_pay)
+                poff = plen = None
                 if use_t2:
-                    (tk, tv, tu, ts, tc, tpoff, tplen, slab,
-                     bump) = tables[op.node]
-                    # the splice reads the probed blocks BEFORE this
-                    # table's store below (an epoch flush may reuse their
-                    # arena rows); stream order keeps that on the card.
-                    # Everything replays and splices at once, so all
-                    # three stats figures are checked against C
-                    launched("fold_merged", ffn, P.assign)
-                    F, stats = ffn(P, active, rep_of_row, E, hit, poff,
-                                   plen, slab)
-                    ov = ov | (stats > C).any()
-                    needed_max = torch.maximum(needed_max,
-                                               stats[0] + stats[1])
-                    sorted_now = False  # two sorted regions
-                    # store the miss representatives' blocks: one exit
-                    # chunk, so every block is complete
-                    ecnt = torch.zeros(C, dtype=i32, device=dev).scatter_add_(
-                        0, E.orig.clamp(0, C - 1).long(), E.valid.to(i32))
-                    if op.dedup:
-                        rep_keys = keys[first_idx.clamp(0, C - 1)]
-                        eligible = (ecnt > 0) & (ar < n_reps)
-                    else:
-                        rep_keys = keys
-                        eligible = (ecnt > 0) & active
-                        # duplicate adhesion keys: only the first
-                        # occurrence may store, or the rest leak arena rows
-                        fi, _, nr = _dedup(keys, eligible)
-                        isrep = torch.zeros(C, dtype=i32, device=dev
-                                            ).scatter_reduce_(
-                            0, fi.clamp(0, C - 1).long(), (ar < nr).to(i32),
-                            "amax")
-                        eligible = eligible & (isrep > 0)
-                    offs, admit, bump, tplen = _alloc_blocks_static(
-                        bump, tplen, ecnt, eligible,
-                        cap=int(cfg.payload_rows))
-                    _store_blocks(slab, E, offs, admit, d0=d0, d1=d1)
-                    tick += 1
-                    lens = ecnt.to(i64)
-                    out = cache_insert(
-                        tk, tv, tu, ts, tc, rep_keys, lens,
-                        torch.clamp(lens, min=1), admit, tick,
-                        policy=cfg.policy, rounds=min(cfg.ways, 8),
-                        pay=(tpoff, tplen, offs, ecnt))
-                    tables = dict(tables)
-                    tables[op.node] = tuple(out[:7]) + (slab, bump)
+                    with span("ctj.tier2.probe"):
+                        tick += 1
+                        if mode == "evaluate":
+                            tk, tv, tu, ts, tc, tpoff, tplen, slab, bump = tbl
+                            hit, poff, plen, ts = cache_probe_payload(
+                                tk, tu, ts, tpoff, tplen, keys, F.valid, tick)
+                            hvals = torch.zeros(C, dtype=i64, device=dev)
+                            n_replay = n_replay + hit.sum(dtype=i64)
+                            tables = dict(tables)
+                            tables[op.node] = (tk, tv, tu, ts, tc, tpoff,
+                                               tplen, slab, bump)
+                        else:
+                            tk, tv, tu, ts, tc = tbl[:5]
+                            hit, hvals, ts = cache_probe(tk, tv, tu, ts, keys,
+                                                         F.valid, tick)
+                            tables = dict(tables)
+                            tables[op.node] = ((tk, tv, tu, ts, tc)
+                                               + tuple(tbl[5:]))
+                        if tracing:
+                            tally("tier2_probes", F.valid.sum(dtype=i64))
+                            tally("tier2_hits", hit.sum(dtype=i64))
                 else:
-                    F, stats = ffn(P, active, rep_of_row, E)
-                    ov = ov | (stats[0] > C)
-                    needed_max = torch.maximum(needed_max, stats[0])
-                    # the continuation keeps the parent's row order
-                    sorted_now = parent_sorted
-            else:
-                cnt = _segment_counts(F, C)
-                sorted_now = parent_sorted  # _apply_counts keeps row order
-                if use_t2:
+                    hit = torch.zeros(C, dtype=torch.bool, device=dev)
+                    hvals = torch.zeros(C, dtype=i64, device=dev)
+                active = F.valid & ~hit
+                with span("ctj.tier1.dedup"):
                     if op.dedup:
-                        rep_keys = keys[first_idx.clamp(0, C - 1)]
-                        rep_active = ar < n_reps
+                        first_idx, rep_of_row, n_reps = _dedup(keys, active)
+                        if tracing:
+                            entered = active.sum(dtype=i64)
+                            tally("tier1_rows_entered", entered)
+                            tally("tier1_rows_collapsed", entered - n_reps)
+                        R = _make_rep_frontier(F, first_idx, n_reps)
                     else:
-                        rep_keys, rep_active = keys, active
-                    tbl = tables[op.node]
-                    tick += 1
-                    if len(tbl) > 5:
-                        # a payload table in count mode: the count insert
-                        # writes the -1 sentinel into the payload planes,
-                        # so an eviction never leaves a stale block
-                        # reachable
-                        tpoff, tplen, slab, bump = tbl[5:]
-                        out = cache_insert(
-                            *tbl[:5], rep_keys, cnt, torch.clamp(cnt, min=1),
-                            rep_active, tick, policy=cfg.policy,
-                            rounds=min(cfg.ways, 8),
-                            pay=(tpoff, tplen,
-                                 torch.zeros(C, dtype=i32, device=dev),
-                                 torch.full((C,), -1, dtype=i32,
-                                            device=dev)))
-                        new_tbl = tuple(out[:7]) + (slab, bump)
+                        first_idx, n_reps = None, None
+                        rep_of_row = ar
+                        R = _identity_reps(F, active)
+                stack.append((F, keys, hit, hvals, rep_of_row, first_idx,
+                              n_reps, active, use_t2, poff, plen, sorted_now))
+                F = R
+                sorted_now = True  # rep chunks carry orig = arange
+        elif op.kind == FOLD_CHILD:
+            with span("ctj.fold"):
+                (P, keys, hit, hvals, rep_of_row, first_idx, n_reps, active,
+                 use_t2, poff, plen, parent_sorted) = stack.pop()
+                if mode == "evaluate":
+                    E = F
+                    d0, d1 = op.sub_first, op.sub_last
+                    ffn = engine._fold_fn(d0, d1, True, use_t2)
+                    if not sorted_now and ffn.path == "fused":
+                        E = _sort_exits(E)
+                        counts["fold_sorted_exits"] += 1
+                    launched("fold", ffn, P.assign)
+                    if use_t2:
+                        (tk, tv, tu, ts, tc, tpoff, tplen, slab,
+                         bump) = tables[op.node]
+                        # the splice reads the probed blocks BEFORE this
+                        # table's store below (an epoch flush may reuse
+                        # their arena rows); stream order keeps that on the
+                        # card.  Everything replays and splices at once, so
+                        # all three stats figures are checked against C
+                        launched("fold_merged", ffn, P.assign)
+                        F, stats = ffn(P, active, rep_of_row, E, hit, poff,
+                                       plen, slab)
+                        ov = ov | (stats > C).any()
+                        needed_max = torch.maximum(needed_max,
+                                                   stats[0] + stats[1])
+                        sorted_now = False  # two sorted regions
+                        with span("ctj.tier2.insert"):
+                            # store the miss representatives' blocks: one
+                            # exit chunk, so every block is complete
+                            ecnt = torch.zeros(C, dtype=i32, device=dev
+                                               ).scatter_add_(
+                                0, E.orig.clamp(0, C - 1).long(),
+                                E.valid.to(i32))
+                            if op.dedup:
+                                rep_keys = keys[first_idx.clamp(0, C - 1)]
+                                eligible = (ecnt > 0) & (ar < n_reps)
+                            else:
+                                rep_keys = keys
+                                eligible = (ecnt > 0) & active
+                                # duplicate adhesion keys: only the first
+                                # occurrence may store, or the rest leak
+                                # arena rows
+                                fi, _, nr = _dedup(keys, eligible)
+                                isrep = torch.zeros(C, dtype=i32, device=dev
+                                                    ).scatter_reduce_(
+                                    0, fi.clamp(0, C - 1).long(),
+                                    (ar < nr).to(i32), "amax")
+                                eligible = eligible & (isrep > 0)
+                            if tracing:
+                                tally("tier2_inserts",
+                                      eligible.sum(dtype=i64))
+                            offs, admit, bump, tplen = _alloc_blocks_static(
+                                bump, tplen, ecnt, eligible,
+                                cap=int(cfg.payload_rows))
+                            _store_blocks(slab, E, offs, admit, d0=d0, d1=d1)
+                            tick += 1
+                            lens = ecnt.to(i64)
+                            out = cache_insert(
+                                tk, tv, tu, ts, tc, rep_keys, lens,
+                                torch.clamp(lens, min=1), admit, tick,
+                                policy=cfg.policy, rounds=min(cfg.ways, 8),
+                                pay=(tpoff, tplen, offs, ecnt))
+                            tables = dict(tables)
+                            tables[op.node] = tuple(out[:7]) + (slab, bump)
                     else:
-                        out = cache_insert(*tbl, rep_keys, cnt,
-                                           torch.clamp(cnt, min=1),
-                                           rep_active, tick,
-                                           policy=cfg.policy,
-                                           rounds=min(cfg.ways, 8))
-                        new_tbl = tuple(out[:5])
-                    tables = dict(tables)
-                    tables[op.node] = new_tbl
-                F = _apply_counts(P, hit, hvals, rep_of_row, cnt)
+                        F, stats = ffn(P, active, rep_of_row, E)
+                        ov = ov | (stats[0] > C)
+                        needed_max = torch.maximum(needed_max, stats[0])
+                        # the continuation keeps the parent's row order
+                        sorted_now = parent_sorted
+                else:
+                    cnt = _segment_counts(F, C)
+                    sorted_now = parent_sorted  # _apply_counts keeps order
+                    if use_t2:
+                        with span("ctj.tier2.insert"):
+                            if op.dedup:
+                                rep_keys = keys[first_idx.clamp(0, C - 1)]
+                                rep_active = ar < n_reps
+                            else:
+                                rep_keys, rep_active = keys, active
+                            if tracing:
+                                tally("tier2_inserts",
+                                      rep_active.sum(dtype=i64))
+                            tbl = tables[op.node]
+                            tick += 1
+                            if len(tbl) > 5:
+                                # a payload table in count mode: the count
+                                # insert writes the -1 sentinel into the
+                                # payload planes, so an eviction never
+                                # leaves a stale block reachable
+                                tpoff, tplen, slab, bump = tbl[5:]
+                                out = cache_insert(
+                                    *tbl[:5], rep_keys, cnt,
+                                    torch.clamp(cnt, min=1), rep_active,
+                                    tick, policy=cfg.policy,
+                                    rounds=min(cfg.ways, 8),
+                                    pay=(tpoff, tplen,
+                                         torch.zeros(C, dtype=i32,
+                                                     device=dev),
+                                         torch.full((C,), -1, dtype=i32,
+                                                    device=dev)))
+                                new_tbl = tuple(out[:7]) + (slab, bump)
+                            else:
+                                out = cache_insert(*tbl, rep_keys, cnt,
+                                                   torch.clamp(cnt, min=1),
+                                                   rep_active, tick,
+                                                   policy=cfg.policy,
+                                                   rounds=min(cfg.ways, 8))
+                                new_tbl = tuple(out[:5])
+                            tables = dict(tables)
+                            tables[op.node] = new_tbl
+                    F = _apply_counts(P, hit, hvals, rep_of_row, cnt)
         else:  # EMIT
-            if mode == "count":
-                total = torch.where(F.valid, F.factor, 0).sum()
-            else:
-                # valid rows to the front: the result mask becomes a
-                # prefix predicate
-                efn = engine._emit_fn()
-                launched("emit", efn, F.assign)
-                rows, k = efn(F.assign, F.valid)
-                rvalid = ar < k
-                total = k.to(i64)
+            with span("ctj.emit"):
+                if mode == "count":
+                    total = torch.where(F.valid, F.factor, 0).sum()
+                else:
+                    # valid rows to the front: the result mask becomes a
+                    # prefix predicate
+                    efn = engine._emit_fn()
+                    launched("emit", efn, F.assign)
+                    rows, k = efn(F.assign, F.valid)
+                    rvalid = ar < k
+                    total = k.to(i64)
     counts["needed_max"] = needed_max
     if mode == "count":
         return total, ov, tables

@@ -41,7 +41,8 @@ def test_imports_without_jax_and_reference():
     # the host engines, the FOLD / EMIT chains, the training modules, the
     # block families and the cost tools are among them
     assert {f"repro_torch.core.{m}" for m in (
-        "trie", "lftj_ref", "bruteforce", "clftj_ref", "yannakakis")} | {
+        "trie", "lftj_ref", "bruteforce", "clftj_ref", "yannakakis",
+        "trace")} | {
         "repro_torch.kernels.fold.chain",
         "repro_torch.kernels.emit.chain"} | {f"repro_torch.{m}" for m in (
             "optim.adamw", "train.train_step", "train.loop",
