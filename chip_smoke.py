@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a),
-holds every kernel against its plain PyTorch version on the card, runs
+holds every kernel against its plain PyTorch version on the card (the
+tier-2 probe and insert at the static benchmark cell's shapes), runs
 ``engine.count`` and ``engine.evaluate`` of the 4-cycle on Zipf graphs at
 the published scale of SNAP wiki-Vote and ca-GrQc, then payload-replay
 evaluation (tier 2 on, cold and warm passes on one engine) and streamed
@@ -98,6 +99,7 @@ from repro_torch.configs.paper_clftj import (  # noqa: E402
     JoinEngineConfig)
 from repro_torch.core import engine  # noqa: E402
 from repro_torch.core.cache import CacheConfig  # noqa: E402
+from repro_torch.core import cache as cache_mod  # noqa: E402
 from repro_torch.core.cached_frontier import CachedTrieJoin  # noqa: E402
 from repro_torch.core.cq import CQ, cycle_query, path_query  # noqa: E402
 from repro_torch.core.db import graph_db  # noqa: E402
@@ -120,6 +122,8 @@ from repro_torch.kernels.fold import cuda as fold_cuda  # noqa: E402
 from repro_torch.kernels.fold import plain as fold_plain  # noqa: E402
 from repro_torch.kernels.leapfrog import cuda as bound_cuda  # noqa: E402
 from repro_torch.kernels.leapfrog import plain as bound_plain  # noqa: E402
+from repro_torch.kernels.tier2 import cuda as tier2_cuda  # noqa: E402
+from repro_torch.kernels.tier2 import plain as tier2_plain  # noqa: E402
 from repro_torch.launch import costprobe  # noqa: E402
 from repro_torch.launch import roofline  # noqa: E402
 from repro_torch.serve.canonical import rename_query  # noqa: E402
@@ -188,7 +192,9 @@ WRAPPERS = {"expand": (expand_cuda, "launches"),
             "emit": (emit_cuda, "launches"),
             "bound": (bound_cuda, "launches"),
             "bound_atoms": (bound_cuda, "atoms_launches"),
-            "flash_attention": (flash_cuda, "launches")}
+            "flash_attention": (flash_cuda, "launches"),
+            "tier2_probe": (tier2_cuda, "probe_launches"),
+            "tier2_insert": (tier2_cuda, "insert_launches")}
 SOURCES = {"expand": ("src/repro_torch/csrc/expand.cu",
                       "src/repro/kernels/expand/fused.py:193"),
            "fold_replay": ("src/repro_torch/csrc/fold.cu",
@@ -205,7 +211,12 @@ SOURCES = {"expand": ("src/repro_torch/csrc/expand.cu",
                            "src/repro/kernels/leapfrog/leapfrog.py:56"),
            "flash_attention": (
                "src/repro_torch/csrc/flash_attention.cu",
-               "src/repro/kernels/flash_attention/flash_attention.py:74")}
+               "src/repro/kernels/flash_attention/flash_attention.py:74"),
+           # no Pallas kernel: the reference's probe and insert are XLA
+           "tier2_probe": ("src/repro_torch/csrc/tier2.cu",
+                           "src/repro/core/cache.py:153"),
+           "tier2_insert": ("src/repro_torch/csrc/tier2.cu",
+                            "src/repro/core/cache.py:167")}
 # the kernels only the static executor launches, only the leapfrog path
 # (the chain EXPAND's membership test, the public bounded search), and
 # only the LM (none of them the join's main path)
@@ -1049,6 +1060,150 @@ def static_scale_rows(db2, dev) -> dict:
     return big
 
 
+# the tier-2 ops at the static benchmark cell's shapes
+# (graph500.static-cycle4-count): C = 2^26 rows, a 4-cycle pass's 1,410,739
+# representatives offered for insert and its 6,236,814 valid rows probed,
+# each a prefix of the chunk, 2^19 sets x 8 ways
+TIER2 = dict(C=1 << 26, sets=1 << 19, ways=8, live=1_410_739,
+             probed=6_236_814)
+# (policy, payload planes, prefilled table): the cell's fresh setassoc
+# tables first (its calls are the timed ones), then a prefilled costaware
+# table and a prefilled payload table
+TIER2_CASES = (("setassoc", False, False), ("costaware", False, True),
+               ("setassoc", True, True))
+
+
+def tier2_inputs(case: int, dev):
+    """Seeded inputs of TIER2_CASES[case] on the card: the table planes
+    (with the payload planes), the chunk's keys, values, costs and live
+    prefix, the payload rows, and the probe's keys (half the chunk's keys,
+    half misses) and valid prefix.  A prefilled table is 90% used, and a
+    third of the live keys sit in their own sets, so rows are blocked,
+    refreshed, refused and evicted."""
+    policy, pay, prefilled = TIER2_CASES[case]
+    C, S, W, live = TIER2["C"], TIER2["sets"], TIER2["ways"], TIER2["live"]
+    g = torch.Generator(device=dev).manual_seed(SEED * 100 + case)
+
+    def draw(lo, hi, shape, dtype=torch.int64):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=dtype)
+
+    rows = torch.arange(C, device=dev)
+    keys = draw(0, 1 << 40, (C,))
+    chunk = (keys, draw(0, 1000, (C,)), draw(1, 100, (C,)), rows < live)
+    table = [draw(0, 1 << 40, (S, W)), draw(0, 1000, (S, W)),
+             torch.zeros((S, W), dtype=torch.bool, device=dev),
+             torch.zeros((S, W), dtype=torch.int32, device=dev),
+             torch.zeros((S, W), dtype=torch.int64, device=dev)]
+    if prefilled:
+        table[2] = torch.rand((S, W), generator=g, device=dev) < 0.9
+        table[3] = draw(0, 6, (S, W), torch.int32)
+        table[4] = draw(1, 100, (S, W))
+        resident = keys[:live:3]
+        sets = tier2_plain.hash_sets(resident, S)
+        ways = draw(0, W, resident.shape)
+        table[0][sets, ways] = resident
+        table[2][sets, ways] = True
+    pays = None
+    if pay:
+        pays = (draw(0, 1 << 12, (S, W), torch.int32),
+                draw(-1, 6, (S, W), torch.int32),
+                draw(0, 1 << 12, (C,), torch.int32),
+                draw(-1, 6, (C,), torch.int32))
+    qkeys = torch.where(torch.rand(C, generator=g, device=dev) < 0.5, keys,
+                        keys + 1)
+    return (policy, table, chunk, pays,
+            (qkeys, rows < TIER2["probed"]))
+
+
+def tier2_same(got, want, what: str) -> None:
+    """Every output of a tier-2 kernel equals its plain twin's exactly."""
+    check(len(got) == len(want), f"{what}: {len(got)} outputs, plain "
+          f"{len(want)}")
+    for i, (a, b) in enumerate(zip(got, want)):
+        check(a.dtype == b.dtype and torch.equal(a, b),
+              f"{what}: output {i} differs from the plain twin's")
+
+
+def tier2_rows(dev) -> dict:
+    """Phase 3, tier 2: ``cache._insert``, then ``_probe`` (and with
+    payloads ``_probe_payload``) on the table it made, through the kernels
+    of ``csrc/tier2.cu`` at the static cell's shapes, each output held
+    exactly against the plain twin's on the same card tensors (every table
+    plane, the stamps, the admit and evict counts, the hits and values);
+    the wrapper's launches counted (two a round, one a probe).  The fresh
+    setassoc case is timed: the rows of ``tier2_insert`` and
+    ``tier2_probe``."""
+    C, S, W = TIER2["C"], TIER2["sets"], TIER2["ways"]
+    rounds = min(W, 8)
+    out, seen = {}, []
+    for case in range(len(TIER2_CASES)):
+        policy, table, chunk, pays, probe_rows = tier2_inputs(case, dev)
+        what = f"tier2 {policy}{' payload' if pays else ''} case {case}"
+        launched = (tier2_cuda.insert_launches, tier2_cuda.probe_launches)
+        ins = (lambda: cache_mod._insert(*table, *chunk, 3, policy=policy,
+                                         rounds=rounds, pay=pays))
+        got = ins()
+        want = tier2_plain.insert(*table, *chunk, 3, policy=policy,
+                                  rounds=rounds, pay=pays)
+        tier2_same(got, want, f"{what} insert")
+        n_admit, n_evict = int(want[-2]), int(want[-1])
+        check(n_admit > 0 and (n_evict > 0) == (case > 0),
+              f"{what}: {n_admit} admits, {n_evict} evictions")
+        tk, tv, tu, ts = got[:4]
+        probe = (lambda: cache_mod._probe(tk, tv, tu, ts, *probe_rows, 4))
+        gp = probe()
+        wp = tier2_plain.probe(tk, tv, tu, ts, *probe_rows, 4)
+        n_probes = 1
+        if pays:
+            tpoff, tplen = got[5:7]
+            gp += cache_mod._probe_payload(tk, tu, ts, tpoff, tplen,
+                                           *probe_rows, 5)
+            wp += tier2_plain.probe_payload(tk, tu, ts, tpoff, tplen,
+                                            *probe_rows, 5)
+            n_probes = 2
+        tier2_same(gp, wp, f"{what} probe")
+        n_hits = int(wp[0].sum())
+        check(n_hits > 0, f"{what}: the probe hit nothing")
+        check((tier2_cuda.insert_launches - launched[0],
+               tier2_cuda.probe_launches - launched[1])
+              == (2 * rounds, n_probes),
+              f"{what}: wrapper launches {tier2_cuda.insert_launches} / "
+              f"{tier2_cuda.probe_launches} do not follow the calls")
+        seen.append(f"{policy}{'+payload' if pays else ''}"
+                    f"{' prefilled' if case else ' fresh'}: "
+                    f"{n_admit} admitted, {n_evict} evicted, {n_hits} hits")
+        if case == 0:
+            tbytes = sum(t.numel() * t.element_size() for t in table)
+            live, probed = TIER2["live"], TIER2["probed"]
+            # insert: the mask, the live rows' keys, values and costs, the
+            # table read and written once; probe: the mask, the valid
+            # keys, the used plane, the stamp copy, C-wide hit and values
+            work = {"tier2_insert": (ins, lambda: tier2_plain.insert(
+                        *table, *chunk, 3, policy=policy, rounds=rounds),
+                        C + 24 * live + 2 * tbytes),
+                    "tier2_probe": (probe, lambda: tier2_plain.probe(
+                        tk, tv, tu, ts, *probe_rows, 4),
+                        C + 8 * probed + S * W + 8 * S * W + 9 * C)}
+            for name, (fn, plain_fn, n_bytes) in work.items():
+                row = dict(max_abs_err=0, ms=time_ms(fn), **busy(fn),
+                           plain_ms=time_ms(plain_fn, reps=3, warmup=1),
+                           **bound(n_bytes, 0), library_ms=None)
+                row["note"] = (
+                    f"C={C} S={S} W={W} live={live} probed={probed}; "
+                    "busy by op: " + ", ".join(
+                        f"{k.split('(')[0].replace('void ', '').strip()} "
+                        f"{v:.4f} ms" for k, v in sorted(
+                            row["busy_ops"].items(), key=lambda kv: -kv[1])))
+                out[name] = row
+        del table, chunk, pays, probe_rows, got, want, gp, wp, tk, tv, tu, ts
+        gc.collect()
+        torch.cuda.empty_cache()
+    for row in out.values():
+        row["note"] += "; exact on " + "; ".join(seen)
+    return out
+
+
 class SpliceCapture:
     """Record the splice kernel's largest call (most spliced rows) while
     a pass runs: its parent chunk, hit mask, block pointers and a copy of
@@ -1295,6 +1450,18 @@ def static_phase(q, db, db2, want2: int, dev) -> dict:
           and launches["fold_replay"] == se.stats["fold_calls_cuda"]
           - se.stats["fold_merged_calls_cuda"],
           "wrapper launches != executor counts in the static passes")
+    check(all(e.stats[f"tier2_{op}_calls_torch"] == 0 for e in engines
+              for op in ("probe", "insert")),
+          "a static pass ran a tier-2 op off the card")
+    probes = sum(e.stats["tier2_probe_calls_cuda"] for e in engines)
+    # an insert call launches two kernels a round
+    inserts = sum(2 * min(e.cache_config.ways, 8)
+                  * e.stats["tier2_insert_calls_cuda"] for e in engines)
+    check(launches["tier2_probe"] == probes > 0
+          and launches["tier2_insert"] == inserts > 0,
+          f"tier-2 launches {launches['tier2_probe']} / "
+          f"{launches['tier2_insert']} != executor counts {probes} / "
+          f"{inserts} in the static passes")
     print(f"[10 static] StaticCLFTJ, 4-cycle: count at ca-GrQc scale "
           f"C={C_STATIC}: {total} (oracle), largest need {count_needed}, "
           f"{count_s:.3f} s; count at wiki-Vote scale C={C_STATIC_WIKI}: "
@@ -3993,6 +4160,15 @@ def main() -> int:
               f"(plain {v['plain_ms']:.4f} ms, bound {v['bound_ms']:.6f} ms "
               f"by {v['bound_by']}, library {v['library_ms']} ms, "
               f"{v['note']})" for k, v in big.items()), flush=True)
+    # 3, the tier-2 probe and insert at the static benchmark cell's shapes
+    t2 = tier2_rows(dev)
+    print("[3 kernels] tier-2 ops at the static cell's shapes, bit-exact: "
+          + "; ".join(
+              f"{k}: {v['ms']:.4f} ms, device busy {v['busy_ms']:.4f} ms "
+              f"(plain {v['plain_ms']:.4f} ms, bound {v['bound_ms']:.6f} ms "
+              f"by {v['bound_by']}, {v['note']})" for k, v in t2.items()),
+          flush=True)
+    rows.update(t2)
 
     # 4. count on the wiki-Vote-scale graph (main path)
     q = cycle_query(4)

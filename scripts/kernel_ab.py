@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the flash-attention, EXPAND, FOLD (replay-only and merged), EMIT
-and bounded-search kernels of two checkouts in turns on one NVIDIA GPU.
+"""Time the flash-attention, EXPAND, FOLD (replay-only and merged), EMIT,
+bounded-search and tier-2 kernels of two checkouts in turns on one NVIDIA
+GPU.
 
     python3 scripts/kernel_ab.py OTHER_TREE
 
@@ -25,7 +26,10 @@ every process):
   (``chip_smoke.expand_inputs``) of the 4-cycle's plan of the
   wiki-Vote-scale graph; its busy time also split out for the bounded
   search's own kernels (``ctj::bound*``); and ``ctj_bound`` alone on
-  phase 3's 2^16 queries (``chip_smoke.bound_inputs``).
+  phase 3's 2^16 queries (``chip_smoke.bound_inputs``);
+* the tier-2 insert and probe (``core/cache.py::_insert`` and ``_probe``,
+  the op chains before the kernels of ``csrc/tier2.cu``) at the static
+  cell's shapes (:data:`TIER2`), on seeded keys: medians of 7 calls.
 
 Each time is the median of 25 calls by CUDA events, and the device busy
 time a call by torch.profiler, as ``chip_smoke.py`` takes them.  It
@@ -41,6 +45,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 TIMEOUT_S = 900
+# the tier-2 ops at the static cell's shapes (graph500.static-cycle4-count):
+# C = 2^26 rows, a 4-cycle pass's 1,410,739 representatives offered for
+# insert and 6,236,814 valid rows probed, each a prefix, fresh 2^19 x 8
+# setassoc tables
+TIER2 = {"C": 1 << 26, "sets": 1 << 19, "ways": 8, "reps": 1_410_739,
+         "probed": 6_236_814}
 
 
 def measure(tree: Path, label: str) -> dict:
@@ -134,6 +144,24 @@ def measure(tree: Path, label: str) -> dict:
 
     out["bound_2^16_ms"] = cs.time_ms(bound)
     out["bound_2^16_busy_ms"] = cs.busy(bound)["busy_ms"]
+    del col, v, lo, hi, F, eng
+    torch.cuda.empty_cache()
+
+    from repro_torch.core import cache
+    C, S, W = TIER2["C"], TIER2["sets"], TIER2["ways"]
+    rng = np.random.default_rng(cs.SEED)
+    keys = torch.from_numpy(rng.integers(0, 1 << 40, C)).to(dev)
+    vals = torch.from_numpy(rng.integers(1, 1 << 10, C)).to(dev)
+    rows = torch.arange(C, device=dev)
+    table = tuple(torch.zeros((S, W), dtype=dt, device=dev) for dt in (
+        torch.int64, torch.int64, torch.bool, torch.int32, torch.int64))
+    reps, probed = rows < TIER2["reps"], rows < TIER2["probed"]
+    for name, fn in (
+            ("insert", lambda: cache._insert(*table, keys, vals, vals, reps,
+                                             2, policy="setassoc", rounds=W)),
+            ("probe", lambda: cache._probe(*table[:4], keys, probed, 1))):
+        out[f"tier2_{name}_2^26_ms"] = cs.time_ms(fn, reps=7)
+        out[f"tier2_{name}_2^26_busy_ms"] = cs.busy(fn, reps=7)["busy_ms"]
     return out
 
 

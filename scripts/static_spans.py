@@ -20,7 +20,9 @@ passes, and the raw kineto events are reduced by :func:`reduce`:
 * ``span_host_s``: host seconds in each span, nested spans included.
 
 The row counters of the profiled passes come from
-``StaticCLFTJ.read_counters()``.  The script prints one JSON object, each
+``StaticCLFTJ.read_counters()``, and ``calls``, their launches by op and
+path (``expand_calls_cuda``, ``tier2_insert_calls_cuda`` ...), from the
+engine's ``stats``.  The script prints one JSON object, each
 figure over all the passes.  A span's range that kineto records again on
 the device timeline is not counted as a device op.
 """
@@ -138,6 +140,7 @@ def profile_passes(cell, seed: int, passes: int, device: str) -> dict:
     acts = [ProfilerActivity.CPU] + (
         [ProfilerActivity.CUDA] if prog.device.type == "cuda" else [])
     prog.static.read_counters()
+    calls0 = dict(prog.static.stats)
     try:
         trace.enable(True)
         with profile(activities=acts) as prof:
@@ -150,7 +153,9 @@ def profile_passes(cell, seed: int, passes: int, device: str) -> dict:
     out = reduce(prof.profiler.kineto_results.events(), t0, t1)
     out.update(passes=passes, seed=seed, counts=[r.n for r in recs],
                errors=[r.error for r in recs],
-               counters=prog.static.read_counters())
+               counters=prog.static.read_counters(),
+               calls={k: n - calls0.get(k, 0)
+                      for k, n in prog.static.stats.items() if "_calls_" in k})
     if prog.device.type == "cuda":
         out["device"] = torch.cuda.get_device_name(prog.device)
     prog.close()

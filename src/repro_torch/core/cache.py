@@ -3,8 +3,8 @@
 The paper's central knob is *flexibility*: "our solution balances memory
 usage and repeated computation" by choosing how much cache to keep and what
 to admit/evict (§3.4, Fig 10).  The frontier engine realizes the cache as
-device tensors updated by gather/scatter, so a "policy" here is a pair of
-ops (probe, insert) over a fixed table layout:
+device tensors, so a "policy" here is a pair of ops (probe, insert) over a
+fixed table layout:
 
 * ``direct``    — 1-way direct-mapped table: ``slot = hash(key) % S``;
   collisions overwrite unconditionally (hardware-style, zero metadata).
@@ -19,7 +19,9 @@ All policies are *caches of exact results*: correctness never depends on
 what is resident, only speed does (the paper's optionality property).  The
 ops are bit-for-bit twins of the reference's (``repro/core/cache.py``):
 same hash, same victim choice, same one-writer-per-set election, so the
-tables and their statistics match the reference's exactly.
+tables and their statistics match the reference's exactly.  On a CUDA
+chunk they are the kernels of ``csrc/tier2.cu``, whose work follows the
+live rows; on a CPU chunk the op chains of ``kernels/tier2/plain.py``.
 
 ``CacheManager`` owns one ``DeviceCache`` per TD node and the **dynamic
 sizing controller**: between subtree launches it grows a table whose misses
@@ -48,20 +50,13 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..kernels.registry import path_of
+from ..kernels.tier2 import cuda as tier2_cuda, plain as tier2_plain
 from .hostsync import device_get
-
-_MIX = -7046029254386353131  # 0x9E3779B97F4A7C15 as signed int64
 
 POLICIES = ("direct", "setassoc", "costaware")
 
-
-def _hash_sets(keys: torch.Tensor, n_sets: int) -> torch.Tensor:
-    """Set index of each int64 key: a wraparound multiply, an arithmetic
-    shift and a floor modulo (``remainder``, not ``fmod``), as the
-    reference computes it."""
-    h = keys * _MIX
-    h = h ^ (h >> 29)
-    return torch.remainder(torch.abs(h), n_sets)
+_hash_sets = tier2_plain.hash_sets
 
 
 @dataclass(frozen=True)
@@ -143,30 +138,25 @@ class CacheConfig:
 
 def _probe(tkeys, tvals, tused, tstamp, keys, active, tick: int):
     """Batched lookup; returns (hit, vals, stamp') — stamp' records the LRU
-    touch of every hit way (scatter-max, so duplicate rows are harmless)."""
-    n_sets, W = tkeys.shape
-    sets = _hash_sets(keys, n_sets)
-    match = tused[sets] & (tkeys[sets] == keys[:, None]) & active[:, None]
-    hit = match.any(dim=1)
-    way = match.to(torch.int8).argmax(dim=1)  # first matching way
-    vals = torch.where(hit, tvals[sets, way], 0)
-    stamp = tstamp.reshape(-1).scatter_reduce(
-        0, sets * W + way, torch.where(hit, tick, -1).to(tstamp.dtype),
-        "amax").reshape(n_sets, W)
-    return hit, vals, stamp
+    touch of every hit way (scatter-max, so duplicate rows are harmless).
+
+    A CUDA chunk launches ``ctj_tier2_probe`` (``kernels/tier2/cuda.py``),
+    a CPU chunk runs the op chain of ``kernels/tier2/plain.py``: the same
+    results, bit for bit."""
+    if path_of(keys) == "cuda":
+        return tier2_cuda.probe(tkeys, tvals, tused, tstamp, keys, active,
+                                tick)
+    return tier2_plain.probe(tkeys, tvals, tused, tstamp, keys, active, tick)
 
 
 def _insert(tkeys, tvals, tused, tstamp, tcost, keys, vals, costs, active,
             tick: int, *, policy: str, rounds: int = 1, pay=None):
     """Batched fill.  Victim selection per policy.
 
-    Each round elects exactly one writer per set (scatter-max of the row
-    index — duplicate-index scatters must not carry the write mask, or a
-    masked row's "keep old value" no-op could land after a real admit
-    and clobber it) and writes through per-set *unique* indices: on CUDA
-    an index_put_ with duplicate indices has no defined winner.
-    ``rounds`` (≈ the way count) re-reads the updated table so batch
-    collisions retry into the remaining ways instead of being dropped.
+    Each round elects exactly one writer per set (the highest admitted row
+    index) and writes it into its victim way.  ``rounds`` (≈ the way
+    count) re-reads the updated table so batch collisions retry into the
+    remaining ways instead of being dropped.
 
     ``pay`` (``None`` or ``(tpoff, tplen, poff, plen)``) carries the
     payload metadata planes through the same election, with two rules:
@@ -180,95 +170,35 @@ def _insert(tkeys, tvals, tused, tstamp, tcost, keys, vals, costs, active,
 
     Returns the new tables (the inputs are not modified), then — with
     ``pay`` — the new ``(tpoff, tplen)``, then the admit and evict counts
-    (0-d int32).
+    (0-d int32).  A CUDA chunk launches ``ctj_tier2_insert`` (two kernels
+    a round whose work follows the rows still remaining), a CPU chunk runs
+    the op chain of ``kernels/tier2/plain.py`` over all C rows: the same
+    results, bit for bit.
     """
-    n_sets = tkeys.shape[0]
-    C = keys.shape[0]
-    dev = keys.device
-    tkeys, tvals, tused = tkeys.clone(), tvals.clone(), tused.clone()
-    tstamp, tcost = tstamp.clone(), tcost.clone()
-    if pay is not None:
-        tpoff, tplen, poff, plen = pay
-        tpoff, tplen = tpoff.clone(), tplen.clone()
-        cand_pay = plen >= 0
-    rows = torch.arange(C, dtype=torch.int32, device=dev)
-    set_ids = torch.arange(n_sets, device=dev)
-    sets = torch.where(active, _hash_sets(keys, n_sets), 0)
-    remaining = active
-    no_res = torch.zeros(C, dtype=torch.bool, device=dev)
-    n_admit = torch.zeros((), dtype=torch.int32, device=dev)
-    n_evict = torch.zeros((), dtype=torch.int32, device=dev)
-    for _ in range(max(1, rounds)):
-        way_used = tused[sets]                       # (C, W)
-        resident = way_used & (tkeys[sets] == keys[:, None])
+    if path_of(keys) == "cuda":
+        i64, i32 = torch.int64, torch.int32
         if pay is not None:
-            blocking = resident & ((tplen[sets] >= 0) | ~cand_pay[:, None])
-        else:
-            blocking = resident                      # dup already admitted
-        rem = remaining & ~blocking.any(dim=1)
-        any_free = ~way_used.all(dim=1)
-        free_way = way_used.to(torch.int8).argmin(dim=1)  # first invalid way
-        if policy == "costaware":
-            contested = torch.where(way_used, tcost[sets],
-                                    2 ** 62).argmin(dim=1)
-        else:  # direct (W=1 → way 0) and setassoc both take the LRU way
-            contested = torch.where(way_used, tstamp[sets],
-                                    2 ** 31 - 1).argmin(dim=1)
-        victim = torch.where(any_free, free_way, contested)
-        has_res = no_res
-        if pay is not None:
-            # a payload-less resident is refreshed in its own way
-            has_res = resident.any(dim=1)
-            victim = torch.where(has_res,
-                                 resident.to(torch.int8).argmax(dim=1),
-                                 victim)
-        admit = rem
-        if policy == "costaware":
-            incumbent = tcost[sets, victim]
-            admit = admit & (has_res | any_free | (costs >= incumbent))
-        # elect one admitted writer per set (highest row index)
-        winner = torch.full((n_sets,), -1, dtype=torch.int32,
-                            device=dev).scatter_reduce_(
-            0, sets, torch.where(admit, rows, -1), "amax")
-        src = winner.clamp(0, C - 1)                 # (S,) winning row
-        do_w = winner >= 0
-        sel = (set_ids, victim[src])                 # unique per set
-        tkeys[sel] = torch.where(do_w, keys[src], tkeys[sel])
-        tvals[sel] = torch.where(do_w, vals[src], tvals[sel])
-        tcost[sel] = torch.where(do_w, costs[src], tcost[sel])
-        tstamp[sel] = torch.where(do_w, tick, tstamp[sel]).to(tstamp.dtype)
-        if pay is not None:
-            tpoff[sel] = torch.where(do_w, poff[src], tpoff[sel])
-            tplen[sel] = torch.where(do_w, plen[src], tplen[sel])
-        tused[sel] = tused[sel] | do_w
-        won = admit & (winner[sets] == rows)
-        n_admit = n_admit + won.sum(dtype=torch.int32)
-        n_evict = n_evict + (won & ~any_free & ~has_res).sum(
-            dtype=torch.int32)
-        remaining = rem & ~won
-    if pay is not None:
-        return (tkeys, tvals, tused, tstamp, tcost, tpoff, tplen, n_admit,
-                n_evict)
-    return tkeys, tvals, tused, tstamp, tcost, n_admit, n_evict
+            tpoff, tplen, poff, plen = pay
+            pay = (tpoff, tplen, poff.to(i32), plen.to(i32))
+        return tier2_cuda.insert(tkeys, tvals, tused, tstamp, tcost, keys,
+                                 vals.to(i64), costs.to(i64), active, tick,
+                                 policy=policy, rounds=rounds, pay=pay)
+    return tier2_plain.insert(tkeys, tvals, tused, tstamp, tcost, keys, vals,
+                              costs, active, tick, policy=policy,
+                              rounds=rounds, pay=pay)
 
 
 def _probe_payload(tkeys, tused, tstamp, tpoff, tplen, keys, active,
                    tick: int):
     """Evaluation-mode lookup: a hit additionally requires a resident row
     block (``pay_len >= 0``) — entries inserted count-only are misses
-    here.  Returns (hit, poff, plen, stamp')."""
-    n_sets, W = tkeys.shape
-    sets = _hash_sets(keys, n_sets)
-    match = (tused[sets] & (tkeys[sets] == keys[:, None])
-             & (tplen[sets] >= 0) & active[:, None])
-    hit = match.any(dim=1)
-    way = match.to(torch.int8).argmax(dim=1)  # first matching way
-    poff = torch.where(hit, tpoff[sets, way], 0)
-    plen = torch.where(hit, tplen[sets, way], 0)
-    stamp = tstamp.reshape(-1).scatter_reduce(
-        0, sets * W + way, torch.where(hit, tick, -1).to(tstamp.dtype),
-        "amax").reshape(n_sets, W)
-    return hit, poff, plen, stamp
+    here.  Returns (hit, poff, plen, stamp'); dispatched as
+    :func:`_probe`."""
+    if path_of(keys) == "cuda":
+        return tier2_cuda.probe_payload(tkeys, tused, tstamp, tpoff, tplen,
+                                        keys, active, tick)
+    return tier2_plain.probe_payload(tkeys, tused, tstamp, tpoff, tplen, keys,
+                                     active, tick)
 
 
 # ---------------------------------------------------------------------------

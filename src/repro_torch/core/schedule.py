@@ -942,7 +942,9 @@ def execute_static(schedule: Schedule, engine, F0, tables: Dict[int, tuple],
     (``expand_calls_cuda`` …, chain EXPANDs and their bound calls as
     :func:`expand_launches` counts them, ``fold_merged_calls_*`` for the
     merged arity, which ``fold_calls_*`` also counts; the op chains as
-    ``*_calls_chain``), ``fold_sorted_exits`` (the fused folds that
+    ``*_calls_chain``; the tier-2 table ops, by :func:`path_of`, as
+    ``tier2_probe_calls_*`` and ``tier2_insert_calls_*``),
+    ``fold_sorted_exits`` (the fused folds that
     sorted their exits first) and ``needed_max`` (a 0-d device
     tensor: the most rows any op of the pass needed, a merged FOLD's
     replay and splice rows together).  With tracing on
@@ -966,10 +968,16 @@ def execute_static(schedule: Schedule, engine, F0, tables: Dict[int, tuple],
     for op_name in ("expand", "fold", "fold_merged", "emit"):
         for path in ("cuda", "torch", "chain"):
             counts.setdefault(f"{op_name}_calls_{path}", 0)
+    for op_name in ("tier2_probe", "tier2_insert"):
+        for path in ("cuda", "torch"):
+            counts.setdefault(f"{op_name}_calls_{path}", 0)
     counts.setdefault("fold_sorted_exits", 0)
 
     def launched(op_name: str, fn, t: torch.Tensor) -> None:
         counts[f"{op_name}_calls_{launch_path(fn, t)}"] += 1
+
+    def tier2_call(op_name: str, t: torch.Tensor) -> None:
+        counts[f"tier2_{op_name}_calls_{path_of(t)}"] += 1
 
     F = F0
     ov = torch.zeros((), dtype=torch.bool, device=dev)
@@ -1019,6 +1027,7 @@ def execute_static(schedule: Schedule, engine, F0, tables: Dict[int, tuple],
                 if use_t2:
                     with span("ctj.tier2.probe"):
                         tick += 1
+                        tier2_call("probe", keys)
                         if mode == "evaluate":
                             tk, tv, tu, ts, tc, tpoff, tplen, slab, bump = tbl
                             hit, poff, plen, ts = cache_probe_payload(
@@ -1115,6 +1124,7 @@ def execute_static(schedule: Schedule, engine, F0, tables: Dict[int, tuple],
                                 cap=int(cfg.payload_rows))
                             _store_blocks(slab, E, offs, admit, d0=d0, d1=d1)
                             tick += 1
+                            tier2_call("insert", rep_keys)
                             lens = ecnt.to(i64)
                             out = cache_insert(
                                 tk, tv, tu, ts, tc, rep_keys, lens,
@@ -1144,6 +1154,7 @@ def execute_static(schedule: Schedule, engine, F0, tables: Dict[int, tuple],
                                       rep_active.sum(dtype=i64))
                             tbl = tables[op.node]
                             tick += 1
+                            tier2_call("insert", rep_keys)
                             if len(tbl) > 5:
                                 # a payload table in count mode: the count
                                 # insert writes the -1 sentinel into the

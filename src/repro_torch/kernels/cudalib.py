@@ -32,7 +32,7 @@ __all__ = ["load", "build_seconds", "build_log", "check", "ptr",
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("expand.cu", "fold.cu", "emit.cu", "leapfrog.cu",
-           "flash_attention.cu")
+           "flash_attention.cu", "tier2.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -54,6 +54,8 @@ _SIGNATURES = {
     "ctj_bound": [_P] * 4 + [_I] * 3 + [_P, _P],
     "ctj_bound_atoms": [_P, _I] + [_P] * 4 + [_I, _I, _P],
     "ctj_flash_attention": [_P] * 4 + [_I] * 10 + [_F, _P],
+    "ctj_tier2_probe": [_P] * 8 + [_I] * 4 + [_P] * 5,
+    "ctj_tier2_insert": [_P] * 12 + [_I] * 6 + [_P] * 5,
 }
 
 _lock = threading.Lock()

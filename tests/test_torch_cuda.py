@@ -1147,3 +1147,154 @@ def test_probe_flops_match_a_live_count(dev):
     assert live["kernel_flops"] > 0 and live["launches"] > 0
     assert abs(probe["flops"] / live["flops"] - 1) <= 0.01, \
         (probe["flops"], live)
+
+
+TIER2_CHUNKS = ("sparse-prefix", "dense", "one-set", "dup-keys", "prefilled")
+
+
+def _tier2_inputs(chunk, policy, pay, seed):
+    """numpy inputs of one insert and the probe after it: the table (S, W)
+    planes, the chunk's rows and, with ``pay``, the payload planes.
+
+    * ``sparse-prefix``: C = 2^22, the first 2% of rows live (as the
+      static pass offers its representatives), the rest garbage;
+    * ``dense``: C = 2^16, 90% live, four keys a slot;
+    * ``one-set``: every key hashes to one set of a full table, so every
+      round admits one row there and evicts one;
+    * ``dup-keys``: C = 2^16 keys from 500 values;
+    * ``prefilled``: a nearly full table whose residents share the
+      batch's key range (blocked, refreshed and evicted rows).
+
+    The probe's rows are the chunk's keys or misses (key + 1), 80%
+    active."""
+    from repro_torch.kernels.tier2 import plain as tier2_plain
+    rng = np.random.default_rng(seed)
+    W = 1 if policy == "direct" else 8
+    S, C, key_range, filled = 1 << 12, 1 << 16, 1 << 40, 0.0
+    if chunk == "sparse-prefix":
+        S, C = 1 << 16, 1 << 22
+    elif chunk == "one-set":
+        S, C, filled = 64, 4096, 1.0
+    elif chunk == "dup-keys":
+        key_range = 500
+    elif chunk == "prefilled":
+        key_range, filled = 1 << 15, 0.9
+    keys = rng.integers(-key_range, key_range, C)
+    if chunk == "one-set":
+        cand = rng.integers(-(1 << 62), 1 << 62, 1 << 20)
+        sets = tier2_plain.hash_sets(torch.from_numpy(cand), S).numpy()
+        keys = cand[sets == 3][:C]
+        assert keys.shape[0] == C
+    active = (np.arange(C) < C // 50 if chunk == "sparse-prefix"
+              else rng.random(C) < 0.9)
+    table = [rng.integers(-key_range, key_range, (S, W)),
+             rng.integers(0, 1000, (S, W)), rng.random((S, W)) < filled,
+             rng.integers(0, 6, (S, W)).astype(np.int32),
+             rng.integers(1, 100, (S, W))]
+    rows = [keys, rng.integers(0, 1000, C), rng.integers(1, 100, C), active]
+    pays = None
+    if pay:
+        pays = [rng.integers(0, 1 << 12, (S, W)).astype(np.int32),
+                rng.integers(-1, 6, (S, W)).astype(np.int32),
+                rng.integers(0, 1 << 12, C).astype(np.int32),
+                rng.integers(-1, 6, C).astype(np.int32)]
+    qkeys = np.where(rng.random(C) < 0.5, keys, keys + 1)
+    return table, rows, pays, (qkeys, rng.random(C) < 0.8)
+
+
+@pytest.mark.parametrize("chunk", TIER2_CHUNKS)
+@pytest.mark.parametrize("pay", [False, True], ids=["count", "payload"])
+@pytest.mark.parametrize("policy", ["direct", "setassoc", "costaware"])
+def test_tier2_kernels_match_plain(dev, policy, pay, chunk):
+    """``ctj_tier2_insert`` and ``ctj_tier2_probe`` (through
+    ``cache._insert``, ``_probe`` and ``_probe_payload`` on CUDA chunks)
+    against the plain twins on the same inputs on the CPU: every table
+    plane, the admit and evict counts, and the probe's hits, values (or
+    block offsets and lengths) and stamps, equal exactly."""
+    from repro_torch.core import cache as cache_mod
+    from repro_torch.kernels.tier2 import cuda as tier2_cuda
+    from repro_torch.kernels.tier2 import plain as tier2_plain
+    table, rows, pays, (qkeys, qactive) = _tier2_inputs(
+        chunk, policy, pay, seed=len(chunk) * 7 + pay)
+    W = table[0].shape[1]
+    kw = dict(policy=policy, rounds=min(W, 8))
+    t = [torch.from_numpy(a) for a in table]
+    r = [torch.from_numpy(a) for a in rows]
+    p = None if pays is None else [torch.from_numpy(a) for a in pays]
+    on = lambda xs: None if xs is None else [x.to(dev) for x in xs]  # noqa
+    before = (tier2_cuda.insert_launches, tier2_cuda.probe_launches)
+    got = cache_mod._insert(*on(t), *on(r), 7, pay=on(p), **kw)
+    want = tier2_plain.insert(*t, *r, 7, pay=p, **kw)
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b), i
+    n_admit, n_evict = int(want[-2]), int(want[-1])
+    assert n_admit > 0
+    if chunk in ("one-set", "prefilled"):
+        assert n_evict > 0
+    if chunk == "one-set":
+        assert n_admit == n_evict == min(W, 8)  # one a round
+    # the probe's rows: the table's residents first, then the chunk's
+    # keys and misses
+    tk, tv, tu, ts = want[:4]
+    resident = tk[tu][:qkeys.shape[0]].numpy()
+    qkeys[:resident.shape[0]] = resident
+    q = [torch.from_numpy(a) for a in (qkeys, qactive)]
+    gp = cache_mod._probe(*on([tk, tv, tu, ts]), *on(q), 8)
+    wp = tier2_plain.probe(tk, tv, tu, ts, *q, 8)
+    if pay:
+        tpoff, tplen = want[5:7]
+        gp = gp + cache_mod._probe_payload(*on([tk, tu, ts, tpoff, tplen]),
+                                           *on(q), 9)
+        wp = wp + tier2_plain.probe_payload(tk, tu, ts, tpoff, tplen, *q, 9)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(gp, wp)):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b), i
+    assert bool(wp[0].any())
+    assert (tier2_cuda.insert_launches, tier2_cuda.probe_launches) == (
+        before[0] + 2 * kw["rounds"], before[1] + 1 + pay)
+
+
+def test_tier2_on_a_cuda_chunk_never_runs_plain(dev, monkeypatch):
+    """Every caller of the tier-2 ops on CUDA tensors launches the kernels
+    and never reaches the plain twins: ``DeviceCache`` probe, payload
+    probe, insert and rehash, and a static count and evaluation pass,
+    whose counts report CUDA calls only."""
+    from repro_torch.core.cache import DeviceCache
+    from repro_torch.core.distributed import StaticCLFTJ
+    from repro_torch.kernels.tier2 import cuda as tier2_cuda
+    from repro_torch.kernels.tier2 import plain as tier2_plain
+
+    def refuse(*args, **kw):
+        raise AssertionError("a CUDA chunk reached the plain tier-2 ops")
+
+    for name in ("probe", "insert", "probe_payload"):
+        monkeypatch.setattr(tier2_plain, name, refuse)
+    rng = np.random.default_rng(4)
+    keys = torch.from_numpy(rng.integers(0, 300, 1 << 10)).to(dev)
+    active = torch.from_numpy(rng.random(1 << 10) < 0.7).to(dev)
+    before = (tier2_cuda.insert_launches, tier2_cuda.probe_launches)
+    tbl = DeviceCache.create(PAYLOAD, 64, device=dev)
+    tbl.insert(keys, keys.clamp(min=0), active)
+    hit, _ = tbl.probe(keys, active)
+    tbl.insert(keys, keys.clamp(min=0), active,
+               poff=torch.zeros_like(keys, dtype=torch.int32),
+               plen=torch.ones_like(keys, dtype=torch.int32))
+    phit, _, _ = tbl.probe_payload(keys, active)
+    tbl._rehash(128)
+    st = tbl.stats()
+    assert bool(hit.any()) and bool(phit.any()) and st["slots"] == 128
+    assert st["occupancy"] > 0
+    assert (tier2_cuda.insert_launches, tier2_cuda.probe_launches) == (
+        before[0] + 3 * 2 * min(PAYLOAD.ways, 8), before[1] + 2)
+    q = cycle_query(4)
+    db = _db(nv=16, ne=120)
+    td, order = engine.plan_query(q, db)
+    eng = StaticCLFTJ(q, td, order, db, capacity=1 << 15, cache=PAYLOAD,
+                      device=dev)
+    eng.count_fn()(eng.initial_frontier())
+    eng.evaluate_static()
+    for op in ("probe", "insert"):
+        assert eng.stats[f"tier2_{op}_calls_cuda"] > 0, op
+        assert eng.stats[f"tier2_{op}_calls_torch"] == 0, op

@@ -360,3 +360,7 @@ def test_spans_script_profiles_the_cell_on_the_cpu():
     assert c["tier2_hits"] == 0 < c["tier2_probes"] == c[
         "tier1_rows_entered"]
     assert 0 < c["tier1_rows_collapsed"] < c["tier1_rows_entered"]
+    calls = got["calls"]
+    assert calls["tier2_probe_calls_torch"] == calls[
+        "tier2_insert_calls_torch"] == 2
+    assert calls["tier2_probe_calls_cuda"] == calls["expand_calls_cuda"] == 0
